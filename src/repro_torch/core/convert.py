@@ -1,0 +1,66 @@
+"""Carry models and sweep state across as plain numpy arrays.
+
+A model or a carry written by another program (or by the JAX reference
+package this port mirrors) crosses into the port as a dict of numpy
+arrays: that keeps the port free of any other framework, and the bytes
+are exactly the same on both sides.  MT19937 state travels as uint32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import ising
+from repro_torch.core.engine import SweepCarry
+
+MODEL_KEYS = ("n", "L", "h", "space_nbr", "space_J", "tau_J", "beta")
+
+
+def model_to_arrays(m: ising.LayeredModel) -> dict:
+    """``{n, L, h, space_nbr, space_J, tau_J, beta}`` as numpy values."""
+    return {
+        "n": np.int64(m.n),
+        "L": np.int64(m.L),
+        "h": np.asarray(m.h, np.float32),
+        "space_nbr": np.asarray(m.space_nbr, np.int32),
+        "space_J": np.asarray(m.space_J, np.float32),
+        "tau_J": np.asarray(m.tau_J, np.float32),
+        "beta": np.float64(m.beta),
+    }
+
+
+def model_from_arrays(d: dict) -> ising.LayeredModel:
+    """The inverse of `model_to_arrays`."""
+    missing = [k for k in MODEL_KEYS if k not in d]
+    if missing:
+        raise ValueError(f"model arrays miss {missing}")
+    return ising.LayeredModel(
+        n=int(d["n"]),
+        L=int(d["L"]),
+        h=np.asarray(d["h"], np.float32),
+        space_nbr=np.asarray(d["space_nbr"], np.int32),
+        space_J=np.asarray(d["space_J"], np.float32),
+        tau_J=np.asarray(d["tau_J"], np.float32),
+        beta=float(d["beta"]),
+    )
+
+
+def carry_to_numpy(carry: SweepCarry) -> dict:
+    """The five `SweepCarry` leaves as host numpy; rng as uint32."""
+    out = {f: getattr(carry, f).detach().cpu().numpy() for f in SweepCarry._fields}
+    out["rng"] = out["rng"].view(np.uint32)
+    return out
+
+
+def carry_from_numpy(d: dict, device="cuda") -> SweepCarry:
+    """A `SweepCarry` on ``device`` from five numpy leaves (rng uint32)."""
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)  # a writable copy
+
+    rng = np.ascontiguousarray(np.asarray(d["rng"], np.uint32)).view(np.int32)
+    return SweepCarry(
+        f32(d["spins"]), f32(d["h_space"]), f32(d["h_tau"]), f32(d["betas"]),
+        torch.from_numpy(rng.copy()).to(device),
+    )

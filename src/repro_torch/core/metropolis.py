@@ -1,0 +1,147 @@
+"""The colored ("cb") Metropolis sweep as plain PyTorch tensor code.
+
+This is the plain version of the rung the CUDA kernel implements
+(kernels/csrc/colored_multisweep.cu): the same class visit order, the
+same per-row field expression and the same accept test, written as
+whole-class tensor ops.  It runs on CPU or CUDA tensors and is bit-exact
+with the kernel (and with the reference's jnp path): no reductions, no
+scatter-adds — every float is an elementwise op or a gather with a fixed
+order.
+
+Replicas are an explicit leading batch dimension: spins, fields and
+uniforms are ``(B, rows, V)``, betas ``(B,)``.
+
+The lane layout's rows are grouped into C conflict-free color classes
+(`reorder.colored_classes`); one sweep is C whole-lattice masked updates.
+Per class, each row's field is recomputed from the current spins,
+
+    h_eff = (h + sum_d J_d * s[tgt_d]) + tau * (down + up)
+
+where ``down``/``up`` are the previous/next-layer spins, read one lane
+over (rolled) at section-start/-end rows; the row flips if
+``u[row] < fastexp(((-2 beta) * s) * h_eff)``.  After the last sweep the
+carried fields are refreshed densely (`lane_h_eff`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import ising, reorder
+
+
+class LaneState(NamedTuple):
+    spins: torch.Tensor  # (rows, V), or (B, rows, V) batched
+    h_space: torch.Tensor
+    h_tau: torch.Tensor
+
+
+def make_lane_state(
+    m: ising.LayeredModel, spins: np.ndarray, V: int, device="cuda"
+) -> LaneState:
+    """Lane-layout state of one flat configuration; fields from scratch."""
+    hs, ht = ising.h_eff_from_scratch(m, spins)
+
+    def lane(x):
+        return torch.from_numpy(reorder.to_lane(x, m.n, m.L, V)).to(device)
+
+    return LaneState(lane(np.asarray(spins, np.float32)), lane(hs), lane(ht))
+
+
+def classes_to(classes, device) -> tuple:
+    """`reorder.ColorClass` tables as tensors on ``device`` (bool masks
+    stay bool, ids int64 for indexing)."""
+
+    def conv(x):
+        x = np.asarray(x)
+        if x.dtype.kind == "i":
+            x = x.astype(np.int64)
+        return torch.from_numpy(x).to(device)
+
+    return tuple(reorder.ColorClass(*(conv(leaf) for leaf in cls)) for cls in classes)
+
+
+def _flip(s, h_sum, u, beta, exp_fn):
+    """Metropolis accept test; returns (S_mul = s*mask, new spin).
+
+    p = exp(-2 beta s h_eff); accept if u < p.  ``beta`` broadcasts
+    against ``s`` (a (B, 1, 1) column for batched spins).
+    """
+    x = ((-2.0 * beta) * s) * h_sum
+    p = exp_fn(x)
+    mask = (u < p).to(torch.float32)
+    return s * mask, s * (1.0 - 2.0 * mask)
+
+
+def lane_h_eff(
+    spins: torch.Tensor,  # (B, rows, V)
+    h: torch.Tensor,  # (n,)
+    base_nbr: torch.Tensor,  # (n, SD) int64
+    base_J: torch.Tensor,  # (n, SD) NOT doubled
+    tau_J: torch.Tensor,  # (n,)
+    n: int,
+):
+    """Dense recomputation of (h_space, h_tau) over the lane layout.
+
+    Section boundaries: the previous layer of a section-start row is the
+    section-end row one lane over (roll +1), the next layer of a
+    section-end row is the section-start row one lane over (roll -1).
+    """
+    B, rows, V = spins.shape
+    lpv = rows // n
+    s = spins.reshape(B, lpv, n, V)
+    hs = h[None, None, :, None].expand(s.shape)
+    for d in range(base_nbr.shape[1]):
+        hs = hs + base_J[None, None, :, d, None] * s[:, :, base_nbr[:, d], :]
+    down = torch.cat([torch.roll(s[:, -1:], 1, dims=-1), s[:, :-1]], dim=1)
+    up = torch.cat([s[:, 1:], torch.roll(s[:, :1], -1, dims=-1)], dim=1)
+    ht = tau_J[None, None, :, None] * (down + up)
+    return hs.reshape(B, rows, V), ht.reshape(B, rows, V)
+
+
+def colored_flip_spins(
+    spins: torch.Tensor,  # (B, rows, V)
+    u: torch.Tensor,  # (B, rows, V) uniforms, indexed by row id
+    beta: torch.Tensor,  # (B,)
+    classes,  # `classes_to` output
+    exp_fn,
+) -> torch.Tensor:
+    """One colored sweep over the spins: C whole-lattice masked updates.
+    Returns new spins; the input tensor is not modified."""
+    col = beta[:, None, None]
+    for cls in classes:
+        sc = spins[:, cls.rows]  # (B, k, V)
+        hs_c = cls.h[None, :, None].expand(sc.shape)
+        for d in range(cls.space_tgt.shape[1]):
+            hs_c = hs_c + cls.space_J[None, :, d, None] * spins[:, cls.space_tgt[:, d]]
+        down = spins[:, cls.down_src]
+        down = torch.where(cls.down_roll[None, :, None], torch.roll(down, 1, dims=-1), down)
+        up = spins[:, cls.up_src]
+        up = torch.where(cls.up_roll[None, :, None], torch.roll(up, -1, dims=-1), up)
+        ht_c = cls.tau_J[None, :, None] * (down + up)
+        _, s_new = _flip(sc, hs_c + ht_c, u[:, cls.rows], col, exp_fn)
+        spins = spins.index_copy(1, cls.rows, s_new)
+    return spins
+
+
+def sweep_colored(
+    state: LaneState,  # batched (B, rows, V)
+    classes,  # `classes_to` output
+    h: torch.Tensor,
+    base_nbr: torch.Tensor,
+    base_J: torch.Tensor,
+    tau_J: torch.Tensor,
+    u: torch.Tensor,  # (B, rows, V) uniforms
+    beta: torch.Tensor,  # (B,)
+    n: int,
+    exp_fn,
+) -> LaneState:
+    """One colored Metropolis sweep.  The incoming fields are ignored
+    (fields are recomputed from spins); the returned ones are the dense
+    `lane_h_eff` of the new spins."""
+    spins = colored_flip_spins(state.spins, u, beta, classes, exp_fn)
+    hs, ht = lane_h_eff(spins, h, base_nbr, base_J, tau_J, n)
+    return LaneState(spins, hs, ht)

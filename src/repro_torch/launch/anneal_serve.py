@@ -1,0 +1,194 @@
+"""Annealing-as-a-service CLI: a job mix through one resident SampleServer.
+
+Packs annealing jobs (seed + beta schedule + sweep budget) into the
+replica batch of ONE resident `SweepEngine`, advancing everyone by fused
+chunks — one launch of the colored-multisweep CUDA kernel per chunk — and
+retiring/admitting between chunks.
+
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
+      --device cpu --jobs 8 --slots 4 --chunk 4 --n 8 --L 16 --V 4
+
+``--device cpu`` serves with the plain PyTorch version (``--backend``
+defaults to ``cuda`` on a CUDA device and to ``torch`` elsewhere).
+Admission defaults to the weighted-fair priority scheduler
+(``--policy fair``); results are bit-identical under every policy.
+``--trace PATH`` writes the run's Chrome-trace-event JSON; ``--metrics``
+prints the Prometheus text exposition of the server's registry.
+
+The job mix is anneal-only: parallel-tempering jobs (``--pt-replicas``),
+device meshes (``--devices``) and snapshots (``--snapshot-dir``,
+``--snapshot-every``, ``--resume``) are not ported yet and raise
+ValueError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import NamedTuple
+
+import numpy as np
+
+from repro_torch.core import ising
+from repro_torch.serve_mc import AnnealJob, SampleServer
+
+
+class ServeReport(NamedTuple):
+    """What one CLI run served: the results, the drained server, the
+    model it served and the drain's wall seconds (synchronized)."""
+
+    results: list
+    server: SampleServer
+    model: ising.LayeredModel
+    seconds: float
+
+
+def build_job_mix(args) -> list:
+    """A deterministic anneal workload: constant-beta jobs with scattered
+    budgets, every 4th job a linear beta ramp, three users, every 5th job
+    expedited (priority 1)."""
+    rng = np.random.default_rng(args.seed)
+    jobs = []
+    for i in range(args.jobs):
+        budget = int(rng.integers(args.budget_min, args.budget_max + 1))
+        user = f"user{i % 3}"
+        priority = 1 if i % 5 == 4 else 0
+        if i % 4 == 3:
+            steps = max(2, budget // max(1, args.chunk))
+            jobs.append(
+                AnnealJob.ramp(
+                    seed=args.seed * 1000 + i,
+                    beta_start=0.3,
+                    beta_end=float(args.beta),
+                    steps=steps,
+                    sweeps_per_step=max(1, budget // steps),
+                    user=user,
+                    priority=priority,
+                )
+            )
+        else:
+            jobs.append(
+                AnnealJob.constant(
+                    seed=args.seed * 1000 + i,
+                    sweeps=budget,
+                    beta=float(rng.uniform(0.5, 1.5)),
+                    user=user,
+                    priority=priority,
+                )
+            )
+    return jobs
+
+
+_UNPORTED_FLAGS = {
+    "pt_replicas": "--pt-replicas",
+    "devices": "--devices",
+    "snapshot_dir": "--snapshot-dir",
+    "snapshot_every": "--snapshot-every",
+    "resume": "--resume",
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--jobs", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--chunk", type=int, default=8)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--backend", default=None, choices=["cuda", "torch"],
+                    help="cuda = the hand-written kernel, torch = the plain "
+                         "version; default cuda on a CUDA device, else torch")
+    ap.add_argument("--rung", default="cb", help="sweep rung (only 'cb' is ported)")
+    ap.add_argument("--policy", default="fair", choices=["fifo", "backfill", "fair"])
+    ap.add_argument("--V", type=int, default=128)
+    ap.add_argument("--n", type=int, default=8)
+    ap.add_argument("--L", type=int, default=256)
+    ap.add_argument("--beta", type=float, default=1.2)
+    ap.add_argument("--budget-min", type=int, default=8)
+    ap.add_argument("--budget-max", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="write a Chrome-trace-event JSON of the run")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the Prometheus text exposition after the drain")
+    ap.add_argument("--quiet", action="store_true", help="print nothing")
+    # Not ported yet: accepted so that using them fails with a clear error.
+    ap.add_argument("--pt-replicas", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--snapshot-dir", default=None)
+    ap.add_argument("--snapshot-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true")
+    args = ap.parse_args(argv)
+    for attr, flag in _UNPORTED_FLAGS.items():
+        if getattr(args, attr):
+            raise ValueError(f"{flag} is not ported to repro_torch yet")
+    if args.backend is None:
+        args.backend = "cuda" if args.device.startswith("cuda") else "torch"
+    return args
+
+
+def main(argv=None) -> ServeReport:
+    args = parse_args(argv)
+    say = (lambda *a: None) if args.quiet else print
+    model = ising.random_layered_model(n=args.n, L=args.L, seed=args.seed, beta=args.beta)
+    server = SampleServer(
+        model,
+        slots=args.slots,
+        chunk_sweeps=args.chunk,
+        rung=args.rung,
+        backend=args.backend,
+        V=args.V,
+        device=args.device,
+        policy=args.policy,
+    )
+    jobs = build_job_mix(args)
+    for job in jobs:
+        server.submit(job)
+    say(
+        f"serving {len(jobs)} jobs on {args.slots} slots (chunk={args.chunk} "
+        f"sweeps, backend={args.backend}, device={args.device}, "
+        f"policy={args.policy}, model n={args.n} L={args.L} V={args.V})"
+    )
+    t0 = time.perf_counter()
+    results = server.drain()
+    if server.engine.device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(server.engine.device)
+    dt = time.perf_counter() - t0
+    if len(results) != len(jobs):
+        raise RuntimeError(f"served {len(results)} of {len(jobs)} jobs")
+
+    for r in sorted(results, key=lambda r: r.jid)[:8]:
+        say(
+            f"  job {r.jid:3d} {r.sweeps_done:4d} sweeps in {r.chunks:3d} chunks  "
+            f"E={r.energy:9.2f}  m={r.magnetization:+.3f}"
+        )
+    st = server.stats()
+    say(
+        f"served {len(results)} jobs in {dt:.3f}s: {len(results) / dt:.1f} jobs/s, "
+        f"{st['busy_slot_sweeps'] / dt:.0f} sweeps/s, "
+        f"{st['spin_flips'] / dt / 1e6:.2f}M spin-flips/s, "
+        f"{st['launches']} launches, utilization {st['utilization']:.0%} "
+        f"({st['useful_slot_sweeps']} useful / "
+        f"{st['idle_resweep_slot_sweeps']} idle-resweep slot-sweeps), "
+        f"{st['preemptions']} preemptions"
+    )
+    qw = st["queue_wait"]["overall"]
+    if qw["count"]:
+        say(f"queue wait p50={qw['p50_s'] * 1e3:.0f}ms p95={qw['p95_s'] * 1e3:.0f}ms")
+    if args.trace:
+        from repro_torch.obs.trace import validate_events
+
+        path = server.telemetry.write_chrome_trace(args.trace)
+        trace = server.telemetry.chrome_trace()
+        validate_events(trace["traceEvents"])  # a broken trace fails the run
+        say(f"trace: {len(trace['traceEvents'])} events -> {path}")
+    if args.metrics:
+        say("-- metrics (Prometheus text exposition) --")
+        say(server.telemetry.prometheus_text(), end="")
+    return ServeReport(results, server, model, dt)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,17 @@
+"""Observability for the SampleServer stack.
+
+    telemetry  one metrics registry (counters/gauges/histograms, with
+               labels) + one bounded ring of Chrome-trace events; spans
+               for scheduler phases, complete events for engine launches,
+               async spans for job lifecycles.
+    trace      Chrome-trace-event JSON exporter (+ the schema validator).
+    metrics    JSON snapshot + Prometheus text exposition of the registry.
+
+Hard contract: observation never touches carries — telemetry-on runs are
+bit-identical to telemetry-off.
+"""
+
+from repro_torch.obs.telemetry import Counter, Gauge, Histogram, Telemetry
+from repro_torch.obs.trace import validate_events
+
+__all__ = ["Counter", "Gauge", "Histogram", "Telemetry", "validate_events"]

@@ -1,0 +1,36 @@
+"""Sampling-as-a-service over the batched SweepEngine.
+
+    server = SampleServer(model, slots=8, chunk_sweeps=8)   # on the card
+    server.submit(AnnealJob.constant(seed=1, sweeps=64, beta=1.2))
+    results = server.drain()      # JobResult: spins, energy, magnetization
+
+Jobs pack into replica slots of ONE resident engine; every chunk of
+sweeps is a single launch of the colored-multisweep kernel for all of
+them.
+"""
+
+from repro_torch.serve_mc.jobs import AnnealJob, JobResult, PTJob
+from repro_torch.serve_mc.scheduler import (
+    AdaptiveChunker,
+    AdmissionPolicy,
+    PlacementPlanner,
+    PriorityBackfillPolicy,
+    SampleServer,
+    ServeConfig,
+    SlotPool,
+    make_policy,
+)
+
+__all__ = [
+    "AdaptiveChunker",
+    "AdmissionPolicy",
+    "AnnealJob",
+    "JobResult",
+    "PTJob",
+    "PlacementPlanner",
+    "PriorityBackfillPolicy",
+    "SampleServer",
+    "ServeConfig",
+    "SlotPool",
+    "make_policy",
+]

@@ -1,0 +1,232 @@
+"""Job types the `SampleServer` schedules onto engine slots.
+
+A job is a unit of sampling work that occupies ``num_slots`` slots of the
+server's resident `SweepEngine` batch from admission to retirement.  Its
+lifetime is expressed in *segments*: maximal runs of sweeps during which
+the job's betas are constant.  The scheduler may cut a segment into
+several fused-launch chunks (chunk boundaries never change results — the
+RNG stream position is a pure function of sweeps completed), but it
+always stops exactly at segment boundaries, where the job's
+``on_segment`` hook runs.
+
+  * `AnnealJob` — one slot; a piecewise-constant anneal schedule.  The
+    hook rewrites the slot's beta to the next segment's value.  It equals
+    a solo ``SweepEngine`` run with the same seed and schedule, no matter
+    which slot it lands in or what runs beside it.
+
+Parallel-tempering jobs (`PTJob`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+
+from repro_torch.core import engine as sweep_engine
+from repro_torch.core import ising, observables
+
+
+class JobResult(NamedTuple):
+    """What a retired job hands back to the submitter."""
+
+    jid: int
+    spins: np.ndarray  # (N,) flat layer-major
+    energy: float
+    magnetization: float
+    sweeps_done: int
+    chunks: int  # fused launches this job rode in
+    extras: dict
+
+
+class _ScheduledJob:
+    """Segment bookkeeping shared by every job type.
+
+    ``segments`` is a list of positive sweep counts.  The scheduler only
+    ever advances a job by ``k <= remaining_in_segment()`` sweeps.
+
+    ``priority`` and ``user`` feed the server's admission policy: higher
+    priority admits first (strict tiers; 0 is the default class), and
+    under the fair policy jobs compete for slots per ``user``.  Neither
+    affects results.
+
+    ``parked`` is the job's checkpoint state after a preemption: one
+    `engine.ParkedSlot` per occupied slot, extracted at the chunk boundary
+    it was evicted on; re-admission splices them back.
+
+    ``model`` is accepted for interface parity only: a job that carries
+    its own model needs a multi-tenant server, which is not ported.
+    """
+
+    num_slots = 1
+    kind = "job"  # telemetry label (job lifecycle trace events)
+
+    def __init__(
+        self,
+        segments: Sequence[int],
+        model: ising.LayeredModel | None = None,
+        priority: int = 0,
+        user: str | None = None,
+    ):
+        segments = [int(s) for s in segments]
+        if not segments or any(s <= 0 for s in segments):
+            raise ValueError(f"segments must be positive sweep counts: {segments}")
+        self._segments = segments
+        self._seg = 0
+        self._in_seg = 0
+        self.sweeps_done = 0
+        self.chunks = 0
+        self.jid: int | None = None  # assigned by SampleServer.submit
+        self.model = model
+        self.priority = int(priority)
+        self.user = "default" if user is None else str(user)
+        self.parked: list | None = None  # ParkedSlot per slot while evicted
+        self.preemptions = 0  # times evicted (stats; resume is bit-exact)
+        # Scheduler bookkeeping (set by SampleServer.submit/_place): wall
+        # and sweep-clock stamps for queue-wait reporting.
+        self._submit_time = self._admit_time = None
+        self._submit_sweep = self._admit_sweep = None
+        self._seq = None  # admission-policy submission order
+
+    def model_on(self, server) -> ising.LayeredModel:
+        """The model this job samples when served by ``server``."""
+        return self.model if self.model is not None else server.engine.model
+
+    @property
+    def done(self) -> bool:
+        return self._seg >= len(self._segments)
+
+    @property
+    def segment_index(self) -> int:
+        return self._seg
+
+    def remaining_in_segment(self) -> int:
+        if self.done:
+            return 0
+        return self._segments[self._seg] - self._in_seg
+
+    def total_remaining(self) -> int:
+        return sum(self._segments[self._seg :]) - self._in_seg
+
+    def advance(self, k: int) -> bool:
+        """Record ``k`` sweeps of progress; True iff a segment boundary was
+        reached (the scheduler then runs `on_segment`)."""
+        if k <= 0 or k > self.remaining_in_segment():
+            raise ValueError(
+                f"advance({k}) outside segment (remaining "
+                f"{self.remaining_in_segment()})"
+            )
+        self._in_seg += k
+        self.sweeps_done += k
+        self.chunks += 1
+        if self._in_seg == self._segments[self._seg]:
+            self._seg += 1
+            self._in_seg = 0
+            return True
+        return False
+
+
+class AnnealJob(_ScheduledJob):
+    """One slot, one seed, a piecewise-constant beta schedule.
+
+    ``schedule`` is a list of ``(num_sweeps, beta)`` pairs; ``beta=None``
+    means the model's default.  Single-segment jobs are plain constant-
+    temperature sampling; multi-segment jobs are annealing ladders.
+    """
+
+    kind = "anneal"
+
+    def __init__(
+        self,
+        seed: int,
+        schedule: Sequence[tuple[int, float | None]],
+        spins: np.ndarray | None = None,
+        model: ising.LayeredModel | None = None,
+        priority: int = 0,
+        user: str | None = None,
+    ):
+        super().__init__(
+            [s for s, _ in schedule], model=model, priority=priority, user=user
+        )
+        self.seed = int(seed)
+        self._betas = [b if b is None else float(b) for _, b in schedule]
+        self._init_spins = None if spins is None else np.asarray(spins, np.float32)
+
+    @classmethod
+    def constant(
+        cls,
+        seed: int,
+        sweeps: int,
+        beta: float | None = None,
+        model: ising.LayeredModel | None = None,
+        priority: int = 0,
+        user: str | None = None,
+    ):
+        return cls(seed, [(sweeps, beta)], model=model, priority=priority, user=user)
+
+    @classmethod
+    def ramp(
+        cls,
+        seed: int,
+        beta_start: float,
+        beta_end: float,
+        steps: int,
+        sweeps_per_step: int,
+        model: ising.LayeredModel | None = None,
+        priority: int = 0,
+        user: str | None = None,
+    ):
+        """Linear beta ramp: ``steps`` segments of ``sweeps_per_step``."""
+        betas = np.linspace(beta_start, beta_end, steps)
+        return cls(
+            seed, [(sweeps_per_step, float(b)) for b in betas], model=model,
+            priority=priority, user=user,
+        )
+
+    def _beta(self, server, seg: int) -> float:
+        b = self._betas[seg]
+        return float(self.model_on(server).beta) if b is None else b
+
+    def current_beta(self, server) -> float:
+        return self._beta(server, self._seg)
+
+    # -- scheduler interface --------------------------------------------------
+
+    def init_carries(self, server) -> list[sweep_engine.SweepCarry]:
+        return [
+            server.engine.init_slot_carry(
+                seed=self.seed,
+                spins=self._init_spins,
+                beta=self._beta(server, 0),
+                model=self.model,
+            )
+        ]
+
+    def on_segment(self, server, carry, slots):
+        if self.done:
+            return carry
+        return server.engine.set_slot_betas(carry, slots, [self.current_beta(server)])
+
+    def finalize(self, server, slots) -> JobResult:
+        eng, m = server.engine, self.model_on(server)
+        sub = eng.extract_slot(server.carry, slots[0])
+        spins = eng.spins_flat(sub)[0]
+        return JobResult(
+            jid=self.jid,
+            spins=spins,
+            energy=observables.energies(m, spins),
+            magnetization=observables.magnetization(spins),
+            sweeps_done=self.sweeps_done,
+            chunks=self.chunks,
+            extras={
+                "final_beta": float(sub.betas[0].item()),
+                "preemptions": self.preemptions,
+            },
+        )
+
+
+class PTJob:
+    """Parallel-tempering jobs are not ported to repro_torch yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise ValueError("PTJob (parallel tempering) is not ported to repro_torch yet")

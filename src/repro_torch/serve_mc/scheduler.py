@@ -1,0 +1,1037 @@
+"""SampleServer — continuous-batching annealing service over one SweepEngine.
+
+ONE resident `SweepEngine` of ``slots`` replicas stays alive for the
+server's lifetime, and every scheduling round advances the whole batch
+by a chunk of sweeps as a single launch (with ``backend="cuda"`` one
+launch of the hand-written colored-multisweep kernel).  Between chunks
+the scheduler does the bookkeeping the card never sees:
+
+  admit    ask the server's `AdmissionPolicy` which queued jobs enter the
+           free slots (plus which active jobs to checkpoint-preempt for
+           them); splice each admitted job's per-slot carry (spins,
+           fields, beta, RNG lane columns) into its slots.
+  chunk    ``min(chunk_sweeps, min remaining-in-segment over active
+           jobs)`` — chunks never cross a segment boundary, so per-job
+           beta schedules land exactly where a solo run would put them.
+           ``chunk_sweeps="adaptive"`` replaces the static knob with
+           `AdaptiveChunker`.
+  hooks    jobs whose segment ended run `on_segment` (anneal jobs rewrite
+           their slot's beta).
+  retire   finished jobs are finalized (`core/observables.py` summary of
+           the extracted slot), their slots returned to the free list.
+
+Determinism contract: a job's final spins/energy/RNG are bit-identical
+whether it ran solo or packed with arbitrary neighbours across
+admit/retire slot reuse, because (a) each slot owns private RNG lane
+columns that advance by a fixed number of blocks per sweep regardless of
+batch size, (b) chunk boundaries never change the stream position, and
+(c) chunks stop at segment boundaries.  Idle slots keep sweeping whatever
+they last held — wasted work, not wrong work; utilization is reported in
+`stats()`.  The port's results are bit-identical to the JAX reference
+server's for the same job list.
+
+Admission is PLUGGABLE: ``policy="fifo"`` (strict submission order),
+``"backfill"`` (priority classes, EASY backfill with exact reservations,
+checkpoint-preemption) and ``"fair"`` (adds per-user weighted fairness).
+Scheduling decides WHEN a job runs, never what it computes.
+
+TELEMETRY: the server owns a `repro_torch.obs.Telemetry` registry that
+`stats()` reads, plus a bounded ring of Chrome-trace events (scheduler
+spans, one complete event per launch, async job lifecycles).  A timed
+launch ends in `torch.cuda.synchronize` on a CUDA engine, so its wall
+time covers the kernel, not just its enqueue.
+
+The port serves one model on one device.  Not ported yet, each raising
+ValueError naming itself: rungs other than "cb", exp flavours other than
+"fast", ``replica_tile``, ``mesh``/``capacities``, ``multi_tenant``,
+``stream``, `arm_profiler`, snapshots (``snapshot_manager``,
+``snapshot_every_sweeps``, ``preemption``, `snapshot`, `restore`).
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import time
+from collections import Counter, defaultdict, deque
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.core import ising
+from repro_torch.core.engine import SweepEngine
+from repro_torch.obs import Telemetry
+
+from repro_torch.serve_mc.jobs import JobResult
+
+
+# -----------------------------------------------------------------------------
+# Admission policies.
+#
+# A policy owns the queue of not-yet-running jobs and, between launches,
+# PLANS one scheduling round: which queued jobs enter the free slots and
+# which active jobs get checkpoint-preempted to make room.  The plan is
+# pure bookkeeping over slot counts and exact remaining sweep budgets;
+# the server executes it with the engine's slot APIs.  Policies never
+# touch carries, so they cannot affect results.
+# -----------------------------------------------------------------------------
+
+
+def _job_cost(job) -> int:
+    """Service demand in slot-sweeps (the unit fairness accounts in)."""
+    return job.num_slots * job.total_remaining()
+
+
+class SlotPool:
+    """The server's free slots as one sorted list.
+
+    Allocation takes the lowest free indices (the port serves one device,
+    so there is no placement to choose).  Every transition is guarded:
+    releasing a slot that is already free, or taking one that is not,
+    raises instead of silently double-booking a launch.
+    """
+
+    def __init__(self, slots: int):
+        self.slots = int(slots)
+        self._free: list[int] = list(range(self.slots))
+
+    @property
+    def total_free(self) -> int:
+        return len(self._free)
+
+    def clone(self) -> "SlotPool":
+        out = SlotPool.__new__(SlotPool)
+        out.slots, out._free = self.slots, list(self._free)
+        return out
+
+    def release(self, b: int) -> None:
+        """Return one slot to the free list (sorted insert); raises on
+        double-free."""
+        b = int(b)
+        if not 0 <= b < self.slots:
+            raise ValueError(f"slot {b} outside pool of {self.slots}")
+        i = bisect.bisect_left(self._free, b)
+        if i < len(self._free) and self._free[i] == b:
+            raise RuntimeError(f"slot {b} released twice (double-free)")
+        self._free.insert(i, b)
+
+    def release_all(self, slots) -> None:
+        for b in slots:
+            self.release(b)
+
+    def take(self, slots) -> None:
+        """Claim specific slots; raises if any is not currently free."""
+        for b in slots:
+            b = int(b)
+            i = bisect.bisect_left(self._free, b)
+            if i >= len(self._free) or self._free[i] != b:
+                raise RuntimeError(
+                    f"slot {b} is not free (placement double-books slots)"
+                )
+            del self._free[i]
+
+    def alloc(self, n: int) -> tuple[int, ...]:
+        """Allocate the ``n`` lowest free slots."""
+        if n < 1:
+            raise ValueError(f"alloc needs n >= 1, got {n}")
+        if n > self.total_free:
+            raise RuntimeError(
+                f"alloc({n}) with only {self.total_free} slots free"
+            )
+        taken, self._free = self._free[:n], self._free[n:]
+        return tuple(taken)
+
+
+class PlacementPlanner(int):
+    """The free-pool view handed to `AdmissionPolicy.plan`.
+
+    Subclasses ``int`` (its value is the free-slot count), so custom
+    policies that treat ``free`` as a count keep working and may return
+    bare jobs — the server then places them itself.  Built-in policies
+    use the placement API instead: `alloc` simulates a placement against
+    a PRIVATE clone of the server's pool (the real pool mutates only when
+    the server executes the plan) and `release_job` models a planned
+    preemption.
+    """
+
+    def __new__(cls, pool: SlotPool, held: dict | None = None):
+        return int.__new__(cls, pool.total_free)
+
+    def __init__(self, pool: SlotPool, held: dict | None = None):
+        self._pool = pool.clone()
+        self._held = dict(held or {})  # id(job) -> slots tuple
+
+    @property
+    def total_free(self) -> int:
+        return self._pool.total_free
+
+    def alloc(self, job) -> tuple[int, ...]:
+        slots = self._pool.alloc(job.num_slots)
+        self._held[id(job)] = slots
+        return slots
+
+    def release_job(self, job) -> tuple:
+        """Model a planned preemption: the victim's slots free up."""
+        slots = self._held.pop(id(job), ())
+        self._pool.release_all(slots)
+        return slots
+
+
+class AdmissionPolicy:
+    """FIFO admission: fill free slots in strict submission order.
+
+    The base class doubles as the policy interface: `enqueue` receives
+    submitted (and re-queued preempted) jobs, `plan` returns one round's
+    ``(preempt_jobs, admit_jobs)`` given the free pool and the currently
+    active jobs.  ``free`` arrives as a `PlacementPlanner` (an ``int``
+    subclass whose value is the free-slot count): built-in policies call
+    its placement API and return admits as ``(job, slots)`` pairs, while
+    custom policies may keep treating it as a bare count and returning
+    bare jobs — the server places those itself.  FIFO never preempts and
+    never reorders, so a wide job at the queue head blocks everything
+    behind it while slots idle — exactly the utilization leak the
+    priority policies close.
+    """
+
+    name = "fifo"
+
+    #: The server's sweep clock, refreshed before every `plan` call —
+    #: policies that age waiting jobs (`PriorityBackfillPolicy`) read it;
+    #: FIFO ignores it.
+    clock = 0
+
+    def __init__(self):
+        self._queued: list = []
+        self._seq = 0
+
+    def enqueue(self, job) -> None:
+        if getattr(job, "_seq", None) is None:
+            job._seq = self._seq  # preempted jobs keep their original seq
+            self._seq += 1
+        self._queued.append(job)
+        self._queued.sort(key=lambda j: j._seq)
+
+    def __len__(self) -> int:
+        return len(self._queued)
+
+    def jobs(self) -> list:
+        return list(self._queued)
+
+    def plan(self, free: PlacementPlanner, active: list) -> tuple[list, list]:
+        admit = []
+        while self._queued and self._queued[0].num_slots <= free.total_free:
+            job = self._queued.pop(0)
+            admit.append((job, free.alloc(job)))
+        return [], admit
+
+
+class PriorityBackfillPolicy(AdmissionPolicy):
+    """Priority classes + EASY backfill + checkpoint-preemption, with
+    optional per-user weighted fairness (``policy="fair"``).
+
+    Candidate order: priority tiers are strict (higher first); within a
+    tier, submission order — or, when ``fair=True``, weighted fair order:
+    each user accumulates ``served += cost/weight`` (cost in slot-sweeps)
+    as their jobs are admitted, and the tier is ordered by repeatedly
+    taking the head job of the least-served user (deficit round-robin
+    over user queues: a heavy user's backlog cannot starve a light one,
+    because every admission pushes the heavy user's served level past the
+    light user's).  A user entering the backlog is floored to the least
+    served level of the users already waiting, so idle time cannot be
+    banked into a later monopoly.
+
+    One scheduling round walks the candidates:
+
+    * fits -> admit.
+    * first candidate that does NOT fit: try preemption — evict active
+      jobs of strictly lower priority (lowest first) at this chunk
+      boundary until the candidate fits; eviction parks each slot's
+      carry (and coupling tables) for a later bit-exact resume, so
+      preemption costs placement, never work.  If preemption cannot free
+      enough, the candidate becomes the round's RESERVED job.
+    * after a reservation exists, later candidates only BACKFILL: admit
+      a candidate iff it fits the free list now and either (a) it
+      retires within ``start`` sweeps — the reserved job's provably
+      earliest start, when enough active jobs have retired — or (b) it
+      needs no more than the ``spare`` slots left over at that start.
+      Both are exact slot-count accounting over known budgets, so
+      backfill can NEVER delay the reserved job.
+
+    Reservation arithmetic (sweeps are the clock; all active slots
+    advance in lockstep): with ``free`` slots free now and active jobs
+    retiring after ``r_i`` more sweeps freeing ``k_i`` slots each, the
+    reserved job (width W) starts at ``start = min r`` with
+    ``free + sum(k_i : r_i <= r) >= W``, and
+    ``spare = free + freed(start) - W``.
+
+    PRIORITY AGING (``aging_sweeps > 0``): a queued job's EFFECTIVE
+    priority for candidate ordering is ``priority + waited // aging_sweeps``
+    with ``waited`` in sweeps since submission — so under sustained
+    higher-tier traffic a priority-p job reaches tier p+k after at most
+    ``k * aging_sweeps`` sweeps of waiting, which bounds cross-tier
+    starvation.  Aging escalates ORDERING and
+    reservation rights only; preemption keeps STATIC priorities (an aged
+    priority-0 job may be admitted ahead of priority-1 arrivals, but never
+    earns the right to evict genuinely higher-priority work).
+    """
+
+    def __init__(
+        self,
+        *,
+        backfill: bool = True,
+        preempt: bool = True,
+        fair: bool = False,
+        user_weights: dict[str, float] | None = None,
+        aging_sweeps: int = 0,
+    ):
+        super().__init__()
+        self.backfill = bool(backfill)
+        self.preempt = bool(preempt)
+        self.fair = bool(fair)
+        self.user_weights = dict(user_weights or {})
+        if aging_sweeps < 0:
+            raise ValueError(f"aging_sweeps must be >= 0, got {aging_sweeps}")
+        self.aging_sweeps = int(aging_sweeps)
+        self.name = "fair" if self.fair else "backfill"
+        self._served: dict[str, float] = {}  # user -> served cost / weight
+
+    def _weight(self, user: str) -> float:
+        w = float(self.user_weights.get(user, 1.0))
+        if w <= 0:
+            raise ValueError(f"user weight must be > 0, got {w} for {user!r}")
+        return w
+
+    def enqueue(self, job) -> None:
+        if self.fair:
+            backlogged = {j.user for j in self._queued}
+            if job.user not in backlogged:
+                # Entering the backlog: floor to the least-served waiting
+                # user so service credit cannot be banked while idle.
+                floor = min(
+                    (self._served.get(u, 0.0) for u in backlogged),
+                    default=0.0,
+                )
+                self._served[job.user] = max(
+                    self._served.get(job.user, 0.0), floor
+                )
+            if len(self._served) > self.SERVED_LEDGER_MAX:
+                # Compact: users with nothing queued re-enter floored
+                # later, so dropping them only forfeits their surplus.
+                keep = backlogged | {job.user}
+                self._served = {
+                    u: v for u, v in self._served.items() if u in keep
+                }
+        super().enqueue(job)
+
+    def _eff_priority(self, job) -> int:
+        """Ordering priority: static class plus one tier per
+        ``aging_sweeps`` sweeps waited since submission."""
+        if not self.aging_sweeps:
+            return job.priority
+        waited = max(0, self.clock - (job._submit_sweep or 0))
+        return job.priority + waited // self.aging_sweeps
+
+    def _order(self) -> list:
+        """Queued jobs in admission-candidate order."""
+        if not self.fair:
+            return sorted(
+                self._queued, key=lambda j: (-self._eff_priority(j), j._seq)
+            )
+        out = []
+        tiers: dict[int, list] = defaultdict(list)
+        for j in self._queued:
+            tiers[self._eff_priority(j)].append(j)
+        for prio in sorted(tiers, reverse=True):
+            queues: dict[str, deque] = defaultdict(deque)
+            for j in sorted(tiers[prio], key=lambda j: j._seq):
+                queues[j.user].append(j)
+            proj = {u: self._served.get(u, 0.0) for u in queues}
+            while queues:
+                u = min(queues, key=lambda v: (proj[v], v))
+                j = queues[u].popleft()
+                out.append(j)
+                proj[u] += _job_cost(j) / self._weight(u)
+                if not queues[u]:
+                    del queues[u]
+        return out
+
+    #: Bound on the served-cost ledger; past it, users with no queued
+    #: jobs are dropped (they re-enter floored, losing nothing but their
+    #: surplus) so a resident server's memory stays bounded however many
+    #: distinct user ids traffic brings.
+    SERVED_LEDGER_MAX = 10_000
+
+    def _charge(self, job) -> None:
+        """Record an admission for fairness accounting.  Re-admissions of
+        a preempted job are NOT re-charged: its full cost was charged
+        when it first entered, and eviction already costs the user
+        placement time — double-charging would penalize preemption
+        victims twice."""
+        if self.fair and job.parked is None:
+            u = job.user
+            self._served[u] = (
+                self._served.get(u, 0.0) + _job_cost(job) / self._weight(u)
+            )
+
+    @staticmethod
+    def _reservation(job, free: int, running: list) -> tuple[int, int]:
+        """(start, spare) for a blocked ``job``: the exact sweep count at
+        which enough slots will have retired, and the slots left over."""
+        need = job.num_slots - free
+        events = sorted((j.total_remaining(), j.num_slots) for j in running)
+        acc, start = 0, None
+        for r, k in events:
+            acc += k
+            if acc >= need:
+                start = r
+                break
+        assert start is not None, "submit() bounds num_slots by server slots"
+        freed = sum(k for r, k in events if r <= start)
+        return start, free + freed - job.num_slots
+
+    def _pick_victims(self, job, running: list, free: int) -> list | None:
+        """Lowest-priority active jobs to evict so ``job`` fits, or None
+        if even evicting every lower-priority job would not suffice."""
+        need = job.num_slots - free
+        cands = sorted(
+            (v for v in running if v.priority < job.priority),
+            key=lambda v: (v.priority, -v.num_slots, v.jid),
+        )
+        take: list = []
+        got = 0
+        for v in cands:
+            take.append(v)
+            got += v.num_slots
+            if got >= need:
+                break
+        if got < need:
+            return None
+        # Trim overshoot: drop any victim whose slots we don't need
+        # (smallest first), so preemption evicts the minimum set.
+        for v in sorted(take, key=lambda v: (v.num_slots, -v.priority)):
+            if got - v.num_slots >= need:
+                take.remove(v)
+                got -= v.num_slots
+        return take
+
+    def plan(self, planner: PlacementPlanner, active: list) -> tuple[list, list]:
+        preempt: list = []
+        admit: list = []  # (job, slots) pairs
+        running = list(active)  # original actives + planned admissions
+        originals = set(id(j) for j in active)
+        reservation = None  # (start, spare) of the blocked job
+        for job in self._order():
+            n = job.num_slots
+            if reservation is None:
+                if n <= planner.total_free:
+                    admit.append((job, planner.alloc(job)))
+                    self._charge(job)
+                    running.append(job)
+                    continue
+                if self.preempt:
+                    victims = self._pick_victims(
+                        job,
+                        [v for v in running if id(v) in originals],
+                        planner.total_free,
+                    )
+                    if victims is not None:
+                        for v in victims:
+                            preempt.append(v)
+                            running.remove(v)
+                            originals.discard(id(v))
+                            planner.release_job(v)
+                        admit.append((job, planner.alloc(job)))
+                        self._charge(job)
+                        running.append(job)
+                        continue
+                if not self.backfill:
+                    break
+                reservation = self._reservation(job, planner.total_free, running)
+                continue
+            # Backfill under the reservation: exact no-delay accounting.
+            start, spare = reservation
+            if n <= planner.total_free and job.total_remaining() <= start:
+                # Retires before the reserved start: its slots are back
+                # by then, so it cannot erode the reservation.
+                admit.append((job, planner.alloc(job)))
+                self._charge(job)
+                running.append(job)
+            elif n <= planner.total_free and n <= spare:
+                # Fits the slots the reserved job spares at its start.
+                admit.append((job, planner.alloc(job)))
+                self._charge(job)
+                running.append(job)
+                reservation = (start, spare - n)
+        for job, _ in admit:
+            self._queued.remove(job)
+        for job in preempt:
+            # Evicted jobs go back in the queue under their ORIGINAL
+            # submission seq, so they re-sort ahead of later arrivals of
+            # the same priority/user and resume as soon as slots free up.
+            self.enqueue(job)
+        return preempt, admit
+
+
+def make_policy(policy, user_weights=None, aging_sweeps=0) -> AdmissionPolicy:
+    """``"fifo"`` | ``"backfill"`` | ``"fair"`` | an `AdmissionPolicy`."""
+    if isinstance(policy, AdmissionPolicy):
+        return policy
+    if policy == "fifo":
+        if user_weights:
+            raise ValueError("user_weights only apply to policy='fair'")
+        if aging_sweeps:
+            raise ValueError(
+                "aging_sweeps applies to the priority policies "
+                "('backfill'/'fair'); FIFO has no priorities to age"
+            )
+        return AdmissionPolicy()
+    if policy == "backfill":
+        return PriorityBackfillPolicy(
+            fair=False, user_weights=user_weights, aging_sweeps=aging_sweeps
+        )
+    if policy == "fair":
+        return PriorityBackfillPolicy(
+            fair=True, user_weights=user_weights, aging_sweeps=aging_sweeps
+        )
+    raise ValueError(
+        f"unknown policy {policy!r}; choose 'fifo', 'backfill', 'fair' or "
+        "pass an AdmissionPolicy instance"
+    )
+
+
+class AdaptiveChunker:
+    """Chunk-size policy: launch-cost EWMA + queue depth -> menu chunk.
+
+    ``chunk_sweeps="adaptive"`` replaces the static knob.  Two pressures trade off: bigger chunks
+    amortize per-launch overhead (throughput), smaller chunks reach
+    admit/retire points sooner so queued jobs start earlier (latency).
+    The policy measures the per-sweep launch cost as an EWMA and sizes
+    the next chunk to a target launch wall time, shrunk by the current
+    queue depth; the result is floored to a fixed power-of-two MENU so
+    the set of distinct launch shapes stays bounded by ``len(menu)`` no
+    matter how traffic fluctuates (chunks are additionally capped at
+    segment boundaries, and every such clamp is floored to the menu too
+    — 1 is always a member).
+
+    Chunk size never changes results (the determinism contract), so
+    adapting it on wall-clock measurements is safe.
+
+    An instance holds per-engine state (the EWMA and the set of
+    already-seen chunk sizes): give each `SampleServer` its OWN chunker.
+    """
+
+    def __init__(
+        self,
+        target_launch_s: float = 0.05,
+        max_chunk: int = 64,
+        init_chunk: int = 8,
+        alpha: float = 0.3,
+    ):
+        if max_chunk < 1:
+            raise ValueError(f"max_chunk must be >= 1, got {max_chunk}")
+        menu = [1]
+        while menu[-1] * 2 <= max_chunk:
+            menu.append(menu[-1] * 2)
+        self.menu = tuple(menu)
+        self.target_launch_s = float(target_launch_s)
+        self.init_chunk = int(init_chunk)
+        self.alpha = float(alpha)
+        self.per_sweep_ewma: float | None = None
+        self._warm: set[int] = set()  # chunk sizes already launched once
+
+    def floor_to_menu(self, k: int) -> int:
+        """Largest menu chunk <= max(1, k)."""
+        k = max(1, int(k))
+        out = 1
+        for c in self.menu:
+            if c <= k:
+                out = c
+        return out
+
+    def propose(self, queue_depth: int, segment_bound: int) -> int:
+        """Next chunk: cost-targeted, queue-shrunk, boundary-capped."""
+        if self.per_sweep_ewma is None or self.per_sweep_ewma <= 0.0:
+            desired = float(self.init_chunk)
+        else:
+            desired = self.target_launch_s / self.per_sweep_ewma
+        desired = desired / (1 + queue_depth)
+        return self.floor_to_menu(int(min(desired, segment_bound)))
+
+    def observe(self, chunk: int, launch_s: float) -> None:
+        if chunk not in self._warm:
+            # The first launch at a chunk size pays one-time set-up (the
+            # kernel build, allocator warm-up) — far above steady state;
+            # recording it would collapse the policy to chunk=1 for the
+            # whole warm-up ramp.  Discard it.
+            self._warm.add(chunk)
+            return
+        per_sweep = launch_s / max(1, chunk)
+        if self.per_sweep_ewma is None:
+            self.per_sweep_ewma = per_sweep
+        else:
+            self.per_sweep_ewma += self.alpha * (per_sweep - self.per_sweep_ewma)
+
+
+
+#: ServeConfig fields naming features that are not ported yet, with the
+#: value that means "off".
+_UNPORTED = {
+    "replica_tile": None,
+    "multi_tenant": False,
+    "mesh": None,
+    "capacities": None,
+    "stream": None,
+    "snapshot_manager": None,
+    "snapshot_every_sweeps": 0,
+    "preemption": None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Every `SampleServer` construction knob as one value object.
+
+    ``SampleServer(model, config=cfg)`` and ``SampleServer(model, slots=8,
+    ...)`` are the same thing: bare kwargs are folded into the config
+    (kwargs win over a config's field when both are given).  The port's
+    defaults serve on the card: ``backend="cuda"``, ``V=128``,
+    ``device="cuda"``; pass ``backend="torch", device="cpu"`` (any V) for
+    the plain version on the CPU.  The fields after ``telemetry`` name
+    features that are not ported yet; setting one raises ValueError.
+    """
+
+    slots: int = 8
+    chunk_sweeps: int | str = 8
+    rung: str = "cb"
+    backend: str = "cuda"
+    V: int = 128
+    exp_flavor: str | None = None
+    device: str = "cuda"
+    idle_seed: int = 0
+    chunker: "AdaptiveChunker | None" = None
+    policy: object = "fair"
+    user_weights: dict | None = None
+    aging_sweeps: int = 0
+    wait_window: int = 256
+    telemetry: object = True
+    replica_tile: int | None = None
+    multi_tenant: bool = False
+    mesh: object = None
+    capacities: tuple | None = None
+    stream: object = None
+    snapshot_manager: object = None
+    snapshot_every_sweeps: int = 0
+    preemption: object = None
+
+
+class SampleServer:
+    """Schedules a queue of jobs onto the batch dim of one engine.
+
+    Construction: ``SampleServer(model, config=ServeConfig(...))`` or bare
+    kwargs (``SampleServer(model, slots=8, ...)``) folded into the config;
+    the merged config is kept as ``self.config``.
+    """
+
+    def __init__(
+        self,
+        model: ising.LayeredModel,
+        *,
+        config: ServeConfig | None = None,
+        **kwargs,
+    ):
+        if config is None:
+            cfg = ServeConfig(**kwargs)  # TypeError names unknown kwargs
+        elif kwargs:
+            cfg = dataclasses.replace(config, **kwargs)
+        else:
+            cfg = config
+        for name, off in _UNPORTED.items():
+            if getattr(cfg, name) != off:
+                raise ValueError(f"{name} is not ported to repro_torch yet")
+        self.config = cfg
+        chunk_sweeps = cfg.chunk_sweeps
+        if chunk_sweeps == "adaptive":
+            self._chunker = cfg.chunker or AdaptiveChunker()
+        elif isinstance(chunk_sweeps, str):
+            raise ValueError(
+                f"chunk_sweeps must be an int >= 1 or 'adaptive', got {chunk_sweeps!r}"
+            )
+        elif chunk_sweeps < 1:
+            raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
+        else:
+            self._chunker = None
+        self.engine = SweepEngine.create(
+            model,
+            rung=cfg.rung,
+            backend=cfg.backend,
+            batch=cfg.slots,
+            V=cfg.V,
+            exp_flavor=cfg.exp_flavor,
+            device=cfg.device,
+        )
+        # Idle slots hold (and keep sweeping) this placeholder state until
+        # a job is spliced over it.
+        self.carry = self.engine.init_carry(seed=cfg.idle_seed)
+        self.chunk_sweeps = None if self._chunker else int(chunk_sweeps)
+        self.policy = make_policy(cfg.policy, cfg.user_weights, cfg.aging_sweeps)
+        self._active: dict[int, tuple] = {}  # jid -> (job, slots tuple)
+        self._next_jid = 0
+        # The one metrics registry: stats(), the Prometheus/JSON exporters
+        # and the Chrome trace all read it.  telemetry=False only silences
+        # EVENT recording — counters keep counting because stats() is
+        # built on them.
+        telemetry = cfg.telemetry
+        self.telemetry = (
+            telemetry if isinstance(telemetry, Telemetry) else Telemetry(enabled=bool(telemetry))
+        )
+        self.telemetry.name_thread(0, "scheduler")
+        tel = self.telemetry
+        self._c_launches = tel.counter("serve.launches")
+        # the global sweep clock (sum of chunks), read via .sweeps_elapsed
+        self._c_sweeps = tel.counter("serve.sweeps_elapsed")
+        self._c_busy = tel.counter("serve.busy_slot_sweeps")
+        self._c_total = tel.counter("serve.total_slot_sweeps")
+        self._c_preempt = tel.counter("serve.preemptions")
+        self._c_submitted = tel.counter("serve.jobs_submitted")
+        self._c_completed = tel.counter("serve.jobs_completed")
+        self._h_wait = tel.histogram("serve.queue_wait_s")
+        # Chunk sizes already launched: the first launch at a size pays
+        # one-time set-up, and its trace event says so (compile=True).
+        self._warm_chunks: set[int] = set()
+        self._pool = SlotPool(self.slots)
+        # Queue-wait samples (user, priority, wait_s, wait_sweeps), taken
+        # at FIRST admission; bounded so a resident server never grows it
+        # without limit.
+        self._wait_records: deque = deque(maxlen=100_000)
+        if cfg.wait_window < 1:
+            raise ValueError(f"wait_window must be >= 1, got {cfg.wait_window}")
+        self._wait_recent: deque = deque(maxlen=int(cfg.wait_window))
+        # Retirement log (jids in retirement order), bounded like the wait
+        # ring.
+        self._retired: deque = deque(maxlen=100_000)
+
+    # -- submission -----------------------------------------------------------
+
+    @property
+    def slots(self) -> int:
+        return self.engine.batch
+
+    @property
+    def num_active(self) -> int:
+        return len(self._active)
+
+    @property
+    def num_queued(self) -> int:
+        return len(self.policy)
+
+    @property
+    def launches(self) -> int:
+        return self._c_launches.value
+
+    @property
+    def busy_slot_sweeps(self) -> int:
+        return self._c_busy.value
+
+    @property
+    def total_slot_sweeps(self) -> int:
+        return self._c_total.value
+
+    @property
+    def sweeps_elapsed(self) -> int:
+        return self._c_sweeps.value
+
+    @property
+    def preemptions(self) -> int:
+        return self._c_preempt.value
+
+    @property
+    def launch_chunks(self) -> Counter:
+        """chunk size -> launch count, rebuilt from the labeled counter."""
+        return Counter(
+            {
+                int(labels["chunk"]): int(value)
+                for labels, value in self.telemetry.series("serve.launches_by_chunk")
+            }
+        )
+
+    def submit(self, job) -> int:
+        """Enqueue a job; returns its assigned job id."""
+        if job.num_slots > self.slots:
+            raise ValueError(f"job needs {job.num_slots} slots, server has {self.slots}")
+        if job.jid is not None:
+            raise ValueError(f"job already submitted (jid={job.jid})")
+        if getattr(job, "model", None) is not None:
+            raise ValueError(
+                "job carries its own model; that needs multi_tenant, which is "
+                "not ported to repro_torch yet"
+            )
+        job.jid = self._next_jid
+        self._next_jid += 1
+        job._submit_time = time.perf_counter()
+        job._submit_sweep = self.sweeps_elapsed
+        job._admit_time = None
+        self.policy.enqueue(job)
+        self._c_submitted.add(1)
+        self.telemetry.async_begin(
+            "job",
+            job.jid,
+            kind=job.kind,
+            slots=job.num_slots,
+            priority=job.priority,
+            user=job.user,
+            submit_sweep=job._submit_sweep,
+        )
+        return job.jid
+
+    # -- scheduling -----------------------------------------------------------
+
+    def _admit(self) -> None:
+        """One planning round at a chunk boundary: the policy decides, the
+        server executes (park preempted jobs, place admitted ones)."""
+        # Refresh the policy's sweep clock first: priority aging reads it.
+        self.policy.clock = self.sweeps_elapsed
+        planner = PlacementPlanner(
+            self._pool,
+            {id(j): slots for j, slots in self._active.values()},
+        )
+        free_before = planner.total_free
+        preempts, admits = self.policy.plan(planner, [j for j, _ in self._active.values()])
+        # Built-in policies return (job, slots) placements; custom
+        # policies may return bare jobs — the server places those.
+        admits = [e if isinstance(e, tuple) else (e, None) for e in admits]
+        if preempts or admits:
+            self.telemetry.instant(
+                "sched.plan",
+                policy=self.policy.name,
+                free=free_before,
+                queued=len(self.policy),
+                admitted=[j.jid for j, _ in admits],
+                preempted=[j.jid for j in preempts],
+            )
+        for job in preempts:
+            self._park(job)
+        for job, slots in admits:
+            self._place(job, slots)
+
+    def _park(self, job) -> None:
+        """Checkpoint-preempt an active job: extract each slot's carry into
+        the job's ``parked`` list and free the slots."""
+        _, taken = self._active.pop(job.jid)
+        job.parked = [self.engine.slot(b).park(self.carry) for b in taken]
+        job.preemptions += 1
+        self._c_preempt.add(1)
+        self._pool.release_all(taken)  # raises on double-free
+        self.telemetry.async_instant(
+            "job", job.jid, phase="park", reason="preempt", sweeps_done=job.sweeps_done
+        )
+
+    def _place(self, job, placement=None) -> None:
+        """Splice a job into free slots: fresh init on first admission,
+        parked-state resume after a preemption."""
+        if placement is None:
+            if job.num_slots > self._pool.total_free:
+                raise RuntimeError(
+                    f"policy {self.policy.name!r} admitted job {job.jid} needing "
+                    f"{job.num_slots} slots with only {self._pool.total_free} free"
+                )
+            taken = self._pool.alloc(job.num_slots)
+        else:
+            taken = tuple(int(b) for b in placement)
+            self._pool.take(taken)  # raises if the plan double-booked a slot
+        if job.parked is not None:
+            for b, parked in zip(taken, job.parked):
+                self.carry = self.engine.slot(b).resume(self.carry, parked)
+            job.parked = None
+        else:
+            for b, slot_carry in zip(taken, job.init_carries(self)):
+                self.carry = self.engine.slot(b).splice(self.carry, slot_carry)
+        if job._admit_time is None:
+            job._admit_time = time.perf_counter()
+            job._admit_sweep = self.sweeps_elapsed
+            wait_s = job._admit_time - job._submit_time
+            wait_sweeps = self.sweeps_elapsed - job._submit_sweep
+            self._wait_records.append((job.user, job.priority, wait_s, wait_sweeps))
+            self._wait_recent.append((wait_s, wait_sweeps))
+            self._h_wait.observe(wait_s)
+            self.telemetry.async_instant(
+                "job", job.jid, phase="admit", slots=list(taken),
+                wait_s=wait_s, wait_sweeps=wait_sweeps,
+            )
+        else:
+            self.telemetry.async_instant(
+                "job", job.jid, phase="resume", slots=list(taken),
+                sweeps_done=job.sweeps_done,
+            )
+        self._active[job.jid] = (job, taken)
+
+    def arm_profiler(self, logdir: str, num_chunks: int = 4) -> None:
+        raise ValueError("arm_profiler is not ported to repro_torch yet")
+
+    def _launch(self, chunk: int):
+        """Enqueue one engine launch; returns ``(t0, warm)`` when the launch
+        is to be timed (telemetry on, or an adaptive chunker), else None.
+        The step's Python bookkeeping then runs while the card computes;
+        `_settle_launch` synchronizes and records."""
+        tel = self.telemetry
+        timed = self._chunker is not None or tel.enabled
+        pending = (time.perf_counter(), chunk in self._warm_chunks) if timed else None
+        self.carry = self.engine.run(self.carry, chunk)
+        self._warm_chunks.add(chunk)
+        self._c_launches.add(1)
+        tel.counter("serve.launches_by_chunk", chunk=chunk).add(1)
+        self._c_sweeps.add(chunk)
+        return pending
+
+    def _settle_launch(self, chunk: int, pending) -> None:
+        """Wait for the launch to finish and record its wall time."""
+        if pending is None:
+            return
+        t0, warm = pending
+        if self.engine.device.type == "cuda":
+            torch.cuda.synchronize(self.engine.device)
+        dt = time.perf_counter() - t0
+        if self._chunker is not None:
+            self._chunker.observe(chunk, dt)
+        tel = self.telemetry
+        tel.histogram("serve.launch_s", phase="steady" if warm else "compile").observe(dt)
+        tel.complete(
+            "engine.launch",
+            dur_us=dt * 1e6,
+            cat="engine",
+            chunk=chunk,
+            jobs=len(self._active),
+            devices=1,
+            compile=not warm,
+        )
+
+    def step(self) -> List[JobResult]:
+        """One scheduling round: admit, one chunked launch, hooks, retire.
+
+        Returns the jobs that retired this round (possibly empty).
+        """
+        tel = self.telemetry
+        with tel.span("sched.step"):
+            with tel.span("sched.admit"):
+                self._admit()
+            tel.gauge("serve.active_jobs").set(len(self._active))
+            tel.gauge("serve.queued_jobs").set(len(self.policy))
+            tel.gauge("serve.free_slots").set(self._pool.total_free)
+            if not self._active:
+                return []
+            bound = min(j.remaining_in_segment() for j, _ in self._active.values())
+            if self._chunker is not None:
+                chunk = self._chunker.propose(len(self.policy), bound)
+            else:
+                chunk = min(self.chunk_sweeps, bound)
+            pending = self._launch(chunk)
+            busy = sum(j.num_slots for j, _ in self._active.values())
+            self._c_busy.add(chunk * busy)
+            self._c_total.add(chunk * self.slots)
+            boundary = [
+                jid for jid in list(self._active) if self._active[jid][0].advance(chunk)
+            ]
+            self._settle_launch(chunk, pending)
+            completed: List[JobResult] = []
+            for jid in boundary:
+                job, taken = self._active[jid]
+                self.carry = job.on_segment(self, self.carry, taken)
+                if job.done:
+                    completed.append(job.finalize(self, taken))
+                    self._pool.release_all(taken)  # raises on double-free
+                    del self._active[jid]
+                    self._retired.append(jid)
+                    self._c_completed.add(1)
+                    tel.async_end(
+                        "job", jid, sweeps_done=job.sweeps_done,
+                        chunks=job.chunks, preemptions=job.preemptions,
+                    )
+        return completed
+
+    def drain(self, max_steps: int = 1_000_000) -> List[JobResult]:
+        """Run scheduling rounds until queue and slots are empty."""
+        results: List[JobResult] = []
+        for _ in range(max_steps):
+            if not len(self.policy) and not self._active:
+                return results
+            results.extend(self.step())
+        raise RuntimeError(f"drain did not converge in {max_steps} steps")
+
+    def snapshot(self, *args, **kwargs) -> int:
+        raise ValueError("server snapshots are not ported to repro_torch yet")
+
+    @classmethod
+    def restore(cls, *args, **kwargs) -> "SampleServer":
+        raise ValueError("server restore is not ported to repro_torch yet")
+
+    # -- reporting ------------------------------------------------------------
+
+    @staticmethod
+    def _wait_summary(waits: list[float]) -> dict:
+        if not waits:
+            return {"count": 0}
+        arr = np.sort(np.asarray(waits, np.float64))
+        return {
+            "count": int(arr.size),
+            "mean_s": float(arr.mean()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p95_s": float(np.percentile(arr, 95)),
+            "max_s": float(arr[-1]),
+        }
+
+    def _wait_recent_summary(self) -> dict:
+        out = {"window": self._wait_recent.maxlen, "count": len(self._wait_recent)}
+        if not self._wait_recent:
+            return out
+        secs = np.asarray([w for w, _ in self._wait_recent], np.float64)
+        sweeps = np.asarray([s for _, s in self._wait_recent], np.float64)
+        out.update(
+            p50_s=float(np.percentile(secs, 50)),
+            p95_s=float(np.percentile(secs, 95)),
+            p50_sweeps=float(np.percentile(sweeps, 50)),
+            p95_sweeps=float(np.percentile(sweeps, 95)),
+        )
+        return out
+
+    def stats(self) -> dict:
+        n = self.engine.model.num_spins
+        # Utilization split: useful sweeps advanced a resident job; idle
+        # resweeps advanced a free slot's stale state (wasted work, never
+        # wrong work) because the whole batch launches together.
+        useful = self.busy_slot_sweeps
+        idle = self.total_slot_sweeps - useful
+        by_user: dict[str, list] = defaultdict(list)
+        by_priority: dict[int, list] = defaultdict(list)
+        all_waits: list[float] = []
+        for user, priority, wait_s, _wait_sweeps in self._wait_records:
+            by_user[user].append(wait_s)
+            by_priority[priority].append(wait_s)
+            all_waits.append(wait_s)
+        return {
+            "slots": self.slots,
+            "policy": self.policy.name,
+            "launches": self.launches,
+            "distinct_chunks": len(self.launch_chunks),
+            "busy_slot_sweeps": self.busy_slot_sweeps,
+            "total_slot_sweeps": self.total_slot_sweeps,
+            "useful_slot_sweeps": useful,
+            "idle_resweep_slot_sweeps": idle,
+            "sweeps_elapsed": self.sweeps_elapsed,
+            "preemptions": self.preemptions,
+            "utilization": (
+                self.busy_slot_sweeps / self.total_slot_sweeps if self.total_slot_sweeps else 0.0
+            ),
+            # One attempted Metropolis update per spin per sweep.
+            "spin_flips": self.busy_slot_sweeps * n,
+            "queue_wait": {
+                "overall": self._wait_summary(all_waits),
+                "by_user": {u: self._wait_summary(w) for u, w in by_user.items()},
+                "by_priority": {p: self._wait_summary(w) for p, w in by_priority.items()},
+            },
+            "queue_wait_recent": self._wait_recent_summary(),
+            "telemetry": {
+                "enabled": self.telemetry.enabled,
+                "events_recorded": self.telemetry.num_events,
+                "events_dropped": self.telemetry.dropped_events,
+            },
+        }

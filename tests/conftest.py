@@ -56,3 +56,9 @@ except ModuleNotFoundError:
     hyp.strategies = st
     sys.modules["hypothesis"] = hyp
     sys.modules["hypothesis.strategies"] = st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips itself without one"
+    )

@@ -1,0 +1,186 @@
+"""Served results, port vs JAX reference, under every admission policy.
+
+The same anneal job list — constants and ramps over three users, two
+priority classes, plus an urgent job submitted mid-drain so the priority
+policies checkpoint-preempt — is served by the reference
+(``backend="jnp"``) and by the port (``backend="torch"``, CPU).  Per-job
+spins, energies, ``sweeps_done``, ``chunks``, ``final_beta``, the
+retirement order and the slot-sweep counters of ``stats()`` must be
+identical.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+
+from repro.core import ising as jis
+from repro.serve_mc import AnnealJob as JAnneal
+from repro.serve_mc import SampleServer as JServer
+from repro.serve_mc.scheduler import SlotPool as JSlotPool
+from repro_torch.core import convert, engine, observables
+from repro_torch.launch import anneal_serve
+from repro_torch.obs.trace import validate_events
+from repro_torch.serve_mc import AnnealJob, SampleServer, SlotPool
+
+N, L, V, SLOTS, CHUNK = 5, 16, 4, 3, 4
+COUNTERS = ("launches", "busy_slot_sweeps", "total_slot_sweeps", "sweeps_elapsed",
+            "preemptions", "useful_slot_sweeps", "idle_resweep_slot_sweeps", "spin_flips")
+
+
+def _jobs(Anneal):
+    rng = np.random.default_rng(0)
+    jobs = []
+    for i in range(9):
+        budget = int(rng.integers(4, 18))
+        kw = dict(user=f"u{i % 3}", priority=int(i % 4 == 3))
+        if i % 3 == 2:
+            jobs.append(Anneal.ramp(seed=10 + i, beta_start=0.3, beta_end=1.4, steps=3,
+                                    sweeps_per_step=max(1, budget // 3), **kw))
+        else:
+            jobs.append(Anneal.constant(seed=10 + i, sweeps=budget,
+                                        beta=float(rng.uniform(0.5, 1.5)), **kw))
+    return jobs
+
+
+def _serve(server, Anneal):
+    """Submit the mix, step twice, submit an urgent wide-priority job, drain."""
+    for job in _jobs(Anneal):
+        server.submit(job)
+    results = server.step() + server.step()
+    server.submit(Anneal.constant(seed=99, sweeps=6, beta=1.2, priority=2, user="urgent"))
+    return {r.jid: r for r in results + server.drain()}
+
+
+def _models():
+    jm = jis.random_layered_model(n=N, L=L, seed=4, beta=1.1)
+    return jm, convert.model_from_arrays(dataclasses.asdict(jm))
+
+
+@pytest.mark.parametrize("policy", ["fifo", "backfill", "fair"])
+def test_served_results_match_reference(policy):
+    jm, tm = _models()
+    js = JServer(jm, slots=SLOTS, chunk_sweeps=CHUNK, rung="cb", backend="jnp", V=V, policy=policy)
+    ts = SampleServer(tm, slots=SLOTS, chunk_sweeps=CHUNK, backend="torch", V=V,
+                      device="cpu", policy=policy)
+    want, got = _serve(js, JAnneal), _serve(ts, AnnealJob)
+    assert sorted(want) == sorted(got) == list(range(10))
+    for jid, a in want.items():
+        b = got[jid]
+        np.testing.assert_array_equal(a.spins, b.spins, err_msg=f"job {jid}")
+        assert a.energy == b.energy, jid
+        assert a.magnetization == b.magnetization, jid
+        assert (a.sweeps_done, a.chunks) == (b.sweeps_done, b.chunks), jid
+        assert a.extras["final_beta"] == b.extras["final_beta"], jid
+        assert a.extras["preemptions"] == b.extras["preemptions"], jid
+    assert list(js._retired) == list(ts._retired)
+    sa, sb = js.stats(), ts.stats()
+    for key in COUNTERS:
+        assert sa[key] == sb[key], key
+    if policy != "fifo":
+        assert sb["preemptions"] > 0  # the urgent job evicted someone
+    # Final pools agree too: idle slots' stale state is part of the run.
+    host = convert.carry_to_numpy(ts.carry)
+    for f in js.carry._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(js.carry, f)), host[f], err_msg=f)
+
+
+def test_served_equals_solo_engine_run():
+    """Packing is invisible: a served ramp equals the same schedule run
+    alone on a batch-1 engine."""
+    _, tm = _models()
+    server = SampleServer(tm, slots=SLOTS, chunk_sweeps=3, backend="torch", V=V, device="cpu")
+    for job in _jobs(AnnealJob):
+        server.submit(job)
+    res = {r.jid: r for r in server.drain()}
+    job = _jobs(AnnealJob)[2]  # a ramp: seed 12, three segments
+    eng = engine.SweepEngine.create(tm, backend="torch", batch=1, V=V, device="cpu")
+    carry = eng.init_slot_carry(seed=job.seed, beta=job._betas[0])
+    for seg, beta in zip(job._segments, job._betas):
+        carry = eng.run(eng.set_slot_betas(carry, [0], [beta]), seg)
+    spins = eng.spins_flat(carry)[0]
+    np.testing.assert_array_equal(res[2].spins, spins)
+    assert res[2].energy == observables.energies(tm, spins)
+
+
+def test_telemetry_never_changes_results():
+    _, tm = _models()
+    out = []
+    for tel in (True, False):
+        server = SampleServer(tm, slots=SLOTS, chunk_sweeps=CHUNK, backend="torch", V=V,
+                              device="cpu", telemetry=tel)
+        out.append(_serve(server, AnnealJob))
+        if tel:
+            validate_events(server.telemetry.chrome_trace()["traceEvents"])
+    for jid in out[0]:
+        np.testing.assert_array_equal(out[0][jid].spins, out[1][jid].spins)
+
+
+def test_adaptive_chunks_keep_results():
+    _, tm = _models()
+    fixed = SampleServer(tm, slots=SLOTS, chunk_sweeps=CHUNK, backend="torch", V=V, device="cpu")
+    adaptive = SampleServer(tm, slots=SLOTS, chunk_sweeps="adaptive", backend="torch", V=V,
+                            device="cpu")
+    a, b = _serve(fixed, AnnealJob), _serve(adaptive, AnnealJob)
+    for jid in a:
+        np.testing.assert_array_equal(a[jid].spins, b[jid].spins)
+
+
+def test_slot_pool_guards():
+    pool = SlotPool(4)
+    assert pool.alloc(2) == (0, 1)
+    pool.take([3])
+    with pytest.raises(RuntimeError, match="not free"):
+        pool.take([1])
+    pool.release(0)
+    with pytest.raises(RuntimeError, match="double-free"):
+        pool.release(0)
+    with pytest.raises(ValueError, match="outside"):
+        pool.release(4)
+    with pytest.raises(RuntimeError, match="only 2 slots free"):
+        pool.alloc(3)
+    assert pool.alloc(2) == (0, 2)
+
+
+def test_slot_pool_matches_reference_one_device():
+    """Allocation order equals the reference pool's on one device."""
+    rng = np.random.default_rng(3)
+    ours, ref = SlotPool(8), JSlotPool(8)
+    held = []
+    for _ in range(200):
+        if held and (rng.random() < 0.5 or ours.total_free == 0):
+            slots = held.pop(int(rng.integers(len(held))))
+            ours.release_all(slots)
+            ref.release_all(slots)
+        else:
+            n = int(rng.integers(1, ours.total_free + 1))
+            got = ours.alloc(n)
+            assert got == ref.alloc(n)
+            held.append(got)
+        assert ours.total_free == ref.total_free
+
+
+def test_cli_serves_on_cpu(tmp_path, capsys):
+    trace = tmp_path / "trace.json"
+    report = anneal_serve.main([
+        "--device", "cpu", "--jobs", "6", "--slots", "3", "--chunk", "4", "--n", "5",
+        "--L", "16", "--V", "4", "--trace", str(trace), "--metrics",
+    ])
+    assert report.server.engine.backend == "torch"
+    assert len(report.results) == 6 and report.seconds > 0
+    for r in report.results:
+        assert r.energy == observables.energies(report.model, r.spins)
+    out = capsys.readouterr().out
+    assert "served 6 jobs" in out and "repro_serve_launches" in out
+    validate_events(json.loads(trace.read_text())["traceEvents"])
+
+
+@pytest.mark.parametrize(
+    "flag", [["--pt-replicas", "3"], ["--devices", "4"], ["--snapshot-dir", "x"],
+             ["--snapshot-every", "8"], ["--resume"]],
+    ids=["pt", "devices", "snapshot-dir", "snapshot-every", "resume"],
+)
+def test_cli_rejects_unported_flags(flag):
+    with pytest.raises(ValueError, match="not ported"):
+        anneal_serve.main(["--device", "cpu", "--V", "4", "--L", "16"] + flag)
