@@ -1,33 +1,51 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device; ~1 minute
+    python3 chip_smoke.py            # needs one CUDA device; ~2 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --profile  # also trace one serving run (torch.profiler)
+    python3 chip_smoke.py --profile  # also trace one serving run per rung (torch.profiler)
+
+The port's kernels (src/repro_torch/kernels/csrc/):
+
+  colored_multisweep     fused cb multisweep, MT19937 inside   (serving, --rung cb)
+  metropolis_multisweep  fused a4 multisweep, MT19937 inside   (serving, --rung a4)
+  metropolis_sweep       one a4 sweep on the caller's uniforms (per-sweep path)
+  mt_next_block          one MT19937 block, tempered or uniform (per-sweep path)
 
 Phases (any failure raises, so the script exits non-zero and never prints
-its final ok line):
+its final ok line; no phase catches an exception):
 
   1. environment: Python / torch / CUDA versions and the card's name and
      power limit (nvidia-smi);
-  2. build every kernel of the serving path from csrc/ (nvcc, sm_90a) and
-     print ptxas's register / shared-memory lines;
+  2. build every kernel from csrc/ (one nvcc per source, all started
+     together, sm_90a) and print ptxas's register / shared-memory lines;
   3. each kernel against its plain PyTorch version on the card, on the
-     same inputs: bit-equal (torch.equal) at the main path's shape
-     (n=96, L=256, B=8, 8 sweeps) and at a two-generator-block shape
-     (n=320, L=256); the plain version on the card is also held against
-     the plain version on the CPU at the main shape;
-  4. the main path: `anneal_serve.main` serves 12 anneal jobs (constants
-     and ramps, 64-256 sweeps) at the paper's per-model width (96 spins x
-     256 layers) on 8 slots in chunks of 8 sweeps; every job must be
-     served, each energy must equal `observables.energies` of its spins,
-     every result must be bit-identical to the same jobs served with
-     the plain version on the card, and the kernel must have been
-     launched once per served chunk (launch counts are zeroed just
-     before and read just after);
-  5. timings from CUDA events: kernel and plain-version ms per launch at
-     B=8 and B=115 (8 sweeps each), the bytes bound, the achieved rate,
-     and the serving phase's sweeps/s and spin-flips/s.
+     same inputs, bit-equal (torch.equal on every output, the generator
+     state included): the cb multisweep at the main path's shape (n=96,
+     L=256, B=8, 8 sweeps), at a two-generator-block shape (n=320, L=256)
+     and at 0 sweeps; the a4 multisweep at the main shape, at three layer
+     blocks (n=6, L=384), at the two-block shape and at 0 sweeps; the a4
+     sweep at the main shape on the plain generator's uniforms; the MT19937
+     block in both flavours on (624, 128) and (624, 1024).  Each plain
+     multisweep on the card is also held against the plain version on the
+     CPU at the main shape;
+  4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
+     (constants and ramps, 64-256 sweeps) at the paper's per-model width
+     (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
+     rung cb and once on rung a4; every job must be served, each energy
+     must equal `observables.energies` of its spins, every result must be
+     bit-identical to the same jobs served with the plain version on the
+     card, and the rung's kernel must have been launched once per served
+     chunk (launch counts are zeroed just before each run and read just
+     after);
+  5. the per-sweep path (per sweep: `ops.mt_uniforms_count`, then one a4
+     sweep launch) at the main shape, counts zeroed just before and read
+     just after; it must end in the fused kernel's carry, bit for bit;
+  6. timings from CUDA events: each kernel and its plain version at B=8
+     and B=115, the least time the card could take (bytes or operations),
+     the launch-structure comparison (fused vs per-sweep, B = 1, 8, 115)
+     and the sweep-order comparison (a4 vs cb, B=8); the serving phases'
+     sweeps/s and spin-flips/s.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` and the final ``{"ok": true, "device": ...}``.
@@ -39,6 +57,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -68,27 +87,70 @@ SERVE_ARGS = [
     "--budget-min", "64", "--budget-max", "256", "--seed", "0", "--quiet",
 ]
 
+CSRC = "src/repro_torch/kernels/csrc"
+#: Kernel -> (the TPU kernel it replaces, the rung whose serving path runs it).
+KERNELS = {
+    "colored_multisweep": ("src/repro/kernels/metropolis_kernel.py:523", "cb"),
+    "metropolis_multisweep": ("src/repro/kernels/metropolis_kernel.py:389", "a4"),
+    "metropolis_sweep": ("src/repro/kernels/metropolis_kernel.py:280", None),
+    "mt_next_block": ("src/repro/kernels/mt19937_kernel.py:55", None),
+}
 
-def bytes_moved(B: int, rows: int) -> int:
-    """Bytes the colored multisweep must move per launch: spins in, the
-    generator state in and out, spins/h_space/h_tau out (float32 / uint32)."""
-    return 4 * B * (rows * LANES + 2 * MT_N * LANES + 3 * rows * LANES)
+
+# -- what each kernel must move and compute (bytes, int32 ops, float32 ops) --
 
 
-def ops_done(B: int, rows: int, sd: int, sweeps: int) -> tuple[int, int]:
-    """(int32, float32) operations per launch.  Per sweep: ceil(rows/624)
-    twists of 624 generator words (8 int ops each); tempering of the
-    ``rows`` words drawn (10 int ops, the >> 8 and the int->float
-    conversion, then one float multiply); the class update of every spin
-    (a multiply and an add per space neighbour, then the tau sum and
-    product, the field sum, the two products of x, the exp's scale,
-    conversion (int), bias add (int) and centre product, the accept
-    compare and the flip).  After the last sweep, the dense field pass."""
+def colored_counts(B: int, rows: int, sd: int, sweeps: int) -> tuple[int, int, int]:
+    """One colored multisweep launch.  Bytes: spins in, the generator state
+    in and out, spins/h_space/h_tau out.  Per sweep: ceil(rows/624) twists
+    of 624 generator words (8 int ops each); tempering of the ``rows``
+    words drawn (10 int ops, the >> 8 and the int->float conversion, then
+    one float multiply); the class update of every spin (a multiply and an
+    add per space neighbour, then the tau sum and product, the field sum,
+    the two products of x, the exp's scale, conversion (int), bias add
+    (int) and centre product, the accept compare and the flip).  After the
+    last sweep, the dense field pass."""
     blocks = -(-rows // MT_N)
     spins = rows * LANES
+    nbytes = 4 * B * (spins + 2 * MT_N * LANES + 3 * spins)
     int_ops = sweeps * (blocks * MT_N * LANES * 8 + spins * (12 + 2))
     fp_ops = sweeps * spins * (1 + 2 * sd + 9) + spins * (2 * sd + 2)
-    return B * int_ops, B * fp_ops
+    return nbytes, B * int_ops, B * fp_ops
+
+
+def a4_counts(B: int, rows: int, sd: int, sweeps: int) -> tuple[int, int, int]:
+    """One fused a4 multisweep launch.  Bytes: spins, h_space, h_tau in and
+    out, the generator state in and out.  Per sweep: the twists and the
+    tempering of the ``rows`` words drawn as in `colored_counts` (8 and 12
+    int ops, one float multiply); per spin the row step: the field sum,
+    the two products of x, the exp (scale, conversion and bias add (int),
+    centre), the accept compare, S_mul, the new spin (three ops), -S_mul,
+    a multiply and an add per space neighbour, the tau product and the two
+    tau adds: 14 int and 2*sd + 16 float ops with the uniform's multiply."""
+    blocks = -(-rows // MT_N)
+    spins = rows * LANES
+    nbytes = 4 * B * (6 * spins + 2 * MT_N * LANES)
+    int_ops = sweeps * (blocks * MT_N * LANES * 8 + spins * 14)
+    fp_ops = sweeps * spins * (2 * sd + 16)
+    return nbytes, B * int_ops, B * fp_ops
+
+
+def sweep_counts(B: int, rows: int, sd: int) -> tuple[int, int, int]:
+    """One a4 sweep launch on the caller's uniforms.  Bytes: spins,
+    h_space, h_tau and the uniforms in; spins, h_space, h_tau out.  Per
+    spin the row step of `a4_counts` without the generator: 2 int and
+    2*sd + 15 float ops."""
+    spins = rows * LANES
+    return 4 * B * 7 * spins, B * spins * 2, B * spins * (2 * sd + 15)
+
+
+def mt_counts(V: int, uniforms: bool) -> tuple[int, int, int]:
+    """One MT19937 block launch over (624, V).  Bytes: the state in, the new
+    state and the output out.  Per word: 8 int ops of twist and 10 of
+    tempering; the uniform flavour adds the >> 8 and the conversion (int)
+    and one float multiply."""
+    words = MT_N * V
+    return 3 * 4 * words, words * (8 + (12 if uniforms else 10)), words * int(uniforms)
 
 
 def ops_seconds(int_ops: int, fp_ops: int) -> float:
@@ -97,13 +159,14 @@ def ops_seconds(int_ops: int, fp_ops: int) -> float:
     return max(int_ops / INT32_OPS_PER_S, (int_ops + fp_ops) / FP32_OPS_PER_S)
 
 
-def bound(B: int, rows: int, sd: int, sweeps: int) -> tuple[float, str, float]:
+def bound(counts: tuple[int, int, int], ctas: int | None = None):
     """(least ms the card could take, which of bytes/operations bounds it,
-    least ms with one CTA per replica: the operations on min(B, 132) SMs)."""
-    t_bytes = bytes_moved(B, rows) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_seconds(*ops_done(B, rows, sd, sweeps)) * 1e3
-    t_occ = t_ops * SMS / min(B, SMS)
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_occ)
+    least ms when only ``ctas`` SMs work — one CTA per replica — or None)."""
+    nbytes, int_ops, fp_ops = counts
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_seconds(int_ops, fp_ops) * 1e3
+    t_occ = t_ops * SMS / min(ctas, SMS) if ctas else None
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_occ
 
 
 def nvidia_smi_line() -> str:
@@ -155,12 +218,62 @@ def colored_case(n: int, L: int, B: int, device, seed: int = 0):
     return m, eng.rows, kernel, plain, (carry.spins, carry.rng, betas)
 
 
-def assert_same(got, want, what: str) -> float:
+def a4_case(n: int, L: int, B: int, device, seed: int = 0) -> types.SimpleNamespace:
+    """An a4 model and batch of inputs ``(spins, h_space, h_tau, rng)``
+    with spread betas, and its entries: ``fused``/``plain`` (multisweep
+    kernel / plain version), ``sweep``/``sweep_plain`` (one sweep on given
+    uniforms), ``per_sweep`` (per sweep, the MT19937 block kernel, then
+    one sweep launch) and ``uniforms`` (one sweep's uniforms from the
+    plain generator, laid out (B, rows, 128))."""
+    from repro_torch.core import engine, ising
+    from repro_torch.core import mt19937 as mt
+    from repro_torch.kernels import ops, ref
+
+    m = ising.random_layered_model(n=n, L=L, seed=seed, beta=1.1)
+    eng = engine.SweepEngine.create(m, rung="a4", backend="torch", batch=B, V=LANES, device=device)
+    c = eng.init_carry(seed=seed + 1)
+    rows = eng.rows
+    kw = dict(
+        base_nbr=torch.as_tensor(m.space_nbr, dtype=torch.int32, device=device),
+        base_J2=torch.as_tensor(2.0 * m.space_J, dtype=torch.float32, device=device),
+        tau_J2=torch.as_tensor(2.0 * m.tau_J, dtype=torch.float32, device=device),
+        beta=torch.linspace(0.3, 1.5, B, device=device, dtype=torch.float32),
+        n=n,
+    )
+
+    def lanes(u):  # (rows, B*128) -> (B, rows, 128)
+        return u.reshape(rows, B, LANES).permute(1, 0, 2).contiguous()
+
+    def per_sweep(inputs, sweeps):
+        spins, hs, ht, rng = inputs
+        for _ in range(sweeps):
+            rng, u = ops.mt_uniforms_count(rng, rows)
+            spins, hs, ht = ops.metropolis_sweep(spins, hs, ht, lanes(u), **kw)
+        return spins, hs, ht, rng
+
+    return types.SimpleNamespace(
+        m=m, rows=rows, inputs=(c.spins, c.h_space, c.h_tau, c.rng),
+        fused=lambda inputs, sweeps: ops.metropolis_multisweep(*inputs, **kw, num_sweeps=sweeps),
+        plain=lambda inputs, sweeps: ref.metropolis_multisweep_ref(
+            *inputs, **kw, num_sweeps=sweeps),
+        sweep=lambda inputs, u: ops.metropolis_sweep(*inputs[:3], u, **kw),
+        sweep_plain=lambda inputs, u: ref.metropolis_sweep_ref(*inputs[:3], u, **kw),
+        per_sweep=per_sweep,
+        uniforms=lanes(mt.mt_uniforms_count(c.rng, rows)[1]),
+    )
+
+
+def mt_state(V: int, device, seed: int = 0) -> torch.Tensor:
+    from repro_torch.core import mt19937 as mt
+
+    return mt.mt_init(np.arange(V, dtype=np.uint32) * np.uint32(2654435761) + np.uint32(seed), device)
+
+
+def assert_same(got, want, what: str, names=("spins", "h_space", "h_tau", "rng")) -> float:
     """Raise unless every output is bit-equal; return the max |difference|
     over the float outputs (0.0 when equal)."""
-    names = ("spins", "h_space", "h_tau", "rng")
     err = 0.0
-    for name, a, b in zip(names, got, want):
+    for name, a, b in zip(names, got, want, strict=True):
         if a.dtype.is_floating_point:
             err = max(err, float((a.double() - b.double()).abs().max()))
         if not torch.equal(a, b):
@@ -172,24 +285,73 @@ def assert_same(got, want, what: str) -> float:
     return err
 
 
-def profile_serve() -> None:
+def serve_checked(rung: str) -> tuple:
+    """Serve the 12-job mix on ``rung`` through its kernel (counts zeroed
+    just before, read just after), check every result, serve it again
+    with the plain version on the card and require bit-identical results.
+    Returns (report, the launch counts of the kernel-served run)."""
+    from repro_torch.core import observables
+    from repro_torch.kernels import ops
+    from repro_torch.launch import anneal_serve
+
+    kernel = next(k for k, (_, r) in KERNELS.items() if r == rung)
+    argv = SERVE_ARGS + ["--rung", rung, "--device", "cuda"]
+    ops.reset_launches()
+    report = anneal_serve.main(argv + ["--backend", "cuda"])
+    launches = dict(ops.launches)
+    served = report.server.stats()
+    if launches[kernel] == 0:
+        raise AssertionError(f"the {rung} serving path never launched {kernel}")
+    if launches[kernel] != served["launches"] or sum(launches.values()) != launches[kernel]:
+        raise AssertionError(f"kernel launches {launches} != server launches {served['launches']}")
+    if len(report.results) != 12:
+        raise AssertionError(f"{rung}: served {len(report.results)} of 12 jobs")
+    N = MAIN_N * MAIN_L
+    for r in report.results:
+        if r.spins.shape != (N,) or not np.all(np.abs(r.spins) == 1.0):
+            raise AssertionError(f"{rung} job {r.jid}: spins not +-1 of shape ({N},)")
+        if not np.isfinite(r.energy) or r.energy != observables.energies(report.model, r.spins):
+            raise AssertionError(f"{rung} job {r.jid}: energy {r.energy} disagrees with its spins")
+    plain_report = anneal_serve.main(argv + ["--backend", "torch"])
+    got = {r.jid: r for r in report.results}
+    for r in plain_report.results:
+        g = got[r.jid]
+        if not (np.array_equal(g.spins, r.spins) and g.energy == r.energy
+                and g.sweeps_done == r.sweeps_done and g.chunks == r.chunks
+                and g.extras["final_beta"] == r.extras["final_beta"]):
+            raise AssertionError(f"{rung} job {r.jid}: kernel-served result != plain-served result")
+    if list(report.server._retired) != list(plain_report.server._retired):
+        raise AssertionError(f"{rung}: retirement order differs between kernel and plain serving")
+    sweeps_s = served["busy_slot_sweeps"] / report.seconds
+    flips_s = served["spin_flips"] / report.seconds
+    print(f"[serve {rung}] 12 jobs, n={MAIN_N} L={MAIN_L}, {MAIN_SLOTS} slots, chunk {MAIN_CHUNK}: "
+          f"{served['launches']} launches == {launches[kernel]} {kernel} launches, "
+          f"{report.seconds:.3f} s, {sweeps_s:.0f} slot-sweeps/s, {flips_s / 1e6:.2f}M spin-flips/s, "
+          f"{len(report.results) / report.seconds:.1f} jobs/s; plain-served on the card: "
+          f"{plain_report.seconds:.3f} s; results bit-identical")
+    return report, launches
+
+
+def profile_serve(rung: str) -> None:
     """Trace one kernel-served run with torch.profiler: device time of
     every kernel against the drain's wall time (the device busy share)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import anneal_serve
 
+    kernel = next(k for k, (_, r) in KERNELS.items() if r == rung)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        report = anneal_serve.main(SERVE_ARGS + ["--device", "cuda", "--backend", "cuda"])
+        report = anneal_serve.main(
+            SERVE_ARGS + ["--rung", rung, "--device", "cuda", "--backend", "cuda"])
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in rows)
-    ours = sum(e.self_device_time_total for e in rows if "colored_multisweep" in e.key)
+    ours = sum(e.self_device_time_total for e in rows if kernel in e.key)
     wall_us = report.seconds * 1e6
-    print(f"[profile] serving drain under the profiler: {report.seconds:.3f} s wall, device busy "
-          f"{total_us / 1e3:.3f} ms ({total_us / wall_us:.3f} of wall), of which "
-          f"colored_multisweep {ours / 1e3:.3f} ms; top device ops:")
+    print(f"[profile {rung}] serving drain under the profiler: {report.seconds:.3f} s wall, device "
+          f"busy {total_us / 1e3:.3f} ms ({total_us / wall_us:.3f} of wall), of which "
+          f"{kernel} {ours / 1e3:.3f} ms; top device ops:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:70]}")
+        print(f"[profile {rung}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:70]}")
 
 
 def main(argv: list[str]) -> int:
@@ -198,10 +360,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing to test", file=sys.stderr)
         return 2
-    from repro_torch.core import observables
-    from repro_torch.kernels import _build, ops
-    from repro_torch.launch import anneal_serve
+    from repro_torch.kernels import _build, ops, ref
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     # -- 1. environment ----------------------------------------------------
     smi = nvidia_smi_line()
@@ -212,79 +373,110 @@ def main(argv: list[str]) -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["colored_multisweep"])
-    print(f"[build] colored_multisweep.cu in {time.perf_counter() - t0:.1f} s")
-    print(_build.ptxas_report("colored_multisweep"))
+    _build.build(list(KERNELS))
+    print(f"[build] {', '.join(f'{k}.cu' for k in KERNELS)} in {time.perf_counter() - t0:.1f} s "
+          f"(one nvcc each, in parallel)")
+    for name in KERNELS:
+        print(f"[ptxas {name}]\n{_build.ptxas_report(name)}")
 
     # -- 3. kernel vs plain, on the card -----------------------------------
+    err = dict.fromkeys(KERNELS, 0.0)
     _, rows, kernel, plain, inputs = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
-    err = assert_same(kernel(*inputs, 8), plain(*inputs, 8), "main shape")
+    err["colored_multisweep"] = assert_same(kernel(*inputs, 8), plain(*inputs, 8), "cb main shape")
     cpu_in = tuple(t.cpu() for t in inputs)
     _, _, _, plain_cpu, _ = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
-    assert_same([t.cpu() for t in plain(*inputs, 8)], plain_cpu(*cpu_in, 8), "plain cuda vs cpu")
-    print(f"[check] n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} rows={rows} 8 sweeps: kernel == plain "
+    assert_same([t.cpu() for t in plain(*inputs, 8)], plain_cpu(*cpu_in, 8), "cb plain cuda vs cpu")
+    print(f"[check cb] n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} rows={rows} 8 sweeps: kernel == plain "
           f"(bit-equal), plain on card == plain on CPU")
     _, rows2, kernel2, plain2, inputs2 = colored_case(320, 256, 4, dev, seed=5)
-    err = max(err, assert_same(kernel2(*inputs2, 3), plain2(*inputs2, 3), "two-block shape"))
-    assert_same(kernel2(*inputs2, 0), plain2(*inputs2, 0), "zero sweeps")
-    print(f"[check] n=320 L=256 B=4 rows={rows2} (2 generator blocks/sweep) 3 sweeps and 0 sweeps: "
+    err["colored_multisweep"] = max(
+        err["colored_multisweep"],
+        assert_same(kernel2(*inputs2, 3), plain2(*inputs2, 3), "cb two-block shape"))
+    assert_same(kernel2(*inputs2, 0), plain2(*inputs2, 0), "cb zero sweeps")
+    print(f"[check cb] n=320 L=256 B=4 rows={rows2} (2 generator blocks/sweep) 3 sweeps and "
+          f"0 sweeps: kernel == plain (bit-equal)")
+
+    main_case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
+    for what, case, sweeps in (
+        (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} rows={main_case.rows} 8 sweeps", main_case, 8),
+        ("n=6 L=384 B=3 rows=18 (3 layer blocks) 5 sweeps", a4_case(6, 384, 3, dev, seed=2), 5),
+        ("n=320 L=256 B=4 rows=640 (2 generator blocks/sweep, fields in device memory) 3 sweeps",
+         a4_case(320, 256, 4, dev, seed=5), 3),
+        (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} 0 sweeps", main_case, 0),
+    ):
+        err["metropolis_multisweep"] = max(err["metropolis_multisweep"], assert_same(
+            case.fused(case.inputs, sweeps), case.plain(case.inputs, sweeps), f"a4 {what}"))
+        print(f"[check a4] {what}: kernel == plain (bit-equal)")
+    cpu_case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
+    assert_same([t.cpu() for t in main_case.plain(main_case.inputs, 8)],
+                cpu_case.plain(cpu_case.inputs, 8), "a4 plain cuda vs cpu")
+    print("[check a4] main shape: plain on card == plain on CPU (bit-equal)")
+    err["metropolis_sweep"] = assert_same(
+        main_case.sweep(main_case.inputs, main_case.uniforms),
+        main_case.sweep_plain(main_case.inputs, main_case.uniforms),
+        "a4 one sweep", names=("spins", "h_space", "h_tau"))
+    print(f"[check a4 sweep] n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS}, the plain generator's uniforms: "
           f"kernel == plain (bit-equal)")
+    for V in (LANES, 8 * LANES):
+        state = mt_state(V, dev, seed=V)
+        for kern, pl, out in ((ops.mt_next_block, ref.mt_next_block_ref, "words"),
+                              (ops.mt_uniforms, ref.mt_uniforms_ref, "uniforms")):
+            err["mt_next_block"] = max(err["mt_next_block"], assert_same(
+                kern(state), pl(state), f"MT block (624, {V}) {out}", names=("state", out)))
+        print(f"[check mt] (624, {V}): tempered words and uniforms: kernel == plain (bit-equal)")
     if quick:
-        print("quick checks passed")
+        print(f"quick checks passed in {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # -- 4. the main path: serve through the CLI entry point ---------------
-    ops.reset_launches()
-    report = anneal_serve.main(SERVE_ARGS + ["--device", "cuda", "--backend", "cuda"])
-    launches = dict(ops.launches)
-    served = report.server.stats()
-    if launches["colored_multisweep"] == 0:
-        raise AssertionError("the serving path never launched colored_multisweep")
-    if launches["colored_multisweep"] != served["launches"]:
-        raise AssertionError(f"kernel launches {launches} != server launches {served['launches']}")
-    if len(report.results) != 12:
-        raise AssertionError(f"served {len(report.results)} of 12 jobs")
-    N = MAIN_N * MAIN_L
-    for r in report.results:
-        if r.spins.shape != (N,) or not np.all(np.abs(r.spins) == 1.0):
-            raise AssertionError(f"job {r.jid}: spins not +-1 of shape ({N},)")
-        if not np.isfinite(r.energy) or r.energy != observables.energies(report.model, r.spins):
-            raise AssertionError(f"job {r.jid}: energy {r.energy} disagrees with its spins")
-    plain_report = anneal_serve.main(SERVE_ARGS + ["--device", "cuda", "--backend", "torch"])
-    got = {r.jid: r for r in report.results}
-    for r in plain_report.results:
-        g = got[r.jid]
-        if not (np.array_equal(g.spins, r.spins) and g.energy == r.energy
-                and g.sweeps_done == r.sweeps_done and g.chunks == r.chunks
-                and g.extras["final_beta"] == r.extras["final_beta"]):
-            raise AssertionError(f"job {r.jid}: kernel-served result != plain-served result")
-    if list(report.server._retired) != list(plain_report.server._retired):
-        raise AssertionError("retirement order differs between kernel and plain serving")
-    sweeps_s = served["busy_slot_sweeps"] / report.seconds
-    flips_s = served["spin_flips"] / report.seconds
-    print(f"[serve] 12 jobs, n={MAIN_N} L={MAIN_L}, {MAIN_SLOTS} slots, chunk {MAIN_CHUNK}: "
-          f"{served['launches']} launches == {launches['colored_multisweep']} kernel launches, "
-          f"{report.seconds:.3f} s, {sweeps_s:.0f} slot-sweeps/s, {flips_s / 1e6:.2f}M spin-flips/s, "
-          f"{len(report.results) / report.seconds:.1f} jobs/s; plain-served on the card: "
-          f"{plain_report.seconds:.3f} s; results bit-identical")
+    # -- 4. the serving paths, through the CLI entry point -----------------
+    cb_report, cb_launches = serve_checked("cb")
+    a4_report, a4_launches = serve_checked("a4")
 
-    # -- 5. timings (CUDA events) ------------------------------------------
-    times = {}
+    # -- 5. the per-sweep path ---------------------------------------------
+    ops.reset_launches()
+    per_sweep_out = main_case.per_sweep(main_case.inputs, MAIN_CHUNK)
+    ps_launches = dict(ops.launches)
+    assert_same(per_sweep_out, main_case.fused(main_case.inputs, MAIN_CHUNK), "per-sweep vs fused")
+    for name in ("metropolis_sweep", "mt_next_block"):
+        if ps_launches[name] != MAIN_CHUNK:
+            raise AssertionError(f"per-sweep path: {ps_launches}, want {MAIN_CHUNK} {name} launches")
+    print(f"[per-sweep] B={MAIN_SLOTS} {MAIN_CHUNK} sweeps: {ps_launches['mt_next_block']} "
+          f"mt_next_block + {ps_launches['metropolis_sweep']} metropolis_sweep launches; "
+          f"carry == the fused kernel's (bit-equal)")
+
+    # -- 6. timings (CUDA events) ------------------------------------------
+    sd = main_case.m.space_degree
+    times = {name: {} for name in KERNELS}  # name -> B -> (ms, plain ms, bound)
     for B in (MAIN_SLOTS, 115):
         mB, rowsB, kB, pB, inB = colored_case(MAIN_N, MAIN_L, B, dev, seed=B)
-        t_k = cuda_ms(lambda: kB(*inB, 8), reps=20)
-        t_p = cuda_ms(lambda: pB(*inB, 8), reps=3, warmup=1)
-        b_ms, b_by, occ_ms = bound(B, rowsB, mB.space_degree, 8)
-        gbs = bytes_moved(B, rowsB) / (t_k * 1e-3) / 1e9
-        times[B] = (t_k, t_p, b_ms, b_by)
-        print(f"[time] B={B} n={MAIN_N} L={MAIN_L} 8 sweeps: kernel {t_k:.4f} ms/launch, "
-              f"plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}; bytes "
-              f"{bytes_moved(B, rowsB) / HBM_BYTES_PER_S * 1e3:.5f} ms), one-CTA-per-replica "
-              f"bound {occ_ms:.5f} ms on {min(B, SMS)} of {SMS} SMs, "
-              f"{bytes_moved(B, rowsB)} B -> {gbs:.2f} GB/s achieved")
-    # Where a launch's time goes, B=8: fixed cost (0 sweeps), per-sweep
-    # cost (1 vs 8 sweeps), and its split between the generator twist
-    # (independent of rows) and the class walk (linear in rows).
+        times["colored_multisweep"][B] = (
+            cuda_ms(lambda: kB(*inB, 8), reps=20), cuda_ms(lambda: pB(*inB, 8), reps=3, warmup=1),
+            bound(colored_counts(B, rowsB, sd, 8), B))
+        c = main_case if B == MAIN_SLOTS else a4_case(MAIN_N, MAIN_L, B, dev, seed=B)
+        times["metropolis_multisweep"][B] = (
+            cuda_ms(lambda: c.fused(c.inputs, 8), reps=20),
+            cuda_ms(lambda: c.plain(c.inputs, 8), reps=1, warmup=1),
+            bound(a4_counts(B, c.rows, sd, 8), B))
+        times["metropolis_sweep"][B] = (
+            cuda_ms(lambda: c.sweep(c.inputs, c.uniforms), reps=50),
+            cuda_ms(lambda: c.sweep_plain(c.inputs, c.uniforms), reps=2, warmup=1),
+            bound(sweep_counts(B, c.rows, sd), B))
+        state = c.inputs[3]
+        times["mt_next_block"][B] = (
+            cuda_ms(lambda: ops.mt_uniforms(state), reps=100),
+            cuda_ms(lambda: ref.mt_uniforms_ref(state), reps=10),
+            bound(mt_counts(B * LANES, uniforms=True)))
+        t_words = cuda_ms(lambda: ops.mt_next_block(state), reps=100)
+        for name in KERNELS:
+            t_k, t_p, (b_ms, b_by, occ_ms) = times[name][B]
+            occ = "" if occ_ms is None else f", one-CTA-per-replica bound {occ_ms:.5f} ms"
+            print(f"[time {name}] B={B} n={MAIN_N} L={MAIN_L}: kernel {t_k:.4f} ms/launch, "
+                  f"plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}){occ}")
+        print(f"[time mt_next_block] B={B}: (624, {B * LANES}) uniforms {times['mt_next_block'][B][0]:.4f}"
+              f" ms, tempered words {t_words:.4f} ms (bound {bound(mt_counts(B * LANES, False))[0]:.5f} ms)")
+    # Where a colored launch's time goes, B=8: fixed cost (0 sweeps),
+    # per-sweep cost (1 vs 8 sweeps), and its split between the generator
+    # twist (independent of rows) and the class walk (linear in rows).
     split = {}
     for n_s in (48, MAIN_N, 192):
         _, rowsS, kS, _, inS = colored_case(n_s, MAIN_L, MAIN_SLOTS, dev, seed=n_s)
@@ -292,33 +484,80 @@ def main(argv: list[str]) -> int:
             split[rowsS, S] = cuda_ms(lambda: kS(*inS, S), reps=10)
     per_sweep = (split[2 * MAIN_N, 8] - split[2 * MAIN_N, 1]) / 7
     per_row = (split[384, 8] - split[96, 8]) / (384 - 96) / 8
-    print(f"[split] B={MAIN_SLOTS} rows={2 * MAIN_N}: launch {split[2 * MAIN_N, 0]:.4f} ms at 0 sweeps, "
-          f"{per_sweep:.4f} ms per sweep = {per_row * 2 * MAIN_N:.4f} ms class walk "
+    print(f"[split cb] B={MAIN_SLOTS} rows={2 * MAIN_N}: launch {split[2 * MAIN_N, 0]:.4f} ms at 0 "
+          f"sweeps, {per_sweep:.4f} ms per sweep = {per_row * 2 * MAIN_N:.4f} ms class walk "
           f"({per_row * 1e3:.3f} us/row) + {per_sweep - per_row * 2 * MAIN_N:.4f} ms generator; "
           f"8-sweep launch at rows 96/192/384: {split[96, 8]:.4f}/{split[192, 8]:.4f}/{split[384, 8]:.4f} ms")
+    # The same split for the a4 kernel: 0/1/8 sweeps at rows=192, and the
+    # row walk's cost per row from rows 96/192 (lpv=2, fields in shared
+    # memory); rows=384 keeps the fields in device memory (rows > 200).
+    split = {}
+    for n_s in (48, MAIN_N, 192):
+        c = main_case if n_s == MAIN_N else a4_case(n_s, MAIN_L, MAIN_SLOTS, dev, seed=n_s)
+        for S in ((0, 1, 8) if n_s == MAIN_N else (8,)):
+            split[c.rows, S] = cuda_ms(lambda: c.fused(c.inputs, S), reps=10)
+    per_sweep = (split[2 * MAIN_N, 8] - split[2 * MAIN_N, 1]) / 7
+    per_row = (split[192, 8] - split[96, 8]) / (192 - 96) / 8
+    per_row_dev = (split[384, 8] - split[2 * MAIN_N, 0]) / 384 / 8
+    print(f"[split a4] B={MAIN_SLOTS} rows={2 * MAIN_N}: launch {split[2 * MAIN_N, 0]:.4f} ms at 0 "
+          f"sweeps, {per_sweep:.4f} ms per sweep = {per_row * 2 * MAIN_N:.4f} ms row walk "
+          f"({per_row * 1e3:.3f} us/row) + {per_sweep - per_row * 2 * MAIN_N:.4f} ms generator; "
+          f"8-sweep launch at rows 96/192: {split[96, 8]:.4f}/{split[192, 8]:.4f} ms (fields in "
+          f"shared memory), at rows 384: {split[384, 8]:.4f} ms (fields in device memory, "
+          f"~{per_row_dev * 1e3:.3f} us/row)")
+    # Launch structure (the reference's launch_structure_compare): one
+    # fused launch of 8 sweeps against, per sweep, the block kernel and one
+    # sweep launch; both must end in the same carry.
+    for B in (1, MAIN_SLOTS, 115):
+        c = a4_case(MAIN_N, MAIN_L, B, dev, seed=100 + B)
+        assert_same(c.per_sweep(c.inputs, 8), c.fused(c.inputs, 8), f"launch structure B={B}")
+        t_f = cuda_ms(lambda: c.fused(c.inputs, 8), reps=10)
+        t_s = cuda_ms(lambda: c.per_sweep(c.inputs, 8), reps=10)
+        print(f"[launch structure] B={B} n={MAIN_N} L={MAIN_L} 8 sweeps: fused {t_f * 1e3 / 8:.2f} "
+              f"us/sweep, per-sweep {t_s * 1e3 / 8:.2f} us/sweep ({t_s / t_f:.3f}x); same carry")
+    # Sweep order (the reference's colored_vs_sequential), B=8.
+    us_a4 = times["metropolis_multisweep"][MAIN_SLOTS][0] * 1e3 / 8
+    us_cb = times["colored_multisweep"][MAIN_SLOTS][0] * 1e3 / 8
+    print(f"[sweep order] B={MAIN_SLOTS} n={MAIN_N} L={MAIN_L}: a4 {us_a4:.2f} us/sweep, "
+          f"cb {us_cb:.2f} us/sweep (cb/a4 speed {us_a4 / us_cb:.3f}x)")
     if profile:
-        profile_serve()
-    t_k, t_p, b_ms, b_by = times[MAIN_SLOTS]
-    # Launches of the serving run times the B=8 kernel time above (chunks
-    # of 8 sweeps; shorter remainder chunks make this an upper estimate).
-    share = launches["colored_multisweep"] * t_k * 1e-3 / report.seconds
-    print(f"[serve] kernel share of the drain's wall time <= {share:.3f} "
-          f"({launches['colored_multisweep']} launches x {t_k:.4f} ms / {report.seconds:.3f} s)")
+        profile_serve("cb")
+        profile_serve("a4")
+    for rung, report, launches in (("cb", cb_report, cb_launches), ("a4", a4_report, a4_launches)):
+        name = next(k for k, (_, r) in KERNELS.items() if r == rung)
+        t_k = times[name][MAIN_SLOTS][0]
+        # Launches of the serving run times the B=8 kernel time above
+        # (chunks of 8 sweeps; shorter remainder chunks make this an upper
+        # estimate).
+        share = launches[name] * t_k * 1e-3 / report.seconds
+        print(f"[serve {rung}] kernel share of the drain's wall time <= {share:.3f} "
+              f"({launches[name]} launches x {t_k:.4f} ms / {report.seconds:.3f} s)")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    main_launches = {
+        "colored_multisweep": cb_launches["colored_multisweep"],
+        "metropolis_multisweep": a4_launches["metropolis_multisweep"],
+        "metropolis_sweep": ps_launches["metropolis_sweep"],
+        "mt_next_block": ps_launches["mt_next_block"],
+    }
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "colored_multisweep",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/colored_multisweep.cu",
-        "replaces": "src/repro/kernels/metropolis_kernel.py:523",
-        "launches": launches["colored_multisweep"],
-        "max_abs_err": err,
-        "bit_equal": err == 0.0,
-        "ms": t_k,
-        "plain_ms": t_p,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    }]}))
+    entries = []
+    for name, (replaces, _) in KERNELS.items():
+        t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{CSRC}/{name}.cu",
+            "replaces": replaces,
+            "launches": main_launches[name],
+            "max_abs_err": err[name],
+            "bit_equal": err[name] == 0.0,
+            "ms": t_k,
+            "plain_ms": t_p,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -20,21 +20,26 @@ Backends (`register_backend`):
 
   * ``"torch"`` — the plain PyTorch version (`kernels.ref`), any V, on CPU
     or CUDA tensors; uniforms come from the host-side-formulated blocked
-    MT19937.
-  * ``"cuda"``  — the hand-written kernel (kernels/csrc/colored_multisweep.cu):
-    one launch advances every replica ``num_sweeps`` sweeps with the
-    MT19937 twist/temper inside the kernel.  V must be 128 and the device
-    a CUDA device.
+    MT19937, one draw per sweep.
+  * ``"cuda"``  — the hand-written kernels: one launch advances every
+    replica ``num_sweeps`` sweeps with the MT19937 twist/temper inside the
+    kernel (rung "a4": kernels/csrc/metropolis_multisweep.cu, rung "cb":
+    kernels/csrc/colored_multisweep.cu).  V must be 128 and the device a
+    CUDA device.
 
 Both evaluate the identical twist -> temper -> 24-bit-float pipeline on
-the identical per-replica generator columns and the identical class
-visit order, so they are bit-exact with each other and with the JAX
-reference's jnp and Pallas backends.
+the identical per-replica generator columns and the identical row (a4)
+or class (cb) visit order, so they are bit-exact with each other and
+with the JAX reference's jnp and Pallas backends.
 
-This port serves ONE model with the graph-colored rung "cb" on one
-device.  Rungs a1-a4, exp flavours other than "fast", ``replica_tile``,
-device meshes (``mesh``/``capacities``) and multi-tenant model lists are
-not ported yet and raise ValueError naming themselves.
+Rungs: "a4", the paper's sequential sweep, carries ``h_space``/``h_tau``
+as state and updates them incrementally; "cb", the graph-colored sweep,
+recomputes them densely at the end of each run.
+
+This port serves ONE model with the rungs "a4" and "cb" on one device.
+Rungs a1-a3, exp flavours other than "fast", ``replica_tile``, device
+meshes (``mesh``/``capacities``) and multi-tenant model lists are not
+ported yet and raise ValueError naming themselves.
 
 Slots: a batched carry is a row of independent slots; slot b owns row b
 of spins/fields/betas and its own generator columns, so a slot's
@@ -55,10 +60,10 @@ from repro_torch.core import fastexp, ising, metropolis, mt19937 as mt, reorder
 
 RUNGS = ("a1", "a2", "a3", "a4", "cb")
 #: Rungs this port implements.
-PORTED_RUNGS = ("cb",)
+PORTED_RUNGS = ("a4", "cb")
 
 #: Default exp flavour per rung (every ported rung uses the bit-trick exp).
-DEFAULT_EXP = {"cb": "fast"}
+DEFAULT_EXP = {"a4": "fast", "cb": "fast"}
 
 #: Seed-scrambling multiplier for per-lane MT19937 seeds (Knuth's 2^32/phi).
 LANE_SEED_MULT = np.uint32(2654435761)
@@ -189,7 +194,7 @@ class SweepEngine:
         self.exp_flavor = exp_flavor
         self.device = device
         self.rows = reorder.check_lane_shape(model.n, model.L, V)
-        self.classes = reorder.colored_classes(model, V)
+        self.classes = reorder.colored_classes(model, V) if rung == "cb" else None
         self._run = _BACKENDS[backend](self)
 
     # -- construction ---------------------------------------------------------
@@ -407,8 +412,32 @@ def _model_tensors(eng: SweepEngine) -> dict:
     )
 
 
+def _a4_tensors(eng: SweepEngine) -> dict:
+    """The a4 sweep's tables: neighbour ids (int32) and the doubled
+    couplings, float32 like the reference's ``2.0 * space_J``."""
+    m, dev = eng.model, eng.device
+    return dict(
+        base_nbr=torch.from_numpy(np.asarray(m.space_nbr, np.int32)).to(dev),
+        base_J2=torch.from_numpy(np.asarray(2.0 * m.space_J, np.float32)).to(dev),
+        tau_J2=torch.from_numpy(np.asarray(2.0 * m.tau_J, np.float32)).to(dev),
+    )
+
+
 def _build_torch(eng: SweepEngine) -> Callable:
     from repro_torch.kernels import ref
+
+    if eng.rung == "a4":
+        tabs = _a4_tensors(eng)
+
+        def run_a4(carry: SweepCarry, num_sweeps: int) -> SweepCarry:
+            spins, hs, ht, rng = ref.metropolis_multisweep_ref(
+                carry.spins, carry.h_space, carry.h_tau, carry.rng, **tabs,
+                beta=carry.betas, n=eng.model.n, num_sweeps=num_sweeps,
+                exp_flavor=eng.exp_flavor,
+            )
+            return SweepCarry(spins, hs, ht, carry.betas, rng)
+
+        return run_a4
 
     classes = metropolis.classes_to(eng.classes, eng.device)
     tabs = _model_tensors(eng)
@@ -427,6 +456,18 @@ def _build_cuda(eng: SweepEngine) -> Callable:
     from repro_torch.kernels import ops
 
     m = eng.model
+    if eng.rung == "a4":
+        tabs = _a4_tensors(eng)
+
+        def run_a4(carry: SweepCarry, num_sweeps: int) -> SweepCarry:
+            spins, hs, ht, rng = ops.metropolis_multisweep(
+                carry.spins, carry.h_space, carry.h_tau, carry.rng, **tabs,
+                beta=carry.betas, n=m.n, num_sweeps=num_sweeps, exp_flavor=eng.exp_flavor,
+            )
+            return SweepCarry(spins, hs, ht, carry.betas, rng)
+
+        return run_a4
+
     colored_fn = ops.make_colored_multisweep(
         eng.classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=m.n,
         exp_flavor=eng.exp_flavor,

@@ -1,17 +1,22 @@
-"""The colored ("cb") Metropolis sweep as plain PyTorch tensor code.
+"""The ported Metropolis sweeps (rungs "a4" and "cb") as plain PyTorch code.
 
-This is the plain version of the rung the CUDA kernel implements
-(kernels/csrc/colored_multisweep.cu): the same class visit order, the
-same per-row field expression and the same accept test, written as
-whole-class tensor ops.  It runs on CPU or CUDA tensors and is bit-exact
-with the kernel (and with the reference's jnp path): no reductions, no
-scatter-adds — every float is an elementwise op or a gather with a fixed
-order.
+These are the plain versions of the rungs the CUDA kernels implement:
+`sweep_lane` (a4, kernels/csrc/metropolis_multisweep.cu and
+metropolis_sweep.cu) and the colored sweep (cb,
+kernels/csrc/colored_multisweep.cu).  They run on CPU or CUDA tensors
+and are bit-exact with the kernels and with the reference's jnp path.
 
 Replicas are an explicit leading batch dimension: spins, fields and
 uniforms are ``(B, rows, V)``, betas ``(B,)``.
 
-The lane layout's rows are grouped into C conflict-free color classes
+a4 (the paper's fully vectorized rung, Figure 12b): the rows are walked
+in order; all V lanes of a row flip together, and the flip's field
+contribution is added row by row into the carried fields — the SD
+space-neighbour rows of ``h_space`` and the two tau rows of ``h_tau``,
+rolled one lane over at the first and last layer block.  The fields are
+state: the incremental sums are the result.
+
+cb: the lane layout's rows are grouped into C conflict-free color classes
 (`reorder.colored_classes`); one sweep is C whole-lattice masked updates.
 Per class, each row's field is recomputed from the current spins,
 
@@ -20,7 +25,8 @@ Per class, each row's field is recomputed from the current spins,
 where ``down``/``up`` are the previous/next-layer spins, read one lane
 over (rolled) at section-start/-end rows; the row flips if
 ``u[row] < fastexp(((-2 beta) * s) * h_eff)``.  After the last sweep the
-carried fields are refreshed densely (`lane_h_eff`).
+carried fields are refreshed densely (`lane_h_eff`).  No scatter-adds:
+every float is an elementwise op or a gather with a fixed order.
 """
 
 from __future__ import annotations
@@ -74,6 +80,54 @@ def _flip(s, h_sum, u, beta, exp_fn):
     p = exp_fn(x)
     mask = (u < p).to(torch.float32)
     return s * mask, s * (1.0 - 2.0 * mask)
+
+
+def sweep_lane(
+    state: LaneState,  # batched (B, rows, V)
+    base_nbr,  # (n, SD) in-layer neighbour site ids
+    base_J2: torch.Tensor,  # (n, SD) float32, pre-doubled
+    tau_J2: torch.Tensor,  # (n,) float32, pre-doubled
+    u: torch.Tensor,  # (B, rows, V) uniforms
+    beta: torch.Tensor,  # (B,)
+    n: int,
+    exp_fn,
+) -> LaneState:
+    """One a4 sweep of every replica; returns a new state (the input's
+    tensors are not modified).
+
+    Row ``q`` (site ``i = q % n`` of layer block ``q // n``) flips where
+    ``u < exp(-2 beta s h_eff)``; then, in this order, ``h_space`` of
+    each space-neighbour row gets ``-S_mul * J2[d]`` (d = 0..SD-1) and
+    ``h_tau`` of the two tau rows gets ``tc = -S_mul * tau2``.  In the
+    first layer block the down link wraps (row ``rows-n+i`` gets ``tc``
+    rolled by -1 lane, before row ``q+n`` gets ``tc``); in the last block
+    the up link wraps (row ``q-n`` gets ``tc``, then row ``i`` gets ``tc``
+    rolled by +1).  With two layer blocks both adds of a row land in the
+    same row, so their order is part of the result.
+    """
+    spins, hs, ht = (x.clone() for x in state)
+    rows = spins.shape[1]
+    nbr = torch.as_tensor(base_nbr).tolist()
+    tau_J2 = tau_J2.reshape(-1)
+    col = beta.reshape(-1, 1)
+    for q in range(rows):
+        i = q % n
+        base = q - i
+        smul, s_new = _flip(spins[:, q], hs[:, q] + ht[:, q], u[:, q], col, exp_fn)
+        spins[:, q] = s_new
+        for d, t in enumerate(nbr[i]):
+            hs[:, base + t] += -smul * base_J2[i, d]
+        tc = -smul * tau_J2[i]
+        if q < n:  # first layer block: the down link wraps
+            ht[:, rows - n + i] += torch.roll(tc, -1, dims=-1)
+            ht[:, q + n] += tc
+        elif q >= rows - n:  # last layer block: the up link wraps
+            ht[:, q - n] += tc
+            ht[:, i] += torch.roll(tc, 1, dims=-1)
+        else:
+            ht[:, q - n] += tc
+            ht[:, q + n] += tc
+    return LaneState(spins, hs, ht)
 
 
 def lane_h_eff(

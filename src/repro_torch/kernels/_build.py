@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library under
 ``build/torch_kernels/`` at the repository root, the first time a kernel
-is used.  The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
+is used.  The sources share device code through the headers
+``csrc/*.cuh``.  The library's file name carries a hash of the source,
+every header and the flags, so an edited source or header rebuilds and a
+stale library is never loaded.
 A failed build raises `KernelBuildError` with the compiler's output;
 nothing falls back to the plain PyTorch version.
 
@@ -47,9 +49,11 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -13,6 +13,69 @@ from repro_torch.core import metropolis as mp
 from repro_torch.core import mt19937 as mt
 
 
+def mt_next_block_ref(state):
+    """One twist of the (624, V) interlaced state; returns ``(new_state,
+    tempered words)``, both int32 storage of uint32 bits."""
+    new = mt.mt_twist(state)
+    return new, mt.mt_temper(new)
+
+
+def mt_uniforms_ref(state):
+    """`mt_next_block_ref` with the 24-bit float conversion: returns
+    ``(new_state, uniforms)``, uniforms float32 in [0, 1)."""
+    new = mt.mt_twist(state)
+    return new, mt.uniforms_from_u32(mt.mt_temper(new))
+
+
+def metropolis_sweep_ref(
+    spins,  # (B, rows, V) f32
+    h_space,
+    h_tau,
+    u,  # (B, rows, V) uniforms
+    base_nbr,  # (n, SD) int
+    base_J2,  # (n, SD) f32, pre-doubled
+    tau_J2,  # (n,) or (n, 1) f32, pre-doubled
+    beta,  # (B,) or (B, 1) f32
+    n: int,
+    exp_flavor: str = "fast",
+):
+    """One a4 sweep of every replica on the given uniforms.  Returns
+    ``(spins, h_space, h_tau)``."""
+    st = mp.sweep_lane(
+        mp.LaneState(spins, h_space, h_tau), base_nbr, base_J2, tau_J2.reshape(-1),
+        u, beta.reshape(-1), n, fx.exp_fn(exp_flavor),
+    )
+    return st.spins, st.h_space, st.h_tau
+
+
+def metropolis_multisweep_ref(
+    spins,  # (B, rows, V) f32
+    h_space,
+    h_tau,
+    rng,  # (624, B*V) int32 — the interlaced MT19937 state, uint32 bits
+    base_nbr,
+    base_J2,
+    tau_J2,
+    beta,
+    n: int,
+    num_sweeps: int,
+    exp_flavor: str = "fast",
+):
+    """``num_sweeps`` a4 sweeps of every replica.  Per sweep,
+    ceil(rows/624) fresh generator blocks are drawn and the tail
+    discarded; replica b reads lane columns b*V..(b+1)*V.  The fields are
+    carried and updated incrementally.  Returns ``(spins, h_space, h_tau,
+    rng)``."""
+    B, rows, V = spins.shape
+    for _ in range(num_sweeps):
+        rng, u = mt.mt_uniforms_count(rng, rows)
+        u = u.reshape(rows, B, V).permute(1, 0, 2)
+        spins, h_space, h_tau = metropolis_sweep_ref(
+            spins, h_space, h_tau, u, base_nbr, base_J2, tau_J2, beta, n, exp_flavor
+        )
+    return spins, h_space, h_tau, rng
+
+
 def colored_multisweep_ref(
     spins,  # (B, rows, V) f32
     rng,  # (624, B*V) int32 — the interlaced MT19937 state, uint32 bits

@@ -2,12 +2,14 @@
 
 Packs annealing jobs (seed + beta schedule + sweep budget) into the
 replica batch of ONE resident `SweepEngine`, advancing everyone by fused
-chunks — one launch of the colored-multisweep CUDA kernel per chunk — and
-retiring/admitting between chunks.
+chunks — one launch of a multisweep CUDA kernel per chunk: the colored
+kernel for ``--rung cb`` (the default), the paper's sequential a4 kernel
+for ``--rung a4`` — and retiring/admitting between chunks.
 
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve --rung a4  # a4, on the card
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
-      --device cpu --jobs 8 --slots 4 --chunk 4 --n 8 --L 16 --V 4
+      --device cpu --jobs 8 --slots 4 --chunk 4 --n 8 --L 16 --V 4 [--rung a4]
 
 ``--device cpu`` serves with the plain PyTorch version (``--backend``
 defaults to ``cuda`` on a CUDA device and to ``torch`` elsewhere).
@@ -98,7 +100,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--backend", default=None, choices=["cuda", "torch"],
                     help="cuda = the hand-written kernel, torch = the plain "
                          "version; default cuda on a CUDA device, else torch")
-    ap.add_argument("--rung", default="cb", help="sweep rung (only 'cb' is ported)")
+    ap.add_argument("--rung", default="cb",
+                    help="sweep rung: cb (graph-colored, the default) or a4 (the "
+                         "paper's sequential order); a1-a3 are not ported")
     ap.add_argument("--policy", default="fair", choices=["fifo", "backfill", "fair"])
     ap.add_argument("--V", type=int, default=128)
     ap.add_argument("--n", type=int, default=8)

@@ -41,11 +41,12 @@ spans, one complete event per launch, async job lifecycles).  A timed
 launch ends in `torch.cuda.synchronize` on a CUDA engine, so its wall
 time covers the kernel, not just its enqueue.
 
-The port serves one model on one device.  Not ported yet, each raising
-ValueError naming itself: rungs other than "cb", exp flavours other than
-"fast", ``replica_tile``, ``mesh``/``capacities``, ``multi_tenant``,
-``stream``, `arm_profiler`, snapshots (``snapshot_manager``,
-``snapshot_every_sweeps``, ``preemption``, `snapshot`, `restore`).
+The port serves one model on one device, on the rungs "a4" and "cb".
+Not ported yet, each raising ValueError naming itself: rungs a1-a3, exp
+flavours other than "fast", ``replica_tile``, ``mesh``/``capacities``,
+``multi_tenant``, ``stream``, `arm_profiler`, snapshots
+(``snapshot_manager``, ``snapshot_every_sweeps``, ``preemption``,
+`snapshot`, `restore`).
 """
 
 from __future__ import annotations

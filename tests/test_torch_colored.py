@@ -5,8 +5,8 @@
 * the port's kernel wrapper on CPU tensors (it takes the plain version);
 * the port's engine (backend "torch", CPU) against the reference's engine
   (backend "jnp") at V=4 and V=128, including two generator blocks per
-  sweep (n=160, L=16, V=4 -> 640 rows);
-* slot splice/extract/park/resume round-trips;
+  sweep (n=160, L=16, V=4 -> 640 rows), on the rungs "cb" and "a4";
+* slot splice/extract/park/resume round-trips, on both rungs;
 * the ValueErrors of everything this slice does not port.
 
 Every comparison is bit-exact (`assert_array_equal`).
@@ -110,14 +110,15 @@ def test_plain_and_wrapper_match_jnp_oracle(n, L, V, B, S):
         assert ops.launches["colored_multisweep"] == 0
 
 
+@pytest.mark.parametrize("rung", ["cb", "a4"])
 @pytest.mark.parametrize(
     "n,L,V,B", [(5, 16, 4, 3), (160, 16, 4, 2), (4, 256, 128, 2)],
     ids=["V4", "V4-two-blocks", "V128"],
 )
-def test_engine_matches_jax_engine(n, L, V, B):
+def test_engine_matches_jax_engine(n, L, V, B, rung):
     jm, tm = _pair(n, L, seed=2)
-    je = jeng.SweepEngine.create(jm, rung="cb", backend="jnp", batch=B, V=V)
-    te = engine.SweepEngine.create(tm, rung="cb", backend="torch", batch=B, V=V, device="cpu")
+    je = jeng.SweepEngine.create(jm, rung=rung, backend="jnp", batch=B, V=V)
+    te = engine.SweepEngine.create(tm, rung=rung, backend="torch", batch=B, V=V, device="cpu")
     jc, tc = je.init_carry(seed=4), te.init_carry(seed=4)
     _carry_equal(jc, tc, "init")
     for k in (3, 1, 2):  # consecutive runs of different lengths
@@ -168,11 +169,12 @@ def test_engine_inputs_spins_and_betas_match():
     _carry_equal(jc, tc)
 
 
+@pytest.mark.parametrize("rung", ["cb", "a4"])
 @pytest.mark.parametrize("V,n,L", [(4, 5, 16), (128, 4, 256)], ids=["V4", "V128"])
-def test_slot_round_trips_match_jax(V, n, L):
+def test_slot_round_trips_match_jax(V, n, L, rung):
     jm, tm = _pair(n, L, seed=6)
-    je = jeng.SweepEngine.create(jm, rung="cb", backend="jnp", batch=3, V=V)
-    te = engine.SweepEngine.create(tm, rung="cb", backend="torch", batch=3, V=V, device="cpu")
+    je = jeng.SweepEngine.create(jm, rung=rung, backend="jnp", batch=3, V=V)
+    te = engine.SweepEngine.create(tm, rung=rung, backend="torch", batch=3, V=V, device="cpu")
     jc, tc = je.run(je.init_carry(seed=2), 2), te.run(te.init_carry(seed=2), 2)
     # Fresh slot carries agree, splice into slot 1, set slot 2's beta.
     js, ts = je.init_slot_carry(seed=9, beta=0.8), te.init_slot_carry(seed=9, beta=0.8)
@@ -224,7 +226,7 @@ def _model():
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        (dict(rung="a4", backend="torch"), "a4"),
+        (dict(rung="a3", backend="torch"), "a3"),
         (dict(rung="a1", backend="torch"), "a1"),
         (dict(rung="zz", backend="torch"), "unknown rung"),
         (dict(backend="jnp"), "unknown backend"),
@@ -236,7 +238,7 @@ def _model():
         (dict(backend="cuda", V=128), "CUDA device"),
         (dict(backend="cuda", V=4, device="cuda"), "V=128"),
     ],
-    ids=["a4", "a1", "unknown-rung", "unknown-backend", "exp", "replica_tile",
+    ids=["a3", "a1", "unknown-rung", "unknown-backend", "exp", "replica_tile",
          "mesh", "capacities", "batch0", "cuda-on-cpu", "cuda-V4"],
 )
 def test_engine_rejects_unported_modes(kwargs, match):

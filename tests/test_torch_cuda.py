@@ -1,7 +1,7 @@
-"""Tests that need a CUDA card: the kernel against its plain version, and
-the server on the card.  Marked ``cuda``; each test checks for a card in
-its own body and skips without one (run them on the card with
-``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py``).
+"""Tests that need a CUDA card: each kernel against its plain version,
+and the server on the card on both rungs.  Marked ``cuda``; each test
+checks for a card in its own body and skips without one (run them on the
+card with ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py``).
 """
 
 import numpy as np
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core import engine, ising, metropolis
+from repro_torch.core import mt19937 as mt
 from repro_torch.kernels import ops, ref
 from repro_torch.serve_mc import AnnealJob, SampleServer
 
@@ -47,12 +48,69 @@ def test_kernel_bit_equals_plain(n, L, B, S):
         assert torch.equal(a, b)
 
 
-def test_server_on_card_matches_plain():
+def _a4_case(n, L, B, dev):
+    """An a4 engine's carry with spread betas, and its tables on ``dev``."""
+    m = ising.random_layered_model(n=n, L=L, seed=n, beta=1.0)
+    eng = engine.SweepEngine.create(m, rung="a4", backend="torch", batch=B, V=128, device=dev)
+    carry = eng.init_carry(seed=1)._replace(betas=torch.linspace(0.2, 2.0, B, device=dev))
+    return carry, engine._a4_tensors(eng)
+
+
+@pytest.mark.parametrize(
+    "n,L,B,S", [(96, 256, 8, 8), (6, 384, 2, 3), (320, 256, 2, 2), (96, 256, 2, 0)],
+    ids=["main", "lpv3", "two-blocks", "zero-sweeps"],
+)
+def test_a4_multisweep_kernel_bit_equals_plain(n, L, B, S):
+    _need_card()
+    dev = torch.device("cuda")
+    c, tabs = _a4_case(n, L, B, dev)
+    args = (c.spins, c.h_space, c.h_tau, c.rng)
+    before = ops.launches["metropolis_multisweep"]
+    got = ops.metropolis_multisweep(*args, **tabs, beta=c.betas, n=n, num_sweeps=S)
+    torch.cuda.synchronize()
+    assert ops.launches["metropolis_multisweep"] == before + 1
+    want = ref.metropolis_multisweep_ref(*args, **tabs, beta=c.betas, n=n, num_sweeps=S)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,L,B", [(96, 256, 4), (6, 384, 2), (320, 256, 2)],
+                         ids=["main", "lpv3", "two-blocks"])
+def test_a4_sweep_kernel_bit_equals_plain(n, L, B):
+    _need_card()
+    dev = torch.device("cuda")
+    c, tabs = _a4_case(n, L, B, dev)
+    rows = c.spins.shape[1]
+    _, u = mt.mt_uniforms_count(c.rng, rows)
+    u = u.reshape(rows, B, 128).permute(1, 0, 2).contiguous()
+    args = (c.spins, c.h_space, c.h_tau, u)
+    got = ops.metropolis_sweep(*args, **tabs, beta=c.betas, n=n)
+    want = ref.metropolis_sweep_ref(*args, **tabs, beta=c.betas, n=n)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("V", [128, 1024, 200])
+def test_mt_block_kernel_bit_equals_plain(V):
+    _need_card()
+    state = mt.mt_init(np.arange(V, dtype=np.uint32) * 2654435761 + 5, "cuda")
+    for kernel, plain in ((ops.mt_next_block, ref.mt_next_block_ref),
+                          (ops.mt_uniforms, ref.mt_uniforms_ref)):
+        for a, b in zip(kernel(state), plain(state)):
+            assert torch.equal(a, b)
+    s1, u1 = ops.mt_uniforms_count(state, 1300)
+    s2, u2 = mt.mt_uniforms_count(state, 1300)
+    assert torch.equal(s1, s2) and torch.equal(u1, u2)
+
+
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_server_on_card_matches_plain(rung):
     _need_card()
     m = ising.random_layered_model(n=8, L=256, seed=0, beta=1.2)
     out = []
     for backend in ("cuda", "torch"):
-        server = SampleServer(m, slots=4, chunk_sweeps=4, backend=backend, device="cuda")
+        server = SampleServer(m, slots=4, chunk_sweeps=4, rung=rung, backend=backend,
+                              device="cuda")
         for i in range(6):
             server.submit(AnnealJob.constant(seed=i, sweeps=5 + 3 * i, beta=0.5 + 0.2 * i))
         out.append({r.jid: r for r in server.drain()})

@@ -22,7 +22,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-chip_smoke.bound(8, 192, 6, 8)
+chip_smoke.bound(chip_smoke.a4_counts(8, 192, 6, 8), 8)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(len(names), bad)

@@ -6,7 +6,8 @@ policies checkpoint-preempt — is served by the reference
 (``backend="jnp"``) and by the port (``backend="torch"``, CPU).  Per-job
 spins, energies, ``sweeps_done``, ``chunks``, ``final_beta``, the
 retirement order and the slot-sweep counters of ``stats()`` must be
-identical.
+identical, on the rungs "cb" and "a4" (whose final pool also carries the
+incrementally updated fields).
 """
 
 import dataclasses
@@ -58,11 +59,12 @@ def _models():
     return jm, convert.model_from_arrays(dataclasses.asdict(jm))
 
 
+@pytest.mark.parametrize("rung", ["cb", "a4"])
 @pytest.mark.parametrize("policy", ["fifo", "backfill", "fair"])
-def test_served_results_match_reference(policy):
+def test_served_results_match_reference(policy, rung):
     jm, tm = _models()
-    js = JServer(jm, slots=SLOTS, chunk_sweeps=CHUNK, rung="cb", backend="jnp", V=V, policy=policy)
-    ts = SampleServer(tm, slots=SLOTS, chunk_sweeps=CHUNK, backend="torch", V=V,
+    js = JServer(jm, slots=SLOTS, chunk_sweeps=CHUNK, rung=rung, backend="jnp", V=V, policy=policy)
+    ts = SampleServer(tm, slots=SLOTS, chunk_sweeps=CHUNK, rung=rung, backend="torch", V=V,
                       device="cpu", policy=policy)
     want, got = _serve(js, JAnneal), _serve(ts, AnnealJob)
     assert sorted(want) == sorted(got) == list(range(10))
@@ -161,13 +163,15 @@ def test_slot_pool_matches_reference_one_device():
         assert ours.total_free == ref.total_free
 
 
-def test_cli_serves_on_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_cli_serves_on_cpu(tmp_path, capsys, rung):
     trace = tmp_path / "trace.json"
     report = anneal_serve.main([
         "--device", "cpu", "--jobs", "6", "--slots", "3", "--chunk", "4", "--n", "5",
-        "--L", "16", "--V", "4", "--trace", str(trace), "--metrics",
+        "--L", "16", "--V", "4", "--trace", str(trace), "--metrics", "--rung", rung,
     ])
     assert report.server.engine.backend == "torch"
+    assert report.server.engine.rung == rung
     assert len(report.results) == 6 and report.seconds > 0
     for r in report.results:
         assert r.energy == observables.energies(report.model, r.spins)
