@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py            # needs one CUDA device; ~2 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --profile  # also trace one serving run per rung (torch.profiler)
+    python3 chip_smoke.py --profile  # also trace the serving runs (torch.profiler)
 
 The port's kernels (src/repro_torch/kernels/csrc/):
 
-  colored_multisweep     fused cb multisweep, MT19937 inside   (serving, --rung cb)
-  metropolis_multisweep  fused a4 multisweep, MT19937 inside   (serving, --rung a4)
-  metropolis_sweep       one a4 sweep on the caller's uniforms (per-sweep path)
-  mt_next_block          one MT19937 block, tempered or uniform (per-sweep path)
+  colored_multisweep           fused cb multisweep, MT19937 inside     (serving, --rung cb)
+  colored_multisweep_multi     the same, each slot its own couplings  (multi-tenant serving, cb)
+  metropolis_multisweep        fused a4 multisweep, MT19937 inside     (serving, --rung a4)
+  metropolis_multisweep_multi  the same, each slot its own couplings  (multi-tenant serving, a4)
+  metropolis_sweep             one a4 sweep on the caller's uniforms   (per-sweep path)
+  mt_next_block                one MT19937 block, tempered or uniform  (per-sweep path)
 
 Phases (any failure raises, so the script exits non-zero and never prints
 its final ok line; no phase catches an exception):
@@ -26,9 +28,12 @@ its final ok line; no phase catches an exception):
      and at 0 sweeps; the a4 multisweep at the main shape, at three layer
      blocks (n=6, L=384), at the two-block shape and at 0 sweeps; the a4
      sweep at the main shape on the plain generator's uniforms; the MT19937
-     block in both flavours on (624, 128) and (624, 1024).  Each plain
-     multisweep on the card is also held against the plain version on the
-     CPU at the main shape;
+     block in both flavours on (624, 128) and (624, 1024); the multi-tenant
+     cb and a4 multisweeps on 8 distinct tenants at the main shape, at the
+     two-generator-block shape and at 0 sweeps, and on 8 copies of one
+     model against the single-model kernel.  Each plain multisweep on the
+     card is also held against the plain version on the CPU at the main
+     shape;
   4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
      (constants and ramps, 64-256 sweeps) at the paper's per-model width
      (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
@@ -38,14 +43,23 @@ its final ok line; no phase catches an exception):
      card, and the rung's kernel must have been launched once per served
      chunk (launch counts are zeroed just before each run and read just
      after);
-  5. the per-sweep path (per sweep: `ops.mt_uniforms_count`, then one a4
+  5. multi-tenant serving, once per rung: `SampleServer(multi_tenant=True)`
+     at the same width, 8 slots, chunks of 8, 16 anneal jobs (constants and
+     ramps, 64-256 sweeps), job i on tenant i % 8 of 8 reseeded tenants,
+     every fourth job on the server's own model; every result must equal
+     the same job run alone on a single-model engine of its own model
+     (kernels #1/#3), and the rung's multi-tenant kernel must have been
+     launched once per served chunk (counts zeroed just before, read just
+     after).  For comparison, the same jobs on a resident slots=1 server;
+  6. the per-sweep path (per sweep: `ops.mt_uniforms_count`, then one a4
      sweep launch) at the main shape, counts zeroed just before and read
      just after; it must end in the fused kernel's carry, bit for bit;
-  6. timings from CUDA events: each kernel and its plain version at B=8
-     and B=115, the least time the card could take (bytes or operations),
-     the launch-structure comparison (fused vs per-sweep, B = 1, 8, 115)
-     and the sweep-order comparison (a4 vs cb, B=8); the serving phases'
-     sweeps/s and spin-flips/s.
+  7. timings from CUDA events: each kernel and its plain version at B=8
+     and B=115 (the multi-tenant kernels on B distinct tenants), the least
+     time the card could take (bytes or operations), the launch-structure
+     comparison (fused vs per-sweep, B = 1, 8, 115) and the sweep-order
+     comparison (a4 vs cb, B=8); the serving phases' sweeps/s and
+     spin-flips/s.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` and the final ``{"ok": true, "device": ...}``.
@@ -88,13 +102,21 @@ SERVE_ARGS = [
 ]
 
 CSRC = "src/repro_torch/kernels/csrc"
-#: Kernel -> (the TPU kernel it replaces, the rung whose serving path runs it).
+#: Kernel -> the TPU kernel it replaces.
 KERNELS = {
-    "colored_multisweep": ("src/repro/kernels/metropolis_kernel.py:523", "cb"),
-    "metropolis_multisweep": ("src/repro/kernels/metropolis_kernel.py:389", "a4"),
-    "metropolis_sweep": ("src/repro/kernels/metropolis_kernel.py:280", None),
-    "mt_next_block": ("src/repro/kernels/mt19937_kernel.py:55", None),
+    "colored_multisweep": "src/repro/kernels/metropolis_kernel.py:523",
+    "colored_multisweep_multi": "src/repro/kernels/metropolis_kernel.py:642",
+    "metropolis_multisweep": "src/repro/kernels/metropolis_kernel.py:389",
+    "metropolis_multisweep_multi": "src/repro/kernels/metropolis_kernel.py:425",
+    "metropolis_sweep": "src/repro/kernels/metropolis_kernel.py:280",
+    "mt_next_block": "src/repro/kernels/mt19937_kernel.py:55",
 }
+#: Rung -> the kernel of its serving path, single-model and multi-tenant.
+SERVE_KERNEL = {"cb": "colored_multisweep", "a4": "metropolis_multisweep"}
+MULTI_KERNEL = {"cb": "colored_multisweep_multi", "a4": "metropolis_multisweep_multi"}
+#: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
+#: each kernel reads (cb: h, J row, tau; a4: doubled J row and tau).
+TENANTS, MULTI_JOBS = 8, 16
 
 
 # -- what each kernel must move and compute (bytes, int32 ops, float32 ops) --
@@ -151,6 +173,13 @@ def mt_counts(V: int, uniforms: bool) -> tuple[int, int, int]:
     and one float multiply."""
     words = MT_N * V
     return 3 * 4 * words, words * (8 + (12 if uniforms else 10)), words * int(uniforms)
+
+
+def with_tables(counts: tuple[int, int, int], B: int, n: int, floats_per_site: int):
+    """A multi-tenant launch: the single-model counts plus every slot's own
+    coupling tables, read once (``floats_per_site`` float32 per site)."""
+    nbytes, int_ops, fp_ops = counts
+    return nbytes + 4 * B * n * floats_per_site, int_ops, fp_ops
 
 
 def ops_seconds(int_ops: int, fp_ops: int) -> float:
@@ -263,6 +292,54 @@ def a4_case(n: int, L: int, B: int, device, seed: int = 0) -> types.SimpleNamesp
     )
 
 
+def tenants(base, count: int) -> list:
+    """``count`` disorder realizations on ``base``'s lattice."""
+    from repro_torch.core import ising
+
+    return [ising.reseed_couplings(base, seed=100 + k) for k in range(count)]
+
+
+def multi_case(rung: str, n: int, L: int, B: int, device, seed: int = 0,
+               copies: bool = False) -> types.SimpleNamespace:
+    """A multi-tenant batch on ``rung``: B distinct tenants of one lattice
+    (or B copies of its model), the inputs of a multi-tenant engine's carry
+    with spread betas, and the entries ``kernel`` (#2 / #4), ``plain``
+    (their plain versions) and ``single`` (#1 / #3 on the first slot's
+    model's tables), each ``(inputs, sweeps) -> outputs``."""
+    from repro_torch.core import engine, ising, metropolis
+    from repro_torch.kernels import ops, ref
+
+    m = ising.random_layered_model(n=n, L=L, seed=seed, beta=1.1)
+    eng = engine.SweepEngine.create([m] * B if copies else tenants(m, B), rung=rung,
+                                    backend="torch", V=LANES, device=device)
+    c = eng.init_carry(seed=seed + 1)
+    betas = torch.linspace(0.3, 1.5, B, device=device, dtype=torch.float32)
+    t = eng.slot_tables
+    if rung == "cb":
+        nbr = torch.as_tensor(m.space_nbr, dtype=torch.int64, device=device)
+        classes = metropolis.classes_to(eng.classes, device)
+        multi_fn = ops.make_colored_multisweep_multi(eng.classes, m.space_nbr, n=n)
+        single_fn = ops.make_colored_multisweep(eng.classes, m.h, m.space_nbr, m.space_J,
+                                                m.tau_J, n=n)
+        return types.SimpleNamespace(
+            m=m, rows=eng.rows, inputs=(c.spins, c.rng, betas),
+            kernel=lambda inp, S: multi_fn(*inp, t["h"], t["base_J"], t["tau_J"], S),
+            plain=lambda inp, S: ref.colored_multisweep_multi_ref(
+                *inp, classes, t["h"], nbr, t["base_J"], t["tau_J"], n, S),
+            single=lambda inp, S: single_fn(*inp, S),
+        )
+    nbr = torch.as_tensor(m.space_nbr, dtype=torch.int32, device=device)
+    return types.SimpleNamespace(
+        m=m, rows=eng.rows, inputs=(c.spins, c.h_space, c.h_tau, c.rng),
+        kernel=lambda inp, S: ops.metropolis_multisweep_multi(
+            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S),
+        plain=lambda inp, S: ref.metropolis_multisweep_multi_ref(
+            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S),
+        single=lambda inp, S: ops.metropolis_multisweep(
+            *inp, nbr, t["base_J2"][0], t["tau_J2"][0], betas, n, S),
+    )
+
+
 def mt_state(V: int, device, seed: int = 0) -> torch.Tensor:
     from repro_torch.core import mt19937 as mt
 
@@ -294,7 +371,7 @@ def serve_checked(rung: str) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.launch import anneal_serve
 
-    kernel = next(k for k, (_, r) in KERNELS.items() if r == rung)
+    kernel = SERVE_KERNEL[rung]
     argv = SERVE_ARGS + ["--rung", rung, "--device", "cuda"]
     ops.reset_launches()
     report = anneal_serve.main(argv + ["--backend", "cuda"])
@@ -332,26 +409,128 @@ def serve_checked(rung: str) -> tuple:
     return report, launches
 
 
-def profile_serve(rung: str) -> None:
+def multi_job_specs(base, tenant_models) -> list:
+    """The multi-tenant mix: ``MULTI_JOBS`` (seed, schedule, model) specs,
+    constants and 4-step ramps of 64-256 sweeps; job i samples
+    ``tenant_models[i % TENANTS]``, every fourth job the server's model
+    (model None)."""
+    rng = np.random.default_rng(0)
+    specs = []
+    for i in range(MULTI_JOBS):
+        budget = int(rng.integers(64, 257))
+        model = None if i % 4 == 3 else tenant_models[i % TENANTS]
+        if i % 3 == 2:
+            schedule = [(budget // 4, float(b)) for b in np.linspace(0.3, 1.4, 4)]
+        else:
+            schedule = [(budget, float(rng.uniform(0.5, 1.5)))]
+        specs.append((1000 + i, schedule, model))
+    return specs
+
+
+def serve_multi(rung: str, base, specs, slots: int):
+    """Serve ``specs`` on a multi-tenant server through the rung's kernel;
+    returns (results by jid, drain seconds, stats)."""
+    from repro_torch.serve_mc import AnnealJob, SampleServer
+
+    server = SampleServer(base, slots=slots, chunk_sweeps=MAIN_CHUNK, rung=rung, backend="cuda",
+                          device="cuda", multi_tenant=True)
+    for seed, schedule, model in specs:
+        server.submit(AnnealJob(seed, schedule, model=model))
+    t0 = time.perf_counter()
+    results = server.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {r.jid: r for r in results}, dt, server.stats()
+
+
+def serve_multi_checked(rung: str) -> tuple:
+    """Serve the multi-tenant mix on ``rung`` (counts zeroed just before,
+    read just after), hold every result against the same job run alone on
+    a single-model engine of its own model, then serve the mix again on a
+    resident slots=1 server for comparison.  Returns (stats, seconds,
+    launch counts)."""
+    from repro_torch.core import engine, ising, observables
+    from repro_torch.kernels import ops
+
+    base = ising.random_layered_model(n=MAIN_N, L=MAIN_L, seed=0, beta=1.2)
+    specs = multi_job_specs(base, tenants(base, TENANTS))
+    kernel = MULTI_KERNEL[rung]
+    ops.reset_launches()
+    results, dt, served = serve_multi(rung, base, specs, MAIN_SLOTS)
+    launches = dict(ops.launches)
+    if launches[kernel] == 0 or launches[kernel] != served["launches"]:
+        raise AssertionError(f"{rung} multi-tenant: kernel launches {launches} != server "
+                             f"launches {served['launches']}")
+    if sum(launches.values()) != launches[kernel]:
+        raise AssertionError(f"{rung} multi-tenant: other kernels launched: {launches}")
+    if sorted(results) != list(range(MULTI_JOBS)):
+        raise AssertionError(f"{rung} multi-tenant: served {sorted(results)}")
+    solo_engines = {}
+    N = MAIN_N * MAIN_L
+    for jid, (seed, schedule, model) in enumerate(specs):
+        m = base if model is None else model
+        eng = solo_engines.get(id(m))
+        if eng is None:
+            eng = solo_engines[id(m)] = engine.SweepEngine.create(
+                m, rung=rung, backend="cuda", V=LANES, device="cuda")
+        carry = eng.init_slot_carry(seed=seed, beta=schedule[0][1])
+        for sweeps, beta in schedule:
+            carry = eng.run(eng.set_slot_betas(carry, [0], [beta]), sweeps)
+        spins, r = eng.spins_flat(carry)[0], results[jid]
+        if r.spins.shape != (N,) or not np.array_equal(r.spins, spins):
+            raise AssertionError(f"{rung} multi-tenant job {jid}: served spins != solo run")
+        if not np.isfinite(r.energy) or r.energy != observables.energies(m, spins):
+            raise AssertionError(f"{rung} multi-tenant job {jid}: energy is not its model's")
+        if r.extras["final_beta"] != float(carry.betas[0]):
+            raise AssertionError(f"{rung} multi-tenant job {jid}: final beta differs")
+    seq, seq_dt, seq_stats = serve_multi(rung, base, specs, 1)
+    for jid, r in seq.items():
+        if not np.array_equal(r.spins, results[jid].spins):
+            raise AssertionError(f"{rung} job {jid}: slots=1 result != packed result")
+    sweeps_s = served["busy_slot_sweeps"] / dt
+    print(f"[serve-multi {rung}] {MULTI_JOBS} jobs on {TENANTS} tenants + the base model, "
+          f"n={MAIN_N} L={MAIN_L}, {MAIN_SLOTS} slots, chunk {MAIN_CHUNK}: {served['launches']} "
+          f"launches == {launches[kernel]} {kernel} launches, {dt:.3f} s, {sweeps_s:.0f} "
+          f"slot-sweeps/s, {served['spin_flips'] / dt / 1e6:.2f}M spin-flips/s, "
+          f"{MULTI_JOBS / dt:.1f} jobs/s, utilization {served['utilization']:.3f}; every job == "
+          f"its solo single-model run (bit-equal)")
+    print(f"[serve-multi {rung}] the same jobs on a resident slots=1 server: "
+          f"{seq_stats['launches']} launches, {seq_dt:.3f} s, "
+          f"{seq_stats['busy_slot_sweeps'] / seq_dt:.0f} slot-sweeps/s, "
+          f"{MULTI_JOBS / seq_dt:.1f} jobs/s; packed/slots=1 speed {seq_dt / dt:.2f}x; "
+          f"results bit-identical")
+    return served, dt, launches
+
+
+def profile_serve(rung: str, multi: bool = False) -> None:
     """Trace one kernel-served run with torch.profiler: device time of
-    every kernel against the drain's wall time (the device busy share)."""
+    every kernel against the drain's wall time (the device busy share).
+    ``multi``: the multi-tenant mix instead of the CLI's."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import ising
     from repro_torch.launch import anneal_serve
 
-    kernel = next(k for k, (_, r) in KERNELS.items() if r == rung)
+    kernel = (MULTI_KERNEL if multi else SERVE_KERNEL)[rung]
+    what = f"{rung} multi-tenant" if multi else rung
+    if multi:
+        base = ising.random_layered_model(n=MAIN_N, L=MAIN_L, seed=0, beta=1.2)
+        specs = multi_job_specs(base, tenants(base, TENANTS))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        report = anneal_serve.main(
-            SERVE_ARGS + ["--rung", rung, "--device", "cuda", "--backend", "cuda"])
+        if multi:
+            seconds = serve_multi(rung, base, specs, MAIN_SLOTS)[1]
+        else:
+            seconds = anneal_serve.main(
+                SERVE_ARGS + ["--rung", rung, "--device", "cuda", "--backend", "cuda"]).seconds
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in rows)
-    ours = sum(e.self_device_time_total for e in rows if kernel in e.key)
-    wall_us = report.seconds * 1e6
-    print(f"[profile {rung}] serving drain under the profiler: {report.seconds:.3f} s wall, device "
+    ours = sum(e.self_device_time_total for e in rows if f"{kernel}_kernel" in e.key)
+    wall_us = seconds * 1e6
+    print(f"[profile {what}] serving drain under the profiler: {seconds:.3f} s wall, device "
           f"busy {total_us / 1e3:.3f} ms ({total_us / wall_us:.3f} of wall), of which "
           f"{kernel} {ours / 1e3:.3f} ms; top device ops:")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"[profile {rung}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:70]}")
+        print(f"[profile {what}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:70]}")
 
 
 def main(argv: list[str]) -> int:
@@ -424,6 +603,27 @@ def main(argv: list[str]) -> int:
             err["mt_next_block"] = max(err["mt_next_block"], assert_same(
                 kern(state), pl(state), f"MT block (624, {V}) {out}", names=("state", out)))
         print(f"[check mt] (624, {V}): tempered words and uniforms: kernel == plain (bit-equal)")
+    for rung in ("cb", "a4"):
+        name = MULTI_KERNEL[rung]
+        main_multi = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, dev)
+        for what, case, sweeps in (
+            (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} {TENANTS} tenants, 8 sweeps", main_multi, 8),
+            ("n=320 L=256 B=4 rows=640 (2 generator blocks/sweep) 4 tenants, 3 sweeps",
+             multi_case(rung, 320, 256, 4, dev, seed=5), 3),
+            (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} 0 sweeps", main_multi, 0),
+        ):
+            err[name] = max(err[name], assert_same(
+                case.kernel(case.inputs, sweeps), case.plain(case.inputs, sweeps),
+                f"{rung} multi {what}"))
+            print(f"[check {rung} multi] {what}: kernel == plain (bit-equal)")
+        cpu_multi = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
+        assert_same([t.cpu() for t in main_multi.plain(main_multi.inputs, 8)],
+                    cpu_multi.plain(cpu_multi.inputs, 8), f"{rung} multi plain cuda vs cpu")
+        copies = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, dev, seed=7, copies=True)
+        assert_same(copies.kernel(copies.inputs, 8), copies.single(copies.inputs, 8),
+                    f"{rung} multi on copies vs single-model kernel")
+        print(f"[check {rung} multi] main shape: plain on card == plain on CPU; {MAIN_SLOTS} "
+              f"copies of one model: {name} == {SERVE_KERNEL[rung]} (bit-equal)")
     if quick:
         print(f"quick checks passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -432,7 +632,10 @@ def main(argv: list[str]) -> int:
     cb_report, cb_launches = serve_checked("cb")
     a4_report, a4_launches = serve_checked("a4")
 
-    # -- 5. the per-sweep path ---------------------------------------------
+    # -- 5. multi-tenant serving ---------------------------------------------
+    multi_served = {rung: serve_multi_checked(rung) for rung in ("cb", "a4")}
+
+    # -- 6. the per-sweep path ---------------------------------------------
     ops.reset_launches()
     per_sweep_out = main_case.per_sweep(main_case.inputs, MAIN_CHUNK)
     ps_launches = dict(ops.launches)
@@ -444,7 +647,7 @@ def main(argv: list[str]) -> int:
           f"mt_next_block + {ps_launches['metropolis_sweep']} metropolis_sweep launches; "
           f"carry == the fused kernel's (bit-equal)")
 
-    # -- 6. timings (CUDA events) ------------------------------------------
+    # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
     times = {name: {} for name in KERNELS}  # name -> B -> (ms, plain ms, bound)
     for B in (MAIN_SLOTS, 115):
@@ -467,6 +670,14 @@ def main(argv: list[str]) -> int:
             cuda_ms(lambda: ref.mt_uniforms_ref(state), reps=10),
             bound(mt_counts(B * LANES, uniforms=True)))
         t_words = cuda_ms(lambda: ops.mt_next_block(state), reps=100)
+        for rung, extra in (("cb", 2), ("a4", 1)):
+            mc = multi_case(rung, MAIN_N, MAIN_L, B, dev, seed=B)
+            sd_m = mc.m.space_degree
+            counts = (colored_counts if rung == "cb" else a4_counts)(B, mc.rows, sd_m, 8)
+            times[MULTI_KERNEL[rung]][B] = (
+                cuda_ms(lambda: mc.kernel(mc.inputs, 8), reps=20),
+                cuda_ms(lambda: mc.plain(mc.inputs, 8), reps=3 if rung == "cb" else 1, warmup=1),
+                bound(with_tables(counts, B, MAIN_N, sd_m + extra), B))
         for name in KERNELS:
             t_k, t_p, (b_ms, b_by, occ_ms) = times[name][B]
             occ = "" if occ_ms is None else f", one-CTA-per-replica bound {occ_ms:.5f} ms"
@@ -523,15 +734,20 @@ def main(argv: list[str]) -> int:
     if profile:
         profile_serve("cb")
         profile_serve("a4")
-    for rung, report, launches in (("cb", cb_report, cb_launches), ("a4", a4_report, a4_launches)):
-        name = next(k for k, (_, r) in KERNELS.items() if r == rung)
+        profile_serve("cb", multi=True)
+    drains = [(rung, SERVE_KERNEL[rung], report.seconds, launches)
+              for rung, report, launches in (("cb", cb_report, cb_launches),
+                                             ("a4", a4_report, a4_launches))]
+    drains += [(f"{rung} multi-tenant", MULTI_KERNEL[rung], seconds, launches)
+               for rung, (_, seconds, launches) in multi_served.items()]
+    for what, name, seconds, launches in drains:
         t_k = times[name][MAIN_SLOTS][0]
         # Launches of the serving run times the B=8 kernel time above
         # (chunks of 8 sweeps; shorter remainder chunks make this an upper
         # estimate).
-        share = launches[name] * t_k * 1e-3 / report.seconds
-        print(f"[serve {rung}] kernel share of the drain's wall time <= {share:.3f} "
-              f"({launches[name]} launches x {t_k:.4f} ms / {report.seconds:.3f} s)")
+        share = launches[name] * t_k * 1e-3 / seconds
+        print(f"[serve {what}] kernel share of the drain's wall time <= {share:.3f} "
+              f"({launches[name]} launches x {t_k:.4f} ms / {seconds:.3f} s)")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     main_launches = {
         "colored_multisweep": cb_launches["colored_multisweep"],
@@ -539,9 +755,11 @@ def main(argv: list[str]) -> int:
         "metropolis_sweep": ps_launches["metropolis_sweep"],
         "mt_next_block": ps_launches["mt_next_block"],
     }
+    for rung, (_, _, launches) in multi_served.items():
+        main_launches[MULTI_KERNEL[rung]] = launches[MULTI_KERNEL[rung]]
     print(smi)
     entries = []
-    for name, (replaces, _) in KERNELS.items():
+    for name, replaces in KERNELS.items():
         t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
         entries.append({
             "name": name,

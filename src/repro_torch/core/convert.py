@@ -1,8 +1,8 @@
 """Carry models and sweep state across as plain numpy arrays.
 
-A model or a carry written by another program (or by the JAX reference
-package this port mirrors) crosses into the port as a dict of numpy
-arrays: that keeps the port free of any other framework, and the bytes
+A model, a carry or a multi-tenant engine's slot tables written by
+another program (or by the JAX reference package this port mirrors)
+crosses into the port as a dict of numpy arrays: that keeps the port free of any other framework, and the bytes
 are exactly the same on both sides.  MT19937 state travels as uint32.
 """
 
@@ -64,3 +64,23 @@ def carry_from_numpy(d: dict, device="cuda") -> SweepCarry:
         f32(d["spins"]), f32(d["h_space"]), f32(d["h_tau"]), f32(d["betas"]),
         torch.from_numpy(rng.copy()).to(device),
     )
+
+
+SLOT_TABLE_KEYS = ("h", "base_J", "tau_J", "base_J2", "tau_J2")
+
+
+def slot_tables_to_numpy(engine) -> dict:
+    """A multi-tenant engine's `slot_tables` (``[B, ...]`` float32 per key
+    of `SLOT_TABLE_KEYS`) as host numpy."""
+    if not engine.multi:
+        raise ValueError("slot tables belong to multi-tenant engines")
+    return {k: engine.slot_tables[k].detach().cpu().numpy() for k in SLOT_TABLE_KEYS}
+
+
+def slot_tables_from_numpy(d: dict, device="cuda") -> dict:
+    """Slot tables on ``device`` from numpy arrays (float32 copies), e.g.
+    those of another program's multi-tenant engine."""
+    missing = [k for k in SLOT_TABLE_KEYS if k not in d]
+    if missing:
+        raise ValueError(f"slot tables miss {missing}")
+    return {k: torch.from_numpy(np.array(d[k], np.float32)).to(device) for k in SLOT_TABLE_KEYS}

@@ -24,8 +24,9 @@ Backends (`register_backend`):
   * ``"cuda"``  — the hand-written kernels: one launch advances every
     replica ``num_sweeps`` sweeps with the MT19937 twist/temper inside the
     kernel (rung "a4": kernels/csrc/metropolis_multisweep.cu, rung "cb":
-    kernels/csrc/colored_multisweep.cu).  V must be 128 and the device a
-    CUDA device.
+    kernels/csrc/colored_multisweep.cu; on multi-tenant engines their twins
+    metropolis_multisweep_multi.cu and colored_multisweep_multi.cu).  V
+    must be 128 and the device a CUDA device.
 
 Both evaluate the identical twist -> temper -> 24-bit-float pipeline on
 the identical per-replica generator columns and the identical row (a4)
@@ -36,9 +37,17 @@ Rungs: "a4", the paper's sequential sweep, carries ``h_space``/``h_tau``
 as state and updates them incrementally; "cb", the graph-colored sweep,
 recomputes them densely at the end of each run.
 
-This port serves ONE model with the rungs "a4" and "cb" on one device.
-Rungs a1-a3, exp flavours other than "fast", ``replica_tile``, device
-meshes (``mesh``/``capacities``) and multi-tenant model lists are not
+Multi-tenant engines (``create([m0, m1, ...])``, rungs "a4" and "cb"):
+one slot per model, all models on one lattice (same lane shape and
+``space_nbr``, `check_same_topology`).  The lattice's structure (neighbour
+table, color classes) is engine state; each slot's couplings and fields
+ride as ``[B, ...]`` tensors (`slot_tables`) that every launch reads, so
+one launch sweeps B slots each with its own model.  With B copies of one
+model this is the single-model engine, bit for bit.
+
+This port runs the rungs "a4" and "cb" on one device, for one model or
+one model per slot.  Rungs a1-a3, exp flavours other than "fast",
+``replica_tile`` and device meshes (``mesh``/``capacities``) are not
 ported yet and raise ValueError naming themselves.
 
 Slots: a batched carry is a row of independent slots; slot b owns row b
@@ -61,6 +70,8 @@ from repro_torch.core import fastexp, ising, metropolis, mt19937 as mt, reorder
 RUNGS = ("a1", "a2", "a3", "a4", "cb")
 #: Rungs this port implements.
 PORTED_RUNGS = ("a4", "cb")
+#: Rungs with a multi-tenant flavour (one model per slot).
+MULTI_RUNGS = ("a4", "cb")
 
 #: Default exp flavour per rung (every ported rung uses the bit-trick exp).
 DEFAULT_EXP = {"a4": "fast", "cb": "fast"}
@@ -83,10 +94,11 @@ class ParkedSlot(NamedTuple):
     """A preempted slot's complete resumable state (`SlotHandle.park`).
 
     ``carry`` is the single-slot `SweepCarry` at the chunk boundary the
-    slot was evicted on; ``tables`` is None on single-model engines (the
-    only kind ported).  Re-splicing it continues the slot's trajectory
-    bit-exactly: the RNG stream position is a pure function of sweeps
-    completed."""
+    slot was evicted on; ``tables`` is the slot's single-slot coupling
+    tables on multi-tenant engines (None on single-model engines, where the
+    couplings are engine constants).  Re-splicing both continues the slot's
+    trajectory bit-exactly: the RNG stream position is a pure function of
+    sweeps completed."""
 
     carry: SweepCarry
     tables: dict | None
@@ -95,7 +107,8 @@ class ParkedSlot(NamedTuple):
 class SlotHandle:
     """All per-slot operations on one logical slot (`engine.slot(b)`):
     ``extract()``/``splice()`` and their scheduler names ``park()``/
-    ``resume()``.  Cheap value objects — create them on the fly."""
+    ``resume()``, the carry row and, on multi-tenant engines, the coupling
+    row together.  Cheap value objects — create them on the fly."""
 
     __slots__ = ("engine", "index")
 
@@ -112,17 +125,33 @@ class SlotHandle:
         return 0
 
     def extract(self, carry: SweepCarry) -> ParkedSlot:
-        """This slot's complete resumable state.  Pure read."""
-        return ParkedSlot(self.engine.extract_slot(carry, self.index), None)
+        """This slot's complete resumable state (carry row, and coupling
+        row on multi-tenant engines).  Pure read."""
+        eng, b = self.engine, self.index
+        tables = eng.extract_slot_tables(b) if eng.multi else None
+        return ParkedSlot(eng.extract_slot(carry, b), tables)
 
     def splice(self, carry: SweepCarry, state, model=None) -> SweepCarry:
         """Write ``state`` — a `ParkedSlot` or a bare single-slot
-        `SweepCarry` — into this slot; returns the updated carry."""
-        if model is not None:
-            raise ValueError("per-slot models need multi_tenant, which is not ported")
+        `SweepCarry` — into this slot; returns the updated carry.
+
+        A `ParkedSlot` with tables splices them too; ``model`` (multi-
+        tenant only) then records the tables' provenance so that a later
+        `set_slot_model` of the same tenant is a no-op.  A bare carry with
+        ``model`` installs that model's tables first (`set_slot_model`)."""
+        eng, b = self.engine, self.index
+        if model is not None and not eng.multi:
+            raise ValueError("per-slot models need a multi-tenant engine (a model list)")
         if isinstance(state, ParkedSlot):
-            state = state.carry
-        return self.engine.splice_slot(carry, self.index, state)
+            if eng.multi and state.tables is not None:
+                eng.splice_slot_tables(b, state.tables)
+                if model is not None:
+                    eng.check_model(model)
+                    eng.models = eng.models[:b] + (model,) + eng.models[b + 1 :]
+            return eng.splice_slot(carry, b, state.carry)
+        if model is not None:
+            eng.set_slot_model(b, model)
+        return eng.splice_slot(carry, b, state)
 
     def park(self, carry: SweepCarry) -> ParkedSlot:
         """`extract` under the scheduler's preemption name."""
@@ -153,11 +182,30 @@ def check_same_topology(base: ising.LayeredModel, other: ising.LayeredModel,
         raise ValueError(f"{what}: space_nbr differs from the engine's model")
 
 
+def _coupling_tables(model: ising.LayeredModel, device) -> dict:
+    """The per-slot tables of a multi-tenant engine, float32 on ``device``:
+    everything that may differ between models on one lattice.  The doubled
+    ones feed the a4 sweep, the undoubled ones the colored sweep and its
+    field refresh; the same expressions as the single-model tables."""
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    return dict(
+        h=dev(model.h),
+        base_J=dev(model.space_J),
+        tau_J=dev(model.tau_J),
+        base_J2=dev(2.0 * model.space_J),
+        tau_J2=dev(2.0 * model.tau_J),
+    )
+
+
 # -----------------------------------------------------------------------------
 # Backend registry.
 # -----------------------------------------------------------------------------
 
 _BACKENDS: dict[str, Callable[["SweepEngine"], Callable]] = {}
+_MULTI_BACKENDS: dict[str, Callable[["SweepEngine"], Callable]] = {}
 
 
 def register_backend(name: str, builder: Callable[["SweepEngine"], Callable]) -> None:
@@ -169,12 +217,25 @@ def register_backend(name: str, builder: Callable[["SweepEngine"], Callable]) ->
     _BACKENDS[name] = builder
 
 
+def register_multi_backend(name: str, builder: Callable[["SweepEngine"], Callable]) -> None:
+    """Register the multi-tenant flavour of a backend: ``builder(engine) ->
+    fn(carry, slot_tables, num_sweeps) -> carry``.  The coupling tables are
+    not closed over: they arrive with every call as ``[B, ...]`` tensors
+    (`SweepEngine.slot_tables`), so one built function serves any mix of
+    models on the engine's lattice."""
+    _MULTI_BACKENDS[name] = builder
+
+
 def backends() -> tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
 class SweepEngine:
     """One sweep lifecycle: model tables + backend dispatch."""
+
+    #: Bound on the per-model slot-table cache; a larger tenant set simply
+    #: re-uploads (only admission latency changes).
+    SLOT_TABLES_CACHE_MAX = 64
 
     def __init__(
         self,
@@ -185,6 +246,7 @@ class SweepEngine:
         V: int,
         exp_flavor: str,
         device: torch.device,
+        models: tuple | None = None,
     ):
         self.model = model
         self.rung = rung
@@ -195,7 +257,20 @@ class SweepEngine:
         self.device = device
         self.rows = reorder.check_lane_shape(model.n, model.L, V)
         self.classes = reorder.colored_classes(model, V) if rung == "cb" else None
-        self._run = _BACKENDS[backend](self)
+        # Multi-tenant: the model each slot sweeps (None after a raw table
+        # splice) and its coupling tables, stacked [B, ...].  The tables are
+        # values like the carry: a splice builds new tensors.
+        self.multi = models is not None
+        self.models = models
+        self.slot_tables = None
+        if self.multi:
+            per_slot = [_coupling_tables(mm, device) for mm in models]
+            self.slot_tables = {k: torch.stack([t[k] for t in per_slot]) for k in per_slot[0]}
+        # Per-model single-slot tables: a server's tenant set recurs, so a
+        # model's tables are uploaded once, not per admission.  Models are
+        # kept referenced so a dead id can never alias a new model.
+        self._slot_tables_cache: dict[int, tuple] = {}
+        self._run = (_MULTI_BACKENDS if self.multi else _BACKENDS)[backend](self)
 
     # -- construction ---------------------------------------------------------
 
@@ -214,12 +289,29 @@ class SweepEngine:
         mesh=None,
         capacities=None,
     ) -> "SweepEngine":
-        """THE constructor.  ``models`` is one `LayeredModel`; ``batch``
-        replica slots (default 1) live on ``device``.  ``backend="cuda"``
-        needs ``V=128`` and a CUDA ``device``; ``backend="torch"`` runs the
-        plain version on any device and any V."""
+        """THE constructor.  ``models`` is one `LayeredModel` (``batch``
+        replica slots, default 1) or a sequence of models on one lattice (a
+        multi-tenant engine, one slot per model; ``batch`` must be omitted
+        or equal its length).  The slots live on ``device``.
+        ``backend="cuda"`` needs ``V=128`` and a CUDA ``device``;
+        ``backend="torch"`` runs the plain version on any device and any V."""
+        multi = None
         if not isinstance(models, ising.LayeredModel):
-            raise ValueError("multi-tenant model lists are not ported to repro_torch yet")
+            multi = tuple(models)
+            if not multi:
+                raise ValueError("a multi-tenant engine needs at least one model")
+            if batch is not None and batch != len(multi):
+                raise ValueError(
+                    f"batch {batch} != len(models) {len(multi)}: multi-tenant engines "
+                    "have exactly one slot per model"
+                )
+            for i, other in enumerate(multi[1:], 1):
+                check_same_topology(multi[0], other, what=f"models[{i}]")
+            if rung in RUNGS and rung not in MULTI_RUNGS:
+                raise ValueError(
+                    f"multi-tenant engines implement rungs {MULTI_RUNGS}; got rung={rung!r}"
+                )
+            models, batch = multi[0], len(multi)
         if replica_tile is not None:
             raise ValueError("replica_tile is not ported to repro_torch")
         if mesh is not None or capacities is not None:
@@ -248,7 +340,7 @@ class SweepEngine:
                     f"backend='cuda' runs on a CUDA device; got device={str(device)!r} "
                     "(use backend='torch' on the CPU)"
                 )
-        return cls(models, rung, backend, batch, V, exp_flavor, device)
+        return cls(models, rung, backend, batch, V, exp_flavor, device, models=multi)
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -262,11 +354,18 @@ class SweepEngine:
 
         ``spins`` may be None (per-replica random init from ``seed``), one
         flat (N,) configuration (replicated), or a (B, N) stack.  ``betas``
-        defaults to the model beta on every replica.
+        defaults to the model beta on every replica (each slot's own
+        model's beta on a multi-tenant engine); the fields are likewise
+        each slot's own model's.
         """
         m, B = self.model, self.batch
+        # Slots whose tables were raw-spliced (model None) use the base model.
+        slot_models = (
+            tuple(mm if mm is not None else m for mm in self.models) if self.multi else (m,) * B
+        )
         if spins is None:
-            spin_list = [ising.init_spins(m, seed=seed * 1000 + b) for b in range(B)]
+            spin_list = [ising.init_spins(mm, seed=seed * 1000 + b)
+                         for b, mm in enumerate(slot_models)]
         else:
             spins = np.asarray(spins, np.float32)
             if spins.ndim == 1:
@@ -276,8 +375,11 @@ class SweepEngine:
                     raise ValueError(f"spins batch {spins.shape[0]} != {B}")
                 spin_list = list(spins)
         if betas is None:
-            betas = np.full((B,), m.beta, np.float32)
-        states = [metropolis.make_lane_state(m, sp, self.V, self.device) for sp in spin_list]
+            betas = np.asarray([mm.beta for mm in slot_models], np.float32)
+        states = [
+            metropolis.make_lane_state(mm, sp, self.V, self.device)
+            for mm, sp in zip(slot_models, spin_list)
+        ]
         stacked = [torch.stack([s[i] for s in states]) for i in range(3)]
         return SweepCarry(
             *stacked,
@@ -287,13 +389,16 @@ class SweepEngine:
 
     def run(self, carry: SweepCarry, num_sweeps: int) -> SweepCarry:
         """Advance every replica by ``num_sweeps`` Metropolis sweeps (one
-        kernel launch on the "cuda" backend).  Returns a new carry."""
+        kernel launch on the "cuda" backend).  Returns a new carry.  A
+        multi-tenant engine's launch reads the current `slot_tables`."""
+        if self.multi:
+            return self._run(carry, self.slot_tables, int(num_sweeps))
         return self._run(carry, int(num_sweeps))
 
     def run_fn(self, num_sweeps: int) -> Callable[[SweepCarry], SweepCarry]:
         """Steady-state callable for benchmarking: ``fn(carry) -> carry``."""
         n = int(num_sweeps)
-        return lambda carry: self._run(carry, n)
+        return lambda carry: self.run(carry, n)
 
     # -- views ----------------------------------------------------------------
 
@@ -325,10 +430,19 @@ class SweepEngine:
 
         Bit-identical to ``init_carry(seed=seed)`` on a ``batch=1`` engine.
         ``rng_seeds`` overrides the per-lane seeds ((V,) uint32).
+        ``model`` (multi-tenant engines only) computes the slot's fields and
+        default beta from that model; splice its tables into the same slot
+        (`set_slot_model`), or the carry will not match what the slot sweeps.
         """
-        if model is not None:
-            raise ValueError("per-slot models need multi_tenant, which is not ported")
-        m = self.model
+        if model is None:
+            m = self.model
+        else:
+            if not self.multi:
+                raise ValueError(
+                    "per-slot models need a multi-tenant engine (create it with a model list)"
+                )
+            self.check_model(model)
+            m = model
         if spins is None:
             spins = ising.init_spins(m, seed=seed * 1000)
         else:
@@ -391,10 +505,63 @@ class SweepEngine:
         """Raise unless ``model`` is admissible in this engine's slots."""
         check_same_topology(self.model, model)
 
-    def model_of(self, b: int) -> ising.LayeredModel:
-        """The model slot ``b`` sweeps (the engine's one model)."""
+    # -- per-slot model tables (the multi-tenant admit API) --------------------
+
+    def _check_multi(self, what: str, b: int) -> None:
+        if not self.multi:
+            raise ValueError(f"{what} needs a multi-tenant engine")
         self._check_slot(b)
-        return self.model
+
+    def slot_tables_for(self, model: ising.LayeredModel) -> dict:
+        """Single-slot (leading dim 1) coupling tables of ``model`` on the
+        engine's device, for `splice_slot_tables`.  Cached per model
+        object, so admitting a recurring tenant uploads nothing."""
+        hit = self._slot_tables_cache.get(id(model))
+        if hit is not None and hit[0] is model:
+            return hit[1]
+        self.check_model(model)
+        tabs = {k: v[None] for k, v in _coupling_tables(model, self.device).items()}
+        if len(self._slot_tables_cache) >= self.SLOT_TABLES_CACHE_MAX:
+            self._slot_tables_cache.clear()
+        self._slot_tables_cache[id(model)] = (model, tabs)
+        return tabs
+
+    def splice_slot_tables(self, b: int, slot: dict) -> None:
+        """Write single-slot coupling tables into slot ``b``.  Builds new
+        `slot_tables` tensors (never writes into ones an earlier launch may
+        still read).  The slot's model (`model_of`) becomes None: a raw
+        table splice carries no model object, and a stale entry would let a
+        later `set_slot_model` wrongly no-op."""
+        self._check_multi("splice_slot_tables", b)
+        self.models = self.models[:b] + (None,) + self.models[b + 1 :]
+        new = {}
+        for k, dst in self.slot_tables.items():
+            t = dst.clone()
+            t[b] = slot[k][0]
+            new[k] = t
+        self.slot_tables = new
+
+    def extract_slot_tables(self, b: int) -> dict:
+        """Slot ``b``'s coupling tables as single-slot tensors (the exact
+        inverse of `splice_slot_tables`; copies)."""
+        self._check_multi("extract_slot_tables", b)
+        return {k: v[b : b + 1].clone() for k, v in self.slot_tables.items()}
+
+    def set_slot_model(self, b: int, model: ising.LayeredModel) -> None:
+        """Admit ``model`` into slot ``b``: splice its tables and record it
+        as the slot's model.  A no-op when the slot already holds it."""
+        self._check_multi("set_slot_model", b)
+        if self.models[b] is model:
+            return
+        self.splice_slot_tables(b, self.slot_tables_for(model))
+        self.models = self.models[:b] + (model,) + self.models[b + 1 :]
+
+    def model_of(self, b: int) -> ising.LayeredModel | None:
+        """The model slot ``b`` sweeps: the engine's one model, or on a
+        multi-tenant engine the slot's (None if its tables were last
+        written by a raw `splice_slot_tables`)."""
+        self._check_slot(b)
+        return self.models[b] if self.multi else self.model
 
 
 # -----------------------------------------------------------------------------
@@ -482,3 +649,73 @@ def _build_cuda(eng: SweepEngine) -> Callable:
 
 register_backend("torch", _build_torch)
 register_backend("cuda", _build_cuda)
+
+
+# -----------------------------------------------------------------------------
+# Multi-tenant backends: the same sweeps, the coupling tables as arguments.
+# With B copies of one model's tables every float is the single-model one.
+# -----------------------------------------------------------------------------
+
+
+def _build_torch_multi(eng: SweepEngine) -> Callable:
+    from repro_torch.kernels import ref
+
+    n = eng.model.n
+    base_nbr = torch.from_numpy(np.asarray(eng.model.space_nbr, np.int32)).to(eng.device)
+    if eng.rung == "a4":
+
+        def run_a4(carry: SweepCarry, tabs: dict, num_sweeps: int) -> SweepCarry:
+            spins, hs, ht, rng = ref.metropolis_multisweep_multi_ref(
+                carry.spins, carry.h_space, carry.h_tau, carry.rng, base_nbr,
+                tabs["base_J2"], tabs["tau_J2"], carry.betas, n, num_sweeps, eng.exp_flavor,
+            )
+            return SweepCarry(spins, hs, ht, carry.betas, rng)
+
+        return run_a4
+
+    classes = metropolis.classes_to(eng.classes, eng.device)
+    base_nbr = base_nbr.long()
+
+    def run_cb(carry: SweepCarry, tabs: dict, num_sweeps: int) -> SweepCarry:
+        spins, hs, ht, rng = ref.colored_multisweep_multi_ref(
+            carry.spins, carry.rng, carry.betas, classes, tabs["h"], base_nbr,
+            tabs["base_J"], tabs["tau_J"], n, num_sweeps, eng.exp_flavor,
+        )
+        return SweepCarry(spins, hs, ht, carry.betas, rng)
+
+    return run_cb
+
+
+def _build_cuda_multi(eng: SweepEngine) -> Callable:
+    from repro_torch.kernels import ops
+
+    m = eng.model
+    if eng.rung == "a4":
+        base_nbr = torch.from_numpy(np.asarray(m.space_nbr, np.int32)).to(eng.device)
+
+        def run_a4(carry: SweepCarry, tabs: dict, num_sweeps: int) -> SweepCarry:
+            spins, hs, ht, rng = ops.metropolis_multisweep_multi(
+                carry.spins, carry.h_space, carry.h_tau, carry.rng, base_nbr,
+                tabs["base_J2"], tabs["tau_J2"], carry.betas, n=m.n, num_sweeps=num_sweeps,
+                exp_flavor=eng.exp_flavor,
+            )
+            return SweepCarry(spins, hs, ht, carry.betas, rng)
+
+        return run_a4
+
+    colored_fn = ops.make_colored_multisweep_multi(
+        eng.classes, m.space_nbr, n=m.n, exp_flavor=eng.exp_flavor
+    )
+
+    def run_cb(carry: SweepCarry, tabs: dict, num_sweeps: int) -> SweepCarry:
+        spins, hs, ht, rng = colored_fn(
+            carry.spins, carry.rng, carry.betas, tabs["h"], tabs["base_J"], tabs["tau_J"],
+            num_sweeps,
+        )
+        return SweepCarry(spins, hs, ht, carry.betas, rng)
+
+    return run_cb
+
+
+register_multi_backend("torch", _build_torch_multi)
+register_multi_backend("cuda", _build_cuda_multi)

@@ -98,6 +98,47 @@ def random_layered_model(
     )
 
 
+def reseed_couplings(
+    m: LayeredModel,
+    seed: int,
+    *,
+    j_scale: float = 1.0,
+    h_scale: float = 0.3,
+    tau_scale: float = 0.5,
+    beta: float | None = None,
+) -> LayeredModel:
+    """A fresh disorder realization on the SAME lattice: identical
+    ``space_nbr`` topology, new symmetric couplings, fields, and tau links.
+
+    This makes the tenants of a multi-tenant engine (one lattice, many
+    instances): slots share the neighbour tables and, on the colored rung,
+    the row coloring, while each slot's couplings are its own.
+    """
+    rng = np.random.default_rng(seed + 1009)
+    space_J = np.zeros_like(m.space_J)
+    edge_j: dict = {}
+    for i in range(m.n):
+        for d in range(m.space_degree):
+            j = int(m.space_nbr[i, d])
+            if j == i:
+                continue  # padding slot stays 0
+            key = (min(i, j), max(i, j))
+            if key not in edge_j:  # one draw per undirected edge: symmetric
+                edge_j[key] = float(rng.normal() * j_scale)
+            space_J[i, d] = edge_j[key]
+    h = (rng.normal(size=m.n) * h_scale).astype(np.float32)
+    tau_J = np.full((m.n,), tau_scale, dtype=np.float32) * (
+        1.0 + 0.1 * rng.normal(size=m.n).astype(np.float32)
+    )
+    return dataclasses.replace(
+        m,
+        space_J=space_J.astype(np.float32),
+        h=h,
+        tau_J=tau_J,
+        beta=m.beta if beta is None else beta,
+    )
+
+
 def init_spins(m: LayeredModel, seed: int = 0) -> np.ndarray:
     """Random +-1 spins, identical convention for every layout (flat order)."""
     rng = np.random.default_rng(seed + 7)

@@ -1,9 +1,10 @@
 """The ported Metropolis sweeps (rungs "a4" and "cb") as plain PyTorch code.
 
 These are the plain versions of the rungs the CUDA kernels implement:
-`sweep_lane` (a4, kernels/csrc/metropolis_multisweep.cu and
-metropolis_sweep.cu) and the colored sweep (cb,
-kernels/csrc/colored_multisweep.cu).  They run on CPU or CUDA tensors
+`sweep_lane` (a4, kernels/csrc/metropolis_multisweep.cu,
+metropolis_multisweep_multi.cu and metropolis_sweep.cu) and the colored
+sweep (cb, kernels/csrc/colored_multisweep.cu and
+colored_multisweep_multi.cu).  They run on CPU or CUDA tensors
 and are bit-exact with the kernels and with the reference's jnp path.
 
 Replicas are an explicit leading batch dimension: spins, fields and
@@ -27,6 +28,13 @@ over (rolled) at section-start/-end rows; the row flips if
 ``u[row] < fastexp(((-2 beta) * s) * h_eff)``.  After the last sweep the
 carried fields are refreshed densely (`lane_h_eff`).  No scatter-adds:
 every float is an elementwise op or a gather with a fixed order.
+
+Multi-tenant engines give every slot its own couplings on one shared
+lattice: the coupling tables then carry a leading batch dimension
+(``(B, n)``, ``(B, n, SD)``; per class ``(B, k)``, ``(B, k, SD)``) that
+maps alongside the replicas.  Each slot's floats are the single-model
+path's floats with its own table values, so B copies of one model give
+the single-model result bit for bit.
 """
 
 from __future__ import annotations
@@ -70,6 +78,18 @@ def classes_to(classes, device) -> tuple:
     return tuple(reorder.ColorClass(*(conv(leaf) for leaf in cls)) for cls in classes)
 
 
+def _per_row(x: torch.Tensor) -> torch.Tensor:
+    """A per-row table, shared ``(k,)`` or per slot ``(B, k)``, as a column
+    that broadcasts against ``(B, k, V)``."""
+    return x[None, :, None] if x.dim() == 1 else x[:, :, None]
+
+
+def _per_site(x: torch.Tensor) -> torch.Tensor:
+    """A per-site table, shared ``(n,)`` or per slot ``(B, n)``, shaped to
+    broadcast against ``(B, lpv, n, V)``."""
+    return x[None, None, :, None] if x.dim() == 1 else x[:, None, :, None]
+
+
 def _flip(s, h_sum, u, beta, exp_fn):
     """Metropolis accept test; returns (S_mul = s*mask, new spin).
 
@@ -85,8 +105,8 @@ def _flip(s, h_sum, u, beta, exp_fn):
 def sweep_lane(
     state: LaneState,  # batched (B, rows, V)
     base_nbr,  # (n, SD) in-layer neighbour site ids
-    base_J2: torch.Tensor,  # (n, SD) float32, pre-doubled
-    tau_J2: torch.Tensor,  # (n,) float32, pre-doubled
+    base_J2: torch.Tensor,  # (n, SD) or per slot (B, n, SD) float32, pre-doubled
+    tau_J2: torch.Tensor,  # (n,) or per slot (B, n) float32, pre-doubled
     u: torch.Tensor,  # (B, rows, V) uniforms
     beta: torch.Tensor,  # (B,)
     n: int,
@@ -108,7 +128,11 @@ def sweep_lane(
     spins, hs, ht = (x.clone() for x in state)
     rows = spins.shape[1]
     nbr = torch.as_tensor(base_nbr).tolist()
-    tau_J2 = tau_J2.reshape(-1)
+    j2 = base_J2 if base_J2.dim() == 3 else base_J2[None]  # (B or 1, n, SD)
+    t2 = tau_J2.reshape(j2.shape[0], n)
+    # Each site's couplings as (B or 1, 1) columns against a row's (B, V).
+    j2_col = [[j2[:, i, d, None] for d in range(len(nbr[i]))] for i in range(n)]
+    t2_col = [t2[:, i, None] for i in range(n)]
     col = beta.reshape(-1, 1)
     for q in range(rows):
         i = q % n
@@ -116,8 +140,8 @@ def sweep_lane(
         smul, s_new = _flip(spins[:, q], hs[:, q] + ht[:, q], u[:, q], col, exp_fn)
         spins[:, q] = s_new
         for d, t in enumerate(nbr[i]):
-            hs[:, base + t] += -smul * base_J2[i, d]
-        tc = -smul * tau_J2[i]
+            hs[:, base + t] += -smul * j2_col[i][d]
+        tc = -smul * t2_col[i]
         if q < n:  # first layer block: the down link wraps
             ht[:, rows - n + i] += torch.roll(tc, -1, dims=-1)
             ht[:, q + n] += tc
@@ -132,10 +156,10 @@ def sweep_lane(
 
 def lane_h_eff(
     spins: torch.Tensor,  # (B, rows, V)
-    h: torch.Tensor,  # (n,)
+    h: torch.Tensor,  # (n,) or per slot (B, n)
     base_nbr: torch.Tensor,  # (n, SD) int64
-    base_J: torch.Tensor,  # (n, SD) NOT doubled
-    tau_J: torch.Tensor,  # (n,)
+    base_J: torch.Tensor,  # (n, SD) or per slot (B, n, SD), NOT doubled
+    tau_J: torch.Tensor,  # (n,) or per slot (B, n)
     n: int,
 ):
     """Dense recomputation of (h_space, h_tau) over the lane layout.
@@ -147,20 +171,48 @@ def lane_h_eff(
     B, rows, V = spins.shape
     lpv = rows // n
     s = spins.reshape(B, lpv, n, V)
-    hs = h[None, None, :, None].expand(s.shape)
+    hs = _per_site(h).expand(s.shape)
     for d in range(base_nbr.shape[1]):
-        hs = hs + base_J[None, None, :, d, None] * s[:, :, base_nbr[:, d], :]
+        hs = hs + _per_site(base_J[..., d]) * s[:, :, base_nbr[:, d], :]
     down = torch.cat([torch.roll(s[:, -1:], 1, dims=-1), s[:, :-1]], dim=1)
     up = torch.cat([s[:, 1:], torch.roll(s[:, :1], -1, dims=-1)], dim=1)
-    ht = tau_J[None, None, :, None] * (down + up)
+    ht = _per_site(tau_J) * (down + up)
     return hs.reshape(B, rows, V), ht.reshape(B, rows, V)
+
+
+def class_coupling_slices(classes, h_b, space_J_b, tau_J_b, n: int) -> list:
+    """Gather each class's coupling tables from per-slot site tables
+    ``h_b (B, n)``, ``space_J_b (B, n, SD)``, ``tau_J_b (B, n)``.
+
+    Returns ``[h_0, space_J_0, tau_J_0, h_1, ...]``, one ``(B, k, ...)``
+    triple per class, for `bind_class_tables`.  ``classes`` is a
+    `classes_to` output.  Called once per launch: the tables do not
+    change between sweeps.
+    """
+    out = []
+    for cls in classes:
+        i = cls.rows % n  # row (p, i) holds site i of every lane's layer p
+        out += [h_b[:, i], space_J_b[:, i], tau_J_b[:, i]]
+    return out
+
+
+def bind_class_tables(classes, cls_tabs) -> tuple:
+    """The structural classes (rows, neighbour targets, tau sources, roll
+    masks: topology, shared by every tenant) with their ``h``/``space_J``/
+    ``tau_J`` replaced by the per-slot slices of `class_coupling_slices`.
+    With the tables of the model the classes were built from, the bound
+    leaves equal the class's own values, value for value."""
+    return tuple(
+        cls._replace(h=cls_tabs[3 * c], space_J=cls_tabs[3 * c + 1], tau_J=cls_tabs[3 * c + 2])
+        for c, cls in enumerate(classes)
+    )
 
 
 def colored_flip_spins(
     spins: torch.Tensor,  # (B, rows, V)
     u: torch.Tensor,  # (B, rows, V) uniforms, indexed by row id
     beta: torch.Tensor,  # (B,)
-    classes,  # `classes_to` output
+    classes,  # `classes_to` output, or `bind_class_tables` of it
     exp_fn,
 ) -> torch.Tensor:
     """One colored sweep over the spins: C whole-lattice masked updates.
@@ -168,14 +220,14 @@ def colored_flip_spins(
     col = beta[:, None, None]
     for cls in classes:
         sc = spins[:, cls.rows]  # (B, k, V)
-        hs_c = cls.h[None, :, None].expand(sc.shape)
+        hs_c = _per_row(cls.h).expand(sc.shape)
         for d in range(cls.space_tgt.shape[1]):
-            hs_c = hs_c + cls.space_J[None, :, d, None] * spins[:, cls.space_tgt[:, d]]
+            hs_c = hs_c + _per_row(cls.space_J[..., d]) * spins[:, cls.space_tgt[:, d]]
         down = spins[:, cls.down_src]
         down = torch.where(cls.down_roll[None, :, None], torch.roll(down, 1, dims=-1), down)
         up = spins[:, cls.up_src]
         up = torch.where(cls.up_roll[None, :, None], torch.roll(up, -1, dims=-1), up)
-        ht_c = cls.tau_J[None, :, None] * (down + up)
+        ht_c = _per_row(cls.tau_J) * (down + up)
         _, s_new = _flip(sc, hs_c + ht_c, u[:, cls.rows], col, exp_fn)
         spins = spins.index_copy(1, cls.rows, s_new)
     return spins

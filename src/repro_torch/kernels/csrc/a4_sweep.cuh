@@ -1,7 +1,8 @@
 // The a4 row walk (core/metropolis.py:sweep_lane) on the card, shared by
-// the fused multisweep (metropolis_multisweep.cu) and the one-sweep
-// kernel (metropolis_sweep.cu), as the reference's two kernels share
-// _row_sweep.
+// the fused multisweeps (metropolis_multisweep.cu, and its multi-tenant
+// twin metropolis_multisweep_multi.cu) and the one-sweep kernel
+// (metropolis_sweep.cu), as the reference's kernels share _row_sweep and
+// _fused_multisweep_call.
 //
 // One CTA per replica, 128 threads, thread v owns lane v of every row.
 // A row's spins, its space-neighbour rows and its tau rows are all in the
@@ -158,6 +159,47 @@ struct FusedUniforms {
     return r < last0 ? ucol[r * ld] : uniform24(rcol[(r - last0) * ld]);
   }
 };
+
+// Replica blockIdx.x: num_sweeps fused a4 sweeps with the generator twisted
+// in the kernel, then the tile's store.  nbr (n, sd), j2 (n, sd) and tau2
+// (n) are the tables of the CTA's model (the multi-tenant kernel passes its
+// slot's rows of the per-slot tables).  The earlier generator blocks of a
+// sweep (rows > 624) go to u_scratch, the last one is tempered on the fly.
+__device__ void a4_multisweep_cta(unsigned char* smem, const float* __restrict__ spins_in,
+                                  const float* __restrict__ hs_in,
+                                  const float* __restrict__ ht_in, const uint32_t* rng_in,
+                                  const int* __restrict__ nbr, const float* __restrict__ j2,
+                                  const float* __restrict__ tau2, float beta,
+                                  float* __restrict__ spins_out, float* hs_out, float* ht_out,
+                                  uint32_t* rng_out, float* u_scratch, int rows, int n, int sd,
+                                  int num_sweeps, bool fields_in_smem, float scale,
+                                  float centre) {
+  const int b = blockIdx.x;
+  const int v = threadIdx.x;
+  const size_t ld = (size_t)gridDim.x * LANES;
+  const A4Tile t = a4_load(smem, spins_in, hs_in, ht_in, hs_out, ht_out, rows, fields_in_smem);
+
+  const uint32_t* rsrc = rng_in + (size_t)b * LANES + v;
+  uint32_t* rcol = rng_out + (size_t)b * LANES + v;
+  float* ucol = u_scratch ? u_scratch + (size_t)b * LANES + v : nullptr;  // blocks > 1 only
+  const int blocks = (rows + MT_N - 1) / MT_N;
+  const FusedUniforms uniform{ucol, rcol, ld, (blocks - 1) * MT_N};
+  const float m2b = -2.0f * beta;
+
+  if (num_sweeps == 0)
+    for (int i = 0; i < MT_N; ++i) rcol[i * ld] = rsrc[i * ld];
+
+  int parity = 0;
+  for (int sweep = 0; sweep < num_sweeps; ++sweep) {
+    for (int blk = 0; blk < blocks; ++blk) {
+      twist_column(sweep == 0 && blk == 0 ? rsrc : rcol, rcol, ld);
+      if (blk + 1 < blocks)
+        for (int i = 0; i < MT_N; ++i) ucol[(blk * MT_N + i) * ld] = uniform24(rcol[i * ld]);
+    }
+    a4_sweep(t, parity, nbr, j2, tau2, rows, n, sd, m2b, scale, centre, uniform);
+  }
+  a4_store(t, spins_out, hs_out, ht_out, rows, fields_in_smem);
+}
 
 // Uniforms from the caller's (B, rows, 128) buffer; u points at this
 // thread's lane of its replica's tile.

@@ -11,8 +11,9 @@
 // lattice column v of every lane row, and MT19937 generator column
 // b*128+v of the (624, B*128) interlaced state.  Every state-row, spin-row
 // and field-row access of a warp is 32 neighbouring words.  The row walk
-// is a4_sweep.cuh (shared with metropolis_sweep.cu); the twist and temper
-// are mt19937.cuh (shared with colored_multisweep.cu and mt_next_block.cu).
+// and the fused per-replica body are a4_sweep.cuh (the walk shared with
+// metropolis_sweep.cu, the body with metropolis_multisweep_multi.cu); the
+// twist and temper are mt19937.cuh.
 //
 // What bounds it.  Per launch the function must move
 //     4*B*(6*rows*128 + 2*624*128) bytes
@@ -61,31 +62,9 @@ __global__ void __launch_bounds__(LANES) metropolis_multisweep_kernel(
     float* u_scratch, int rows, int n, int sd, int num_sweeps, bool fields_in_smem, float scale,
     float centre) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x;
-  const int v = threadIdx.x;
-  const size_t ld = (size_t)gridDim.x * LANES;
-  const A4Tile t = a4_load(smem, spins_in, hs_in, ht_in, hs_out, ht_out, rows, fields_in_smem);
-
-  const uint32_t* rsrc = rng_in + (size_t)b * LANES + v;
-  uint32_t* rcol = rng_out + (size_t)b * LANES + v;
-  float* ucol = u_scratch ? u_scratch + (size_t)b * LANES + v : nullptr;  // blocks > 1 only
-  const int blocks = (rows + MT_N - 1) / MT_N;
-  const FusedUniforms uniform{ucol, rcol, ld, (blocks - 1) * MT_N};
-  const float m2b = -2.0f * beta[b];
-
-  if (num_sweeps == 0)
-    for (int i = 0; i < MT_N; ++i) rcol[i * ld] = rsrc[i * ld];
-
-  int parity = 0;
-  for (int sweep = 0; sweep < num_sweeps; ++sweep) {
-    for (int blk = 0; blk < blocks; ++blk) {
-      twist_column(sweep == 0 && blk == 0 ? rsrc : rcol, rcol, ld);
-      if (blk + 1 < blocks)
-        for (int i = 0; i < MT_N; ++i) ucol[(blk * MT_N + i) * ld] = uniform24(rcol[i * ld]);
-    }
-    a4_sweep(t, parity, nbr, j2, tau2, rows, n, sd, m2b, scale, centre, uniform);
-  }
-  a4_store(t, spins_out, hs_out, ht_out, rows, fields_in_smem);
+  a4_multisweep_cta(smem, spins_in, hs_in, ht_in, rng_in, nbr, j2, tau2, beta[blockIdx.x],
+                    spins_out, hs_out, ht_out, rng_out, u_scratch, rows, n, sd, num_sweeps,
+                    fields_in_smem, scale, centre);
 }
 
 }  // namespace

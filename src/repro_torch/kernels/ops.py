@@ -33,7 +33,9 @@ MAX_SMEM = 232_448
 #: `mt_uniforms` launch counts under "mt_next_block": it is that kernel.
 launches = {
     "colored_multisweep": 0,
+    "colored_multisweep_multi": 0,
     "metropolis_multisweep": 0,
+    "metropolis_multisweep_multi": 0,
     "metropolis_sweep": 0,
     "mt_next_block": 0,
 }
@@ -86,9 +88,16 @@ _VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: ctypes signatures of the C entries (pointers, ints, float bit patterns,
 #: stream), in the order of their definitions in csrc/.
 _COLORED_ARGS = [_VP] * 21 + [_INT] * 6 + [_U32, _U32, _VP]
+_COLORED_MULTI_ARGS = [_VP] * 19 + [_INT] * 6 + [_U32, _U32, _VP]
 _MULTISWEEP_ARGS = [_VP] * 13 + [_INT] * 6 + [_U32, _U32, _VP]
 _SWEEP_ARGS = [_VP] * 11 + [_INT] * 5 + [_U32, _U32, _VP]
 _MT_ARGS = [_VP] * 3 + [_INT] * 2 + [_VP]
+
+
+def _same_device(dev: torch.device, **tensors) -> None:
+    for what, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{what} is on {t.device}, spins on {dev}: one device, please")
 
 
 def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
@@ -97,6 +106,80 @@ def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
             f"{what}: want contiguous {dtype} {tuple(shape)}, got "
             f"{t.dtype} {tuple(t.shape)} (contiguous={t.is_contiguous()})"
         )
+
+
+def _class_tables(classes, base_nbr, n: int) -> dict:
+    """The structural class tables both colored kernels read: every class's
+    entries concatenated in visit order, with offsets; each entry's site
+    (row % n) and absolute neighbour rows; the tau source rows; the roll
+    masks packed as bit 0 (down) | bit 1 (up); the neighbour table."""
+    rows = np.concatenate([c.rows for c in classes])
+    return {
+        "off": np.concatenate([[0], np.cumsum([len(c.rows) for c in classes])]),
+        "row": rows,
+        "site": rows % n,
+        "tgt": np.concatenate([c.space_tgt for c in classes]).reshape(-1),
+        "down": np.concatenate([c.down_src for c in classes]),
+        "up": np.concatenate([c.up_src for c in classes]),
+        "roll": np.concatenate(
+            [c.down_roll.astype(np.int32) | (c.up_roll.astype(np.int32) << 1) for c in classes]
+        ),
+        "nbr": np.asarray(base_nbr, np.int32).reshape(-1),
+    }
+
+
+def _per_device(build):
+    """``tables(device)``: ``build(device)`` run once per device, cached."""
+    cache: dict = {}
+
+    def tables(device: torch.device):
+        key = str(device)
+        if key not in cache:
+            cache[key] = build(device)
+        return cache[key]
+
+    return tables
+
+
+def _to_device(x, device) -> torch.Tensor:
+    """A host table as a contiguous tensor on ``device`` (ints as int32)."""
+    x = np.ascontiguousarray(x)
+    if x.dtype.kind in "iu":
+        x = x.astype(np.int32)
+    return torch.from_numpy(x).to(device)
+
+
+def _colored_io(name, spins, rng, beta, n: int, entries: int, num_sweeps: int):
+    """Check the colored kernels' replica inputs (CUDA tensors) against a
+    lattice of ``entries`` class entries (one per row) and allocate their
+    outputs: ``(B, rows, out_spins, out_hs, out_ht, out_rng, scratch)``;
+    scratch holds a sweep's earlier generator blocks (rows > 624), else
+    None."""
+    dev = spins.device
+    _need_cuda(name, dev)
+    if spins.dim() != 3:
+        raise ValueError(f"spins: want (B, rows, {LANES}), got {tuple(spins.shape)}")
+    B, rows, _ = spins.shape
+    _check(spins, "spins", torch.float32, (B, rows, LANES))
+    _check(rng, "rng", torch.int32, (mt.N, B * LANES))
+    _check(beta, "beta", torch.float32, (B,))
+    _same_device(dev, rng=rng, beta=beta)
+    if rows % n or rows // n < 2 or rows != entries:
+        raise ValueError(f"rows={rows} is not the lane layout of the classes (n={n}, "
+                         f"{entries} rows)")
+    if rows * LANES > MAX_SMEM:
+        raise ValueError(
+            f"rows={rows} needs {rows * LANES} B of shared memory; "
+            f"the kernel holds at most {MAX_SMEM // LANES} rows"
+        )
+    blocks = -(-rows // mt.N)
+    scratch = (
+        torch.empty(((blocks - 1) * mt.N, B * LANES), dtype=torch.float32, device=dev)
+        if blocks > 1 and num_sweeps > 0
+        else None
+    )
+    return (B, rows, torch.empty_like(spins), torch.empty_like(spins), torch.empty_like(spins),
+            torch.empty_like(rng), scratch)
 
 
 def make_colored_multisweep(
@@ -127,44 +210,24 @@ def make_colored_multisweep(
         "tau_J": np.asarray(tau_J, np.float32),
     }
     sd = host["base_nbr"].shape[1]
-    # Kernel tables: every class's rows concatenated in visit order, with
-    # offsets; the roll masks packed as bit 0 (down) | bit 1 (up).
-    packed = {
-        "off": np.concatenate([[0], np.cumsum([len(c.rows) for c in classes])]),
-        "row": np.concatenate([c.rows for c in classes]),
-        "h": np.concatenate([c.h for c in classes]),
-        "J": np.concatenate([c.space_J for c in classes]).reshape(-1),
-        "tgt": np.concatenate([c.space_tgt for c in classes]).reshape(-1),
-        "tau": np.concatenate([c.tau_J for c in classes]),
-        "down": np.concatenate([c.down_src for c in classes]),
-        "up": np.concatenate([c.up_src for c in classes]),
-        "roll": np.concatenate(
-            [c.down_roll.astype(np.int32) | (c.up_roll.astype(np.int32) << 1) for c in classes]
-        ),
-        "nbr": host["base_nbr"].reshape(-1),
-    }
-    per_device: dict = {}
-
-    def tables(device: torch.device) -> dict:
-        key = str(device)
-        if key not in per_device:
-            def dev(x):
-                x = np.ascontiguousarray(x)
-                if x.dtype.kind in "iu":
-                    x = x.astype(np.int32)
-                return torch.from_numpy(x).to(device)
-
-            per_device[key] = {
-                "classes": metropolis.classes_to(classes, device),
-                "plain": {
-                    "h": dev(host["h"]),
-                    "base_nbr": dev(host["base_nbr"]).long(),
-                    "base_J": dev(host["base_J"]),
-                    "tau_J": dev(host["tau_J"]),
-                },
-                "kernel": {k: dev(v) for k, v in packed.items()},
-            }
-        return per_device[key]
+    # The class coefficients gathered per class entry, beside the
+    # structural tables.
+    packed = _class_tables(classes, host["base_nbr"], n)
+    packed.update(
+        h=np.concatenate([c.h for c in classes]),
+        J=np.concatenate([c.space_J for c in classes]).reshape(-1),
+        tau=np.concatenate([c.tau_J for c in classes]),
+    )
+    tables = _per_device(lambda device: {
+        "classes": metropolis.classes_to(classes, device),
+        "plain": {
+            "h": _to_device(host["h"], device),
+            "base_nbr": _to_device(host["base_nbr"], device).long(),
+            "base_J": _to_device(host["base_J"], device),
+            "tau_J": _to_device(host["tau_J"], device),
+        },
+        "kernel": {k: _to_device(v, device) for k, v in packed.items()},
+    })
 
     def fn(spins, rng, beta, num_sweeps: int):
         num_sweeps = _sweeps(num_sweeps)
@@ -175,37 +238,15 @@ def make_colored_multisweep(
                 spins, rng, beta, t["classes"], **t["plain"], n=n,
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
-        _need_cuda("colored_multisweep", dev)
-        B, rows, lanes = spins.shape
-        _check(spins, "spins", torch.float32, (B, rows, LANES))
-        _check(rng, "rng", torch.int32, (mt.N, B * LANES))
-        _check(beta, "beta", torch.float32, (B,))
-        if rng.device != dev or beta.device != dev:
-            raise ValueError("spins, rng and beta must be on one device")
-        if rows % n or rows // n < 2:
-            raise ValueError(f"rows={rows} is not a lane layout of n={n}")
-        if rows * LANES > MAX_SMEM:
-            raise ValueError(
-                f"rows={rows} needs {rows * LANES} B of shared memory; "
-                f"the kernel holds at most {MAX_SMEM // LANES} rows"
-            )
+        B, rows, *out, scratch = _colored_io(
+            "colored_multisweep", spins, rng, beta, n, len(packed["row"]), num_sweeps
+        )
         t = tables(dev)
         k, p = t["kernel"], t["plain"]
-        blocks = -(-rows // mt.N)
-        out_spins = torch.empty_like(spins)
-        out_hs = torch.empty_like(spins)
-        out_ht = torch.empty_like(spins)
-        out_rng = torch.empty_like(rng)
-        scratch = (
-            torch.empty(((blocks - 1) * mt.N, B * LANES), dtype=torch.float32, device=dev)
-            if blocks > 1 and num_sweeps > 0
-            else None
-        )
         with torch.cuda.device(dev):
             err = _kernel("colored_multisweep", _COLORED_ARGS)(
-                _ptr(spins), _ptr(rng), _ptr(beta), _ptr(out_spins), _ptr(out_hs),
-                _ptr(out_ht), _ptr(out_rng), _ptr(scratch), _ptr(k["off"]),
-                _ptr(k["row"]), _ptr(k["h"]), _ptr(k["J"]), _ptr(k["tgt"]),
+                _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
+                _ptr(k["off"]), _ptr(k["row"]), _ptr(k["h"]), _ptr(k["J"]), _ptr(k["tgt"]),
                 _ptr(k["tau"]), _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]),
                 _ptr(p["h"]), _ptr(k["nbr"]), _ptr(p["base_J"]), _ptr(p["tau_J"]),
                 B, rows, n, sd, len(classes), num_sweeps,
@@ -214,7 +255,69 @@ def make_colored_multisweep(
             )
         _raise_if_failed("colored_multisweep", err)
         launches["colored_multisweep"] += 1
-        return out_spins, out_hs, out_ht, out_rng
+        return tuple(out)
+
+    return fn
+
+
+def make_colored_multisweep_multi(
+    classes,  # tuple of reorder.ColorClass (host numpy) of any tenant
+    base_nbr,  # (n, SD) int32, the shared topology
+    n: int,
+    exp_flavor: str = "fast",
+):
+    """Build the multi-tenant fused colored-sweep entry for one lattice:
+    ``fn(spins, rng, beta, h_b, base_J_b, tau_J_b, num_sweeps) -> (spins,
+    h_space, h_tau, rng)``.  Slot b sweeps with its own (UNDOUBLED) tables
+    ``h_b[b]`` (n,), ``base_J_b[b]`` (n, SD), ``tau_J_b[b]`` (n,), float32
+    and contiguous, bound onto the structural classes shared by every
+    tenant; only the classes' structure is read, never their coefficients.
+    The other arguments are as in `make_colored_multisweep`.  On CUDA
+    tensors this launches the kernel of csrc/colored_multisweep_multi.cu
+    (one CTA per slot); on CPU tensors it runs
+    `ref.colored_multisweep_multi_ref`.
+    """
+    fx.exp_fn(exp_flavor)  # raises for unported flavours
+    classes = tuple(classes)
+    base_nbr = np.asarray(base_nbr, np.int32)
+    sd = base_nbr.shape[1]
+    packed = _class_tables(classes, base_nbr, n)
+    tables = _per_device(lambda device: {
+        "classes": metropolis.classes_to(classes, device),
+        "base_nbr": _to_device(base_nbr, device).long(),
+        "kernel": {k: _to_device(v, device) for k, v in packed.items()},
+    })
+
+    def fn(spins, rng, beta, h_b, base_J_b, tau_J_b, num_sweeps: int):
+        num_sweeps = _sweeps(num_sweeps)
+        dev = spins.device
+        if dev.type == "cpu":
+            t = tables(dev)
+            return ref.colored_multisweep_multi_ref(
+                spins, rng, beta, t["classes"], h_b, t["base_nbr"], base_J_b, tau_J_b, n=n,
+                num_sweeps=num_sweeps, exp_flavor=exp_flavor,
+            )
+        B, rows, *out, scratch = _colored_io(
+            "colored_multisweep_multi", spins, rng, beta, n, len(packed["row"]), num_sweeps
+        )
+        _check(h_b, "h_b", torch.float32, (B, n))
+        _check(base_J_b, "base_J_b", torch.float32, (B, n, sd))
+        _check(tau_J_b, "tau_J_b", torch.float32, (B, n))
+        _same_device(dev, h_b=h_b, base_J_b=base_J_b, tau_J_b=tau_J_b)
+        k = tables(dev)["kernel"]
+        with torch.cuda.device(dev):
+            err = _kernel("colored_multisweep_multi", _COLORED_MULTI_ARGS)(
+                _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
+                _ptr(k["off"]), _ptr(k["row"]), _ptr(k["site"]), _ptr(k["tgt"]),
+                _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]), _ptr(h_b), _ptr(k["nbr"]),
+                _ptr(base_J_b), _ptr(tau_J_b),
+                B, rows, n, sd, len(classes), num_sweeps,
+                fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32),
+                _stream(dev),
+            )
+        _raise_if_failed("colored_multisweep_multi", err)
+        launches["colored_multisweep_multi"] += 1
+        return tuple(out)
 
     return fn
 
@@ -224,15 +327,11 @@ def make_colored_multisweep(
 # -----------------------------------------------------------------------------
 
 
-def _same_device(dev: torch.device, **tensors) -> None:
-    for what, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{what} is on {t.device}, spins on {dev}: one device, please")
-
-
-def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: int):
+def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: int,
+               per_slot: bool = False):
     """Check the a4 kernels' common inputs (CUDA tensors); returns
-    ``(B, rows, sd, nbr, j2, tau2, beta)`` with the last four flat views."""
+    ``(B, rows, sd)``.  ``per_slot``: the coupling tables carry a leading
+    batch dimension (the multi-tenant kernel)."""
     dev = spins.device
     _need_cuda(name, dev)
     if spins.dim() != 3:
@@ -249,12 +348,29 @@ def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: 
         )
     sd = base_nbr.shape[-1] if base_nbr.dim() == 2 else -1
     _check(base_nbr, "base_nbr", torch.int32, (n, sd))
-    _check(base_J2, "base_J2", torch.float32, (n, sd))
-    for what, t, count in (("tau_J2", tau_J2, n), ("beta", beta, B)):
-        _check(t, what, torch.float32, (count,) if t.dim() == 1 else (count, 1))
+    lead = (B,) if per_slot else ()
+    _check(base_J2, "base_J2", torch.float32, (*lead, n, sd))
+    for what, t, shape in (("tau_J2", tau_J2, (*lead, n)), ("beta", beta, (B,))):
+        _check(t, what, torch.float32, shape if t.dim() == len(shape) else (*shape, 1))
     _same_device(dev, h_space=h_space, h_tau=h_tau, base_nbr=base_nbr, base_J2=base_J2,
                  tau_J2=tau_J2, beta=beta)
     return B, rows, sd
+
+
+def _a4_fused_outputs(spins, h_space, h_tau, rng, num_sweeps: int):
+    """The fused a4 kernels' outputs ``(spins, h_space, h_tau, rng)`` and
+    their scratch for a sweep's earlier generator blocks (rows > 624, else
+    None)."""
+    B, rows, _ = spins.shape
+    blocks = -(-rows // mt.N)
+    out = (torch.empty_like(spins), torch.empty_like(h_space), torch.empty_like(h_tau),
+           torch.empty_like(rng))
+    scratch = (
+        torch.empty(((blocks - 1) * mt.N, B * LANES), dtype=torch.float32, device=spins.device)
+        if blocks > 1 and num_sweeps > 0
+        else None
+    )
+    return out, scratch
 
 
 def metropolis_multisweep(
@@ -288,14 +404,7 @@ def metropolis_multisweep(
     )
     _check(rng, "rng", torch.int32, (mt.N, B * LANES))
     _same_device(dev, rng=rng)
-    blocks = -(-rows // mt.N)
-    out = [torch.empty_like(spins), torch.empty_like(h_space), torch.empty_like(h_tau),
-           torch.empty_like(rng)]
-    scratch = (
-        torch.empty(((blocks - 1) * mt.N, B * LANES), dtype=torch.float32, device=dev)
-        if blocks > 1 and num_sweeps > 0
-        else None
-    )
+    out, scratch = _a4_fused_outputs(spins, h_space, h_tau, rng, num_sweeps)
     with torch.cuda.device(dev):
         err = _kernel("metropolis_multisweep", _MULTISWEEP_ARGS)(
             _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
@@ -305,7 +414,52 @@ def metropolis_multisweep(
         )
     _raise_if_failed("metropolis_multisweep", err)
     launches["metropolis_multisweep"] += 1
-    return tuple(out)
+    return out
+
+
+def metropolis_multisweep_multi(
+    spins,  # (B, rows, 128) f32 of +-1
+    h_space,  # (B, rows, 128) f32
+    h_tau,  # (B, rows, 128) f32
+    rng,  # (624, B*128) int32: the interlaced MT19937 state, uint32 bits
+    base_nbr,  # (n, SD) int32 in-layer neighbour site ids, the shared topology
+    base_J2_b,  # (B, n, SD) f32, each slot's own couplings, pre-doubled
+    tau_J2_b,  # (B, n) or (B, n, 1) f32, each slot's own tau couplings, pre-doubled
+    beta,  # (B,) or (B, 1) f32
+    n: int,
+    num_sweeps: int,
+    exp_flavor: str = "fast",
+):
+    """`metropolis_multisweep` where slot b sweeps its own model's tables
+    ``base_J2_b[b]``, ``tau_J2_b[b]`` (csrc/metropolis_multisweep_multi.cu,
+    one CTA per slot).  Returns ``(spins, h_space, h_tau, rng)``; the
+    inputs are not modified.  On CPU tensors this runs
+    `ref.metropolis_multisweep_multi_ref`."""
+    fx.exp_fn(exp_flavor)  # raises for unported flavours
+    num_sweeps = _sweeps(num_sweeps)
+    dev = spins.device
+    if dev.type == "cpu":
+        return ref.metropolis_multisweep_multi_ref(
+            spins, h_space, h_tau, rng, base_nbr, base_J2_b, tau_J2_b, beta, n, num_sweeps,
+            exp_flavor,
+        )
+    B, rows, sd = _a4_inputs(
+        "metropolis_multisweep_multi", spins, h_space, h_tau, base_nbr, base_J2_b, tau_J2_b,
+        beta, n, per_slot=True,
+    )
+    _check(rng, "rng", torch.int32, (mt.N, B * LANES))
+    _same_device(dev, rng=rng)
+    out, scratch = _a4_fused_outputs(spins, h_space, h_tau, rng, num_sweeps)
+    with torch.cuda.device(dev):
+        err = _kernel("metropolis_multisweep_multi", _MULTISWEEP_ARGS)(
+            _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
+            _ptr(base_J2_b), _ptr(tau_J2_b), _ptr(beta), *(_ptr(t) for t in out),
+            _ptr(scratch), B, rows, n, sd, num_sweeps, MAX_SMEM,
+            fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32), _stream(dev),
+        )
+    _raise_if_failed("metropolis_multisweep_multi", err)
+    launches["metropolis_multisweep_multi"] += 1
+    return out
 
 
 def metropolis_sweep(

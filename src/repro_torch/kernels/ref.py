@@ -42,7 +42,7 @@ def metropolis_sweep_ref(
     """One a4 sweep of every replica on the given uniforms.  Returns
     ``(spins, h_space, h_tau)``."""
     st = mp.sweep_lane(
-        mp.LaneState(spins, h_space, h_tau), base_nbr, base_J2, tau_J2.reshape(-1),
+        mp.LaneState(spins, h_space, h_tau), base_nbr, base_J2, tau_J2,
         u, beta.reshape(-1), n, fx.exp_fn(exp_flavor),
     )
     return st.spins, st.h_space, st.h_tau
@@ -101,4 +101,64 @@ def colored_multisweep_ref(
         u = u.reshape(rows, B, V).permute(1, 0, 2)
         spins = mp.colored_flip_spins(spins, u, beta, classes, exp_fn)
     hs, ht = mp.lane_h_eff(spins, h, base_nbr, base_J, tau_J, n)
+    return spins, hs, ht, rng
+
+
+def metropolis_multisweep_multi_ref(
+    spins,  # (B, rows, V) f32
+    h_space,
+    h_tau,
+    rng,  # (624, B*V) int32 — the interlaced MT19937 state, uint32 bits
+    base_nbr,  # (n, SD) int, shared topology
+    base_J2_b,  # (B, n, SD) f32, each slot's own doubled couplings
+    tau_J2_b,  # (B, n) or (B, n, 1) f32, each slot's own doubled tau couplings
+    beta,
+    n: int,
+    num_sweeps: int,
+    exp_flavor: str = "fast",
+):
+    """`metropolis_multisweep_ref` with per-slot coupling tables: slot b
+    sweeps with ``base_J2_b[b]`` and ``tau_J2_b[b]`` on the shared lattice.
+    With B copies of one model's tables each slot equals the single-model
+    version bit for bit.  Returns ``(spins, h_space, h_tau, rng)``."""
+    B = spins.shape[0]
+    if base_J2_b.shape[0] != B or tau_J2_b.shape[0] != B:
+        raise ValueError(f"per-slot tables need a leading batch of {B}")
+    return metropolis_multisweep_ref(
+        spins, h_space, h_tau, rng, base_nbr, base_J2_b, tau_J2_b.reshape(B, n), beta, n,
+        num_sweeps, exp_flavor,
+    )
+
+
+def colored_multisweep_multi_ref(
+    spins,  # (B, rows, V) f32
+    rng,  # (624, B*V) int32 — the interlaced MT19937 state, uint32 bits
+    beta,  # (B,) f32
+    classes,  # structural `metropolis.classes_to(reorder.colored_classes(m, V), device)`
+    h_b,  # (B, n) f32, each slot's own fields
+    base_nbr,  # (n, SD) int64, shared topology
+    base_J_b,  # (B, n, SD) f32, NOT doubled
+    tau_J_b,  # (B, n) f32, NOT doubled
+    n: int,
+    num_sweeps: int,
+    exp_flavor: str = "fast",
+):
+    """`colored_multisweep_ref` with per-slot coupling tables bound onto
+    shared color classes (`metropolis.class_coupling_slices`, gathered once
+    per launch); the dense refresh uses each slot's own tables.  With B
+    copies of one model's tables each slot equals the single-model version
+    bit for bit.  Returns ``(spins, h_space, h_tau, rng)``."""
+    B, rows, V = spins.shape
+    if h_b.shape[0] != B or base_J_b.shape[0] != B or tau_J_b.shape[0] != B:
+        raise ValueError(f"per-slot tables need a leading batch of {B}")
+    exp_fn = fx.exp_fn(exp_flavor)
+    beta = beta.reshape(-1)
+    bound = mp.bind_class_tables(
+        classes, mp.class_coupling_slices(classes, h_b, base_J_b, tau_J_b, n)
+    )
+    for _ in range(num_sweeps):
+        rng, u = mt.mt_uniforms_count(rng, rows)
+        u = u.reshape(rows, B, V).permute(1, 0, 2)
+        spins = mp.colored_flip_spins(spins, u, beta, bound, exp_fn)
+    hs, ht = mp.lane_h_eff(spins, h_b, base_nbr, base_J_b, tau_J_b, n)
     return spins, hs, ht, rng

@@ -5,8 +5,10 @@
     results = server.drain()      # JobResult: spins, energy, magnetization
 
 Jobs pack into replica slots of ONE resident engine; every chunk of
-sweeps is a single launch of the colored-multisweep kernel for all of
-them.
+sweeps is a single launch of the rung's multisweep kernel for all of
+them.  ``SampleServer(model, multi_tenant=True)`` serves jobs that carry
+their own model (``AnnealJob.constant(..., model=tenant)``) side by side
+in that one launch.
 """
 
 from repro_torch.serve_mc.jobs import AnnealJob, JobResult, PTJob

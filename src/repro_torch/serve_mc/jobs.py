@@ -12,7 +12,9 @@ always stops exactly at segment boundaries, where the job's
   * `AnnealJob` — one slot; a piecewise-constant anneal schedule.  The
     hook rewrites the slot's beta to the next segment's value.  It equals
     a solo ``SweepEngine`` run with the same seed and schedule, no matter
-    which slot it lands in or what runs beside it.
+    which slot it lands in or what runs beside it.  On a multi-tenant
+    server a job may carry its own model (``model=``); it then equals the
+    solo run of that model.
 
 Parallel-tempering jobs (`PTJob`) are not ported yet.
 """
@@ -54,8 +56,11 @@ class _ScheduledJob:
     `engine.ParkedSlot` per occupied slot, extracted at the chunk boundary
     it was evicted on; re-admission splices them back.
 
-    ``model`` is accepted for interface parity only: a job that carries
-    its own model needs a multi-tenant server, which is not ported.
+    ``model`` is the job's own model (a tenant: the server's lattice with
+    its own couplings, e.g. `ising.reseed_couplings`); None samples the
+    server's model.  A job with a model needs a multi-tenant server
+    (``SampleServer(..., multi_tenant=True)``), which splices the model's
+    coupling tables into the job's slot at admission.
     """
 
     num_slots = 1

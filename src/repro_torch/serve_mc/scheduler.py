@@ -3,7 +3,7 @@
 ONE resident `SweepEngine` of ``slots`` replicas stays alive for the
 server's lifetime, and every scheduling round advances the whole batch
 by a chunk of sweeps as a single launch (with ``backend="cuda"`` one
-launch of the hand-written colored-multisweep kernel).  Between chunks
+launch of the rung's hand-written multisweep kernel).  Between chunks
 the scheduler does the bookkeeping the card never sees:
 
   admit    ask the server's `AdmissionPolicy` which queued jobs enter the
@@ -41,12 +41,19 @@ spans, one complete event per launch, async job lifecycles).  A timed
 launch ends in `torch.cuda.synchronize` on a CUDA engine, so its wall
 time covers the kernel, not just its enqueue.
 
-The port serves one model on one device, on the rungs "a4" and "cb".
-Not ported yet, each raising ValueError naming itself: rungs a1-a3, exp
-flavours other than "fast", ``replica_tile``, ``mesh``/``capacities``,
-``multi_tenant``, ``stream``, `arm_profiler`, snapshots
-(``snapshot_manager``, ``snapshot_every_sweeps``, ``preemption``,
-`snapshot`, `restore`).
+MULTI-TENANCY: ``multi_tenant=True`` builds a multi-tenant engine
+(``SweepEngine.create([model] * slots)``): every slot starts on the
+server's model, and a job carrying its own ``model=`` (same lattice,
+own couplings) gets that model's coupling tables spliced into its slot
+at admission, so one launch sweeps each slot with its own model
+(``backend="cuda"``: the multi-tenant kernels).  A model-less job resets
+its slot to the server's model, so a retired tenant's tables never leak.
+
+The port serves on one device, on the rungs "a4" and "cb".  Not ported
+yet, each raising ValueError naming itself: rungs a1-a3, exp flavours
+other than "fast", ``replica_tile``, ``mesh``/``capacities``,
+``stream``, `arm_profiler`, snapshots (``snapshot_manager``,
+``snapshot_every_sweeps``, ``preemption``, `snapshot`, `restore`).
 """
 
 from __future__ import annotations
@@ -579,7 +586,6 @@ class AdaptiveChunker:
 #: value that means "off".
 _UNPORTED = {
     "replica_tile": None,
-    "multi_tenant": False,
     "mesh": None,
     "capacities": None,
     "stream": None,
@@ -598,7 +604,8 @@ class ServeConfig:
     (kwargs win over a config's field when both are given).  The port's
     defaults serve on the card: ``backend="cuda"``, ``V=128``,
     ``device="cuda"``; pass ``backend="torch", device="cpu"`` (any V) for
-    the plain version on the CPU.  The fields after ``telemetry`` name
+    the plain version on the CPU.  ``multi_tenant=True`` admits jobs that
+    carry their own model.  The fields after ``multi_tenant`` name
     features that are not ported yet; setting one raises ValueError.
     """
 
@@ -616,8 +623,8 @@ class ServeConfig:
     aging_sweeps: int = 0
     wait_window: int = 256
     telemetry: object = True
-    replica_tile: int | None = None
     multi_tenant: bool = False
+    replica_tile: int | None = None
     mesh: object = None
     capacities: tuple | None = None
     stream: object = None
@@ -662,11 +669,14 @@ class SampleServer:
             raise ValueError(f"chunk_sweeps must be >= 1, got {chunk_sweeps}")
         else:
             self._chunker = None
+        self.multi_tenant = bool(cfg.multi_tenant)
+        # One constructor path for both tenancy shapes: a multi-tenant
+        # server starts every slot on the server's model.
         self.engine = SweepEngine.create(
-            model,
+            [model] * cfg.slots if self.multi_tenant else model,
             rung=cfg.rung,
             backend=cfg.backend,
-            batch=cfg.slots,
+            batch=None if self.multi_tenant else cfg.slots,
             V=cfg.V,
             exp_flavor=cfg.exp_flavor,
             device=cfg.device,
@@ -763,10 +773,12 @@ class SampleServer:
         if job.jid is not None:
             raise ValueError(f"job already submitted (jid={job.jid})")
         if getattr(job, "model", None) is not None:
-            raise ValueError(
-                "job carries its own model; that needs multi_tenant, which is "
-                "not ported to repro_torch yet"
-            )
+            if not self.multi_tenant:
+                raise ValueError(
+                    "job carries its own model; this server is single-model "
+                    "— construct it with multi_tenant=True"
+                )
+            self.engine.check_model(job.model)  # reject a topology mismatch now
         job.jid = self._next_jid
         self._next_jid += 1
         job._submit_time = time.perf_counter()
@@ -841,11 +853,16 @@ class SampleServer:
             taken = tuple(int(b) for b in placement)
             self._pool.take(taken)  # raises if the plan double-booked a slot
         if job.parked is not None:
+            model = job.model_on(self) if self.multi_tenant else None
             for b, parked in zip(taken, job.parked):
-                self.carry = self.engine.slot(b).resume(self.carry, parked)
+                self.carry = self.engine.slot(b).resume(self.carry, parked, model=model)
             job.parked = None
         else:
             for b, slot_carry in zip(taken, job.init_carries(self)):
+                if self.multi_tenant:
+                    # The slot sweeps the job's model from now on; a job
+                    # without one resets the slot to the server's model.
+                    self.engine.set_slot_model(b, job.model_on(self))
                 self.carry = self.engine.slot(b).splice(self.carry, slot_carry)
         if job._admit_time is None:
             job._admit_time = time.perf_counter()

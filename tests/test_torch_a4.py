@@ -228,6 +228,15 @@ def test_kernel_sources_and_headers_are_all_present():
     source includes exists there (the checkout alone must build)."""
     for name in ops.launches:
         assert (_build.CSRC / f"{name}.cu").exists(), name
+    # The multi-tenant kernels and the headers they share with the
+    # single-model ones.
+    for name in ("colored_multisweep_multi", "metropolis_multisweep_multi"):
+        assert name in ops.launches, name
+    shared = {"colored_sweep.cuh": ("colored_multisweep", "colored_multisweep_multi"),
+              "a4_sweep.cuh": ("metropolis_multisweep", "metropolis_multisweep_multi")}
+    for header, users in shared.items():
+        for name in users:
+            assert f'#include "{header}"' in (_build.CSRC / f"{name}.cu").read_text(), name
     for src in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
         for inc in re.findall(r'#include "([^"]+)"', src.read_text()):
             assert (_build.CSRC / inc).exists(), f"{src.name} includes missing {inc}"

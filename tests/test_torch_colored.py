@@ -7,7 +7,8 @@
   (backend "jnp") at V=4 and V=128, including two generator blocks per
   sweep (n=160, L=16, V=4 -> 640 rows), on the rungs "cb" and "a4";
 * slot splice/extract/park/resume round-trips, on both rungs;
-* the ValueErrors of everything this slice does not port.
+* the ValueErrors of misuse (bad model lists, slot models on a
+  single-model engine) and of everything not ported yet.
 
 Every comparison is bit-exact (`assert_array_equal`).
 """
@@ -25,7 +26,7 @@ from repro.core import ising as jis
 from repro.core import reorder as jro
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.core import convert, engine, fastexp, metropolis, reorder
+from repro_torch.core import convert, engine, fastexp, ising, metropolis, reorder
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.serve_mc import PTJob, SampleServer
 
@@ -250,8 +251,13 @@ def test_engine_rejects_unported_modes(kwargs, match):
 
 def test_engine_rejects_model_lists_slots_and_slot_models():
     m = _model()
-    with pytest.raises(ValueError, match="multi-tenant"):
-        engine.SweepEngine.create([m, m], backend="torch", V=4, device="cpu")
+    kw = dict(backend="torch", V=4, device="cpu")
+    with pytest.raises(ValueError, match="len\\(models\\)"):
+        engine.SweepEngine.create([m, m], batch=3, **kw)
+    with pytest.raises(ValueError, match="space_nbr"):
+        engine.SweepEngine.create([m, ising.random_layered_model(n=4, L=16, seed=99)], **kw)
+    with pytest.raises(ValueError, match="multi-tenant engines implement rungs"):
+        engine.SweepEngine.create([m, m], rung="a3", **kw)
     eng = engine.SweepEngine.create(m, backend="torch", batch=2, V=4, device="cpu")
     carry = eng.init_carry()
     for bad in (-1, 2):
@@ -259,7 +265,7 @@ def test_engine_rejects_model_lists_slots_and_slot_models():
             eng.slot(bad)
         with pytest.raises(ValueError, match="out of range"):
             eng.extract_slot(carry, bad)
-    with pytest.raises(ValueError, match="multi_tenant"):
+    with pytest.raises(ValueError, match="multi-tenant"):
         eng.init_slot_carry(seed=1, model=m)
     with pytest.raises(ValueError, match="rng_seeds"):
         eng.init_slot_carry(seed=1, rng_seeds=np.zeros(3, np.uint32))
@@ -273,7 +279,7 @@ def test_unported_serving_features_raise():
     with pytest.raises(ValueError, match="PTJob"):
         PTJob(seed=1, betas=[1.0, 2.0], num_rounds=2)
     for field, value in [
-        ("multi_tenant", True), ("mesh", object()), ("capacities", (4,)),
+        ("mesh", object()), ("capacities", (4,)),
         ("replica_tile", 1), ("stream", object()), ("snapshot_manager", "dir"),
         ("snapshot_every_sweeps", 8), ("preemption", object()),
     ]:

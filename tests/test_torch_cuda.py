@@ -117,3 +117,59 @@ def test_server_on_card_matches_plain(rung):
     for jid, r in out[0].items():
         np.testing.assert_array_equal(r.spins, out[1][jid].spins)
         assert r.energy == out[1][jid].energy
+
+
+_MULTI_KERNEL = {"cb": "colored_multisweep_multi", "a4": "metropolis_multisweep_multi"}
+
+
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+@pytest.mark.parametrize(
+    "n,L,B,S", [(96, 256, 8, 8), (320, 256, 2, 2), (96, 256, 2, 0)],
+    ids=["main", "two-blocks", "zero-sweeps"],
+)
+def test_multi_kernel_bit_equals_plain(rung, n, L, B, S):
+    """Kernels #2 and #4 on distinct tenants against the plain multi
+    versions, through the multi-tenant engine's two backends."""
+    _need_card()
+    dev = torch.device("cuda")
+    m = ising.random_layered_model(n=n, L=L, seed=n, beta=1.0)
+    tenants = [ising.reseed_couplings(m, seed=100 + k) for k in range(B)]
+    plain = engine.SweepEngine.create(tenants, rung=rung, backend="torch", V=128, device=dev)
+    kernel = engine.SweepEngine.create(tenants, rung=rung, backend="cuda", V=128, device=dev)
+    carry = plain.init_carry(seed=1)._replace(betas=torch.linspace(0.2, 2.0, B, device=dev))
+    before = ops.launches[_MULTI_KERNEL[rung]]
+    got = kernel.run(carry, S)
+    torch.cuda.synchronize()
+    assert ops.launches[_MULTI_KERNEL[rung]] == before + 1
+    for a, b in zip(got, plain.run(carry, S)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_multi_kernel_on_copies_equals_single_kernel(rung):
+    _need_card()
+    dev = torch.device("cuda")
+    m = ising.random_layered_model(n=96, L=256, seed=3, beta=1.0)
+    multi = engine.SweepEngine.create([m] * 4, rung=rung, backend="cuda", V=128, device=dev)
+    single = engine.SweepEngine.create(m, rung=rung, backend="cuda", batch=4, V=128, device=dev)
+    carry = single.init_carry(seed=2)
+    for a, b in zip(multi.run(carry, 5), single.run(carry, 5)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_multi_tenant_server_on_card_matches_plain(rung):
+    _need_card()
+    m = ising.random_layered_model(n=8, L=256, seed=0, beta=1.2)
+    tenants = [ising.reseed_couplings(m, seed=k) for k in range(3)]
+    out = []
+    for backend in ("cuda", "torch"):
+        server = SampleServer(m, slots=4, chunk_sweeps=4, rung=rung, backend=backend,
+                              device="cuda", multi_tenant=True)
+        for i in range(6):
+            server.submit(AnnealJob.constant(seed=i, sweeps=5 + 3 * i, beta=0.5 + 0.2 * i,
+                                             model=None if i % 4 == 3 else tenants[i % 3]))
+        out.append({r.jid: r for r in server.drain()})
+    for jid, r in out[0].items():
+        np.testing.assert_array_equal(r.spins, out[1][jid].spins)
+        assert r.energy == out[1][jid].energy
