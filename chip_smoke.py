@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device; ~2 minutes
+    python3 chip_smoke.py            # needs one CUDA device; ~3 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also trace the serving runs (torch.profiler)
 
@@ -13,6 +13,7 @@ The port's kernels (src/repro_torch/kernels/csrc/):
   metropolis_multisweep_multi  the same, each slot its own couplings  (multi-tenant serving, a4)
   metropolis_sweep             one a4 sweep on the caller's uniforms   (per-sweep path)
   mt_next_block                one MT19937 block, tempered or uniform  (per-sweep path)
+  fastexp_2d                   the paper's bit-trick exp, "fast"/"accurate" (ops.fastexp)
 
 Phases (any failure raises, so the script exits non-zero and never prints
 its final ok line; no phase catches an exception):
@@ -33,7 +34,11 @@ its final ok line; no phase catches an exception):
      two-generator-block shape and at 0 sweeps, and on 8 copies of one
      model against the single-model kernel.  Each plain multisweep on the
      card is also held against the plain version on the CPU at the main
-     shape;
+     shape.  The exp kernel, both flavours, against its plain version on
+     the card and the plain version on the card against the CPU's, bit for
+     bit: 2^20 uniforms in [-200, 200], the grid [-180, -80] (where the
+     flush of subnormal results decides), +-0, +-inf, NaN, subnormals,
+     +-1e10, shapes (7,), (1000,), (3, 5, 11), float16 and bfloat16 input;
   4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
      (constants and ramps, 64-256 sweeps) at the paper's per-model width
      (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
@@ -59,7 +64,20 @@ its final ok line; no phase catches an exception):
      time the card could take (bytes or operations), the launch-structure
      comparison (fused vs per-sweep, B = 1, 8, 115) and the sweep-order
      comparison (a4 vs cb, B=8); the serving phases' sweeps/s and
-     spin-flips/s.
+     spin-flips/s;
+  8. the exp path: `ops.fastexp` on one sweep's exps at the paper's shape
+     (115 models x 24,576 spins = 2,826,240 elements), once per flavour
+     (counts zeroed just before, read just after), its results bit-equal
+     to the plain version's on the same inputs and within the paper's
+     error envelopes; then each flavour of the kernel, its plain
+     version and `torch.exp` (the paper's exact-exp baseline, not a library
+     form of the kernel) timed with a cold L2 at 2^20, 2,826,240 and 2^26
+     elements, with GB/s and the bytes bound, and the Figure-17 relative
+     error (min, max, mean) of the card's outputs on the 400,001-point grid;
+  9. the ladder: one engine sweep on the card with the plain version of
+     rungs a3 (n=96, L=256, B=1; bit-equal to the a4 engine through kernel
+     #3 from the same seed), a1 and a2 (a1 == a2 under "fast"; a2 on the
+     card == a2 on the CPU); their times are those of eager plain loops.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` and the final ``{"ok": true, "device": ...}``.
@@ -95,6 +113,16 @@ SMS = 132
 MAIN_N, MAIN_L, MAIN_SLOTS, MAIN_CHUNK = 96, 256, 8, 8
 LANES, MT_N = 128, 624
 
+#: Exp kernel sizes: 2^20, one sweep's exps at the paper's shape (115
+#: models x 24,576 spins), 2^26.
+FASTEXP_MAIN = 115 * 96 * 256
+FASTEXP_SIZES = (2**20, FASTEXP_MAIN, 2**26)
+#: The paper's §2.4 valid range of "accurate", and its error envelopes.
+ACCURATE_LO, ACCURATE_HI = -31.5 * np.log(2.0), 32.0 * np.log(2.0)
+ENVELOPE = {"fast": (-0.0392, 0.0201), "accurate": (-0.0105, 0.0051)}
+#: One sweep of an eager plain rung above this many seconds is cut (L).
+LADDER_SWEEP_S = 20.0
+
 SERVE_ARGS = [
     "--jobs", "12", "--slots", str(MAIN_SLOTS), "--chunk", str(MAIN_CHUNK),
     "--n", str(MAIN_N), "--L", str(MAIN_L), "--V", str(LANES),
@@ -110,7 +138,10 @@ KERNELS = {
     "metropolis_multisweep_multi": "src/repro/kernels/metropolis_kernel.py:425",
     "metropolis_sweep": "src/repro/kernels/metropolis_kernel.py:280",
     "mt_next_block": "src/repro/kernels/mt19937_kernel.py:55",
+    "fastexp_2d": "src/repro/kernels/fastexp_kernel.py:54",
 }
+#: The sweep and generator kernels, timed per batch of replicas.
+SWEEP_KERNELS = tuple(k for k in KERNELS if k != "fastexp_2d")
 #: Rung -> the kernel of its serving path, single-model and multi-tenant.
 SERVE_KERNEL = {"cb": "colored_multisweep", "a4": "metropolis_multisweep"}
 MULTI_KERNEL = {"cb": "colored_multisweep_multi", "a4": "metropolis_multisweep_multi"}
@@ -175,6 +206,19 @@ def mt_counts(V: int, uniforms: bool) -> tuple[int, int, int]:
     return 3 * 4 * words, words * (8 + (12 if uniforms else 10)), words * int(uniforms)
 
 
+def fastexp_counts(n: int, flavor: str) -> tuple[int, int, int]:
+    """One exp launch over ``n`` float32 elements.  Bytes: each input read
+    once, each result written once.  Operations per element ("fast"):
+    the scale multiply, the flush compare and the centre multiply (float),
+    the conversion and the bias add (int); "accurate" adds the input flush,
+    the two clip compares, the two mask compares and the max (float).  Its
+    two float64 square roots and divisions are left out: the card's table
+    of peaks gives no float64 rate, and the bound stays a floor."""
+    if flavor == "fast":
+        return 8 * n, 2 * n, 3 * n
+    return 8 * n, 2 * n, 9 * n
+
+
 def with_tables(counts: tuple[int, int, int], B: int, n: int, floats_per_site: int):
     """A multi-tenant launch: the single-model counts plus every slot's own
     coupling tables, read once (``floats_per_site`` float32 per site)."""
@@ -218,6 +262,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int, flush: torch.Tensor) -> float:
+    """Mean ms of ``fn`` with a cold L2: ``flush`` (larger than the 50 MB
+    L2) is rewritten before each call, and only the call is timed, by a
+    pair of CUDA events around it.  The card then spins for ~1 ms, so the
+    host has queued the events and the call before the card reaches them:
+    the time is the card's, not the host's launch overhead."""
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def colored_case(n: int, L: int, B: int, device, seed: int = 0):
@@ -533,6 +597,182 @@ def profile_serve(rung: str, multi: bool = False) -> None:
         print(f"[profile {what}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:70]}")
 
 
+def same_bits(got: torch.Tensor, want: torch.Tensor, what: str, any_nan: bool = False) -> float:
+    """Raise unless two float32 tensors are equal bit for bit (signed
+    zeros included; NaN payloads too, unless ``any_nan``: a NaN made by
+    the card's float multiply carries no payload, one made on the CPU keeps
+    its input's, and IEEE 754 leaves that choice open).  Returns the max
+    |difference| over the elements where both are finite (0.0 when equal)."""
+    if any_nan:
+        got, want = (torch.where(t.isnan(), torch.full_like(t, float("nan")), t) for t in (got, want))
+    a, b = got.contiguous().view(torch.int32), want.contiguous().view(torch.int32)
+    if a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+        bad = (a != b.to(a.device)).nonzero()
+        first = tuple(bad[0].tolist()) if bad.numel() else ()
+        raise AssertionError(f"{what}: {bad.shape[0]} of {a.numel()} results differ, first "
+                             f"{list(first)}: {got[first].item()} vs {want[first].item()}")
+    both = torch.isfinite(got) & torch.isfinite(want.to(got.device))
+    d = (got.double() - want.to(got.device).double()).abs()[both]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def fastexp_cases() -> list:
+    """(name, float32/16/bf16 CPU tensor) inputs of the exp kernel's check."""
+    rng = np.random.default_rng(0)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40, 1e-45, -1e-45,
+                        1.1e-38, -1.1e-38, 1e10, -1e10], np.float32)
+    cases = [
+        ("2^20 uniforms in [-200, 200]", torch.from_numpy(rng.uniform(-200, 200, 2**20).astype(np.float32))),
+        ("grid [-180, -80], 200,001 points", torch.from_numpy(np.linspace(-180, -80, 200_001).astype(np.float32))),
+        ("+-0, +-inf, NaN, subnormals, +-1e10", torch.from_numpy(special)),
+    ]
+    for shape in ((7,), (1000,), (3, 5, 11)):
+        cases.append((f"shape {shape}", torch.from_numpy(rng.uniform(-30, 30, shape).astype(np.float32))))
+    for dtype in (torch.float16, torch.bfloat16):
+        x = torch.from_numpy(np.linspace(-20, 20, 4099).astype(np.float32)).to(dtype)
+        cases.append((f"{str(dtype).split('.')[-1]} input, 4099 elements", x))
+    return cases
+
+
+def check_fastexp(dev) -> float:
+    """#7 against its plain version on the card, and the plain version on
+    the card against the CPU's, both flavours, bit for bit."""
+    from repro_torch.kernels import ops, ref
+
+    err = 0.0
+    for what, x in fastexp_cases():
+        for flavor in ("fast", "accurate"):
+            got = ops.fastexp(x.to(dev), flavor)
+            want = ref.fastexp_ref(x.to(dev), flavor)
+            if got.dtype != torch.float32 or got.shape != x.shape:
+                raise AssertionError(f"fastexp {what}: {got.dtype} {tuple(got.shape)}")
+            err = max(err, same_bits(got, want, f"fastexp {flavor} {what}: kernel vs plain"))
+            same_bits(want.cpu(), ref.fastexp_ref(x, flavor), f"fastexp {flavor} {what}: plain "
+                      "card vs CPU", any_nan=True)
+        print(f"[check fastexp] {what}: fast and accurate: kernel == plain (bit-equal), plain on "
+              f"card == plain on CPU (bit-equal, NaN payloads aside)")
+    return err
+
+
+def rel_err_stats(got: torch.Tensor, x: torch.Tensor) -> tuple[float, float, float]:
+    """min, max and mean of got / exp(x) - 1 (float64 exp of the float32 x)."""
+    r = got.double() / torch.exp(x.double()) - 1.0
+    return float(r.min()), float(r.max()), float(r.mean())
+
+
+def fastexp_path(dev) -> tuple[dict, float]:
+    """The exp's main path: `ops.fastexp` on one sweep's exps at the
+    paper's shape, each flavour once, launch counts zeroed just before and
+    read just after.  Each result must equal the plain version's on the
+    same inputs bit for bit and lie in the paper's envelope.  Returns the
+    launch counts and the max |kernel - plain|."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.rand(FASTEXP_MAIN, generator=gen) * (ACCURATE_HI - ACCURATE_LO - 0.02)
+         + ACCURATE_LO + 0.01).to(dev)
+    ops.reset_launches()
+    out = {flavor: ops.fastexp(x, flavor) for flavor in ("fast", "accurate")}
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    if launches["fastexp_2d"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"the exp path launched {launches}, want 2 fastexp_2d launches")
+    err = 0.0
+    for flavor, y in out.items():
+        err = max(err, same_bits(y, ref.fastexp_ref(x, flavor),
+                                 f"fastexp {flavor} main path: kernel vs plain"))
+        lo, hi, mean = rel_err_stats(y, x)
+        if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"fastexp {flavor}: not finite or shape {tuple(y.shape)}")
+        if not ENVELOPE[flavor][0] <= lo <= hi <= ENVELOPE[flavor][1]:
+            raise AssertionError(f"fastexp {flavor}: relative error [{lo}, {hi}] outside "
+                                 f"{ENVELOPE[flavor]}")
+        print(f"[fastexp path] {FASTEXP_MAIN:,} elements, {flavor}: 1 fastexp_2d launch, == the "
+              f"plain version (bit-equal), finite, relative error [{lo:.5f}, {hi:.5f}] inside "
+              f"the paper's {ENVELOPE[flavor]}")
+    return launches, err
+
+
+def time_fastexp(dev) -> dict:
+    """Each flavour of #7, its plain version and `torch.exp` with a cold
+    L2, at `FASTEXP_SIZES`; then the Figure-17 error of the card's outputs.
+    Returns {(flavor, n): (kernel ms, plain ms, torch.exp ms, bound)}."""
+    from repro_torch.kernels import ops, ref
+
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)  # 128 MB > L2
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    out = {}
+    for n in FASTEXP_SIZES:
+        x = (torch.rand(n, generator=gen) * 40.0 - 20.0).to(dev)
+        t_exp = cuda_ms_cold(lambda: torch.exp(x), 20, flush)
+        for flavor in ("fast", "accurate"):
+            t_k = cuda_ms_cold(lambda: ops.fastexp(x, flavor), 20, flush)
+            t_p = cuda_ms_cold(lambda: ref.fastexp_ref(x, flavor), 5, flush)
+            b = bound(fastexp_counts(n, flavor))
+            out[flavor, n] = (t_k, t_p, t_exp, b)
+            gbs = 8 * n / (t_k * 1e-3) / 1e9
+            print(f"[time fastexp] n={n:,} {flavor}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s), plain "
+                  f"{t_p:.4f} ms, torch.exp (the paper's exact-exp baseline) {t_exp:.4f} ms "
+                  f"({8 * n / (t_exp * 1e-3) / 1e9:.0f} GB/s); bound {b[0]:.5f} ms ({b[1]}, "
+                  f"8 B an element at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    grid = torch.linspace(ACCURATE_LO + 0.01, ACCURATE_HI - 0.01, 400_001, dtype=torch.float64)
+    grid = grid.float().to(dev)
+    for flavor in ("fast", "accurate"):
+        lo, hi, mean = rel_err_stats(ops.fastexp(grid, flavor), grid)
+        print(f"[fig17 fastexp] {flavor}: relative error on the 400,001-point grid, from the "
+              f"card's outputs: min {lo:.6f}, max {hi:.6f}, mean {mean:.3e}")
+    return out
+
+
+def ladder(dev) -> None:
+    """One engine sweep of each of the paper's slower rungs on the card,
+    plain version ("torch" backend): a3 == the a4 engine through kernel
+    #3, a1 == a2 under "fast", a2 on the card == a2 on the CPU."""
+    from repro_torch.core import engine, ising
+
+    fields = engine.SweepCarry._fields
+
+    def one_sweep(m, rung, device, backend="torch", **kw):
+        eng = engine.SweepEngine.create(m, rung=rung, backend=backend, batch=1, V=LANES,
+                                        device=device, **kw)
+        carry = eng.init_carry(seed=2)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = eng.run(carry, 1)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return carry, time.perf_counter() - t0
+
+    m = ising.random_layered_model(n=MAIN_N, L=MAIN_L, seed=0, beta=1.1)
+    c3, t3 = one_sweep(m, "a3", dev)
+    c4, _ = one_sweep(m, "a4", dev, backend="cuda")
+    assert_same(c3, c4, "a3 (plain) vs a4 (kernel #3)", names=fields)
+    print(f"[ladder] a3 n={MAIN_N} L={MAIN_L} V={LANES} B=1, one sweep: == the a4 engine through "
+          f"kernel #3 (bit-equal); eager plain version {t3:.2f} s")
+    # a1 is the slowest eager loop: size L so that one sweep stays under
+    # LADDER_SWEEP_S, from a probe at 8 layers.
+    _, t_probe = one_sweep(ising.random_layered_model(n=MAIN_N, L=8, seed=0, beta=1.1), "a1",
+                           dev, exp_flavor="fast")
+    L = MAIN_L
+    while L > 8 and t_probe * L / 8 > LADDER_SWEEP_S:
+        L //= 2
+    if L < MAIN_L:
+        print(f"[ladder] cut: a1/a2 at L={L}, not {MAIN_L} (an 8-layer a1 sweep took "
+              f"{t_probe:.2f} s, so {MAIN_L} layers would take ~{t_probe * MAIN_L / 8:.0f} s)")
+    mf = ising.random_layered_model(n=MAIN_N, L=L, seed=0, beta=1.1)
+    c1, t1 = one_sweep(mf, "a1", dev, exp_flavor="fast")
+    c2, t2 = one_sweep(mf, "a2", dev)
+    assert_same(c1, c2, "a1 vs a2 under fast", names=fields)
+    c2c, t2c = one_sweep(mf, "a2", "cpu")
+    assert_same([t.cpu() for t in c2], c2c, "a2 card vs CPU", names=fields)
+    flips = int((c2.spins.cpu() != engine.SweepEngine.create(
+        mf, rung="a2", backend="torch", device="cpu").init_carry(seed=2).spins).sum())
+    print(f"[ladder] a1, a2 n={MAIN_N} L={L} B=1, one sweep, fast exp: a1 == a2 (bit-equal), "
+          f"a2 on card == a2 on CPU ({flips} flips); eager plain version a1 {t1:.2f} s, "
+          f"a2 {t2:.2f} s on the card, a2 {t2c:.2f} s on the CPU")
+
+
 def main(argv: list[str]) -> int:
     quick = "--quick" in argv
     profile = "--profile" in argv
@@ -624,6 +864,7 @@ def main(argv: list[str]) -> int:
                     f"{rung} multi on copies vs single-model kernel")
         print(f"[check {rung} multi] main shape: plain on card == plain on CPU; {MAIN_SLOTS} "
               f"copies of one model: {name} == {SERVE_KERNEL[rung]} (bit-equal)")
+    err["fastexp_2d"] = check_fastexp(dev)
     if quick:
         print(f"quick checks passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -649,7 +890,7 @@ def main(argv: list[str]) -> int:
 
     # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
-    times = {name: {} for name in KERNELS}  # name -> B -> (ms, plain ms, bound)
+    times = {name: {} for name in SWEEP_KERNELS}  # name -> B -> (ms, plain ms, bound)
     for B in (MAIN_SLOTS, 115):
         mB, rowsB, kB, pB, inB = colored_case(MAIN_N, MAIN_L, B, dev, seed=B)
         times["colored_multisweep"][B] = (
@@ -678,7 +919,7 @@ def main(argv: list[str]) -> int:
                 cuda_ms(lambda: mc.kernel(mc.inputs, 8), reps=20),
                 cuda_ms(lambda: mc.plain(mc.inputs, 8), reps=3 if rung == "cb" else 1, warmup=1),
                 bound(with_tables(counts, B, MAIN_N, sd_m + extra), B))
-        for name in KERNELS:
+        for name in SWEEP_KERNELS:
             t_k, t_p, (b_ms, b_by, occ_ms) = times[name][B]
             occ = "" if occ_ms is None else f", one-CTA-per-replica bound {occ_ms:.5f} ms"
             print(f"[time {name}] B={B} n={MAIN_N} L={MAIN_L}: kernel {t_k:.4f} ms/launch, "
@@ -731,6 +972,15 @@ def main(argv: list[str]) -> int:
     us_cb = times["colored_multisweep"][MAIN_SLOTS][0] * 1e3 / 8
     print(f"[sweep order] B={MAIN_SLOTS} n={MAIN_N} L={MAIN_L}: a4 {us_a4:.2f} us/sweep, "
           f"cb {us_cb:.2f} us/sweep (cb/a4 speed {us_a4 / us_cb:.3f}x)")
+
+    # -- 8. the exp path and its timings -------------------------------------
+    exp_launches, exp_err = fastexp_path(dev)
+    err["fastexp_2d"] = max(err["fastexp_2d"], exp_err)
+    exp_times = time_fastexp(dev)
+
+    # -- 9. the ladder's slower rungs (plain version) --------------------------
+    ladder(dev)
+
     if profile:
         profile_serve("cb")
         profile_serve("a4")
@@ -760,7 +1010,16 @@ def main(argv: list[str]) -> int:
     print(smi)
     entries = []
     for name, replaces in KERNELS.items():
-        t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
+        extra = {}
+        if name == "fastexp_2d":
+            # The "fast" flavour at the paper's one-sweep size; "accurate" beside it.
+            t_k, t_p, _, (b_ms, b_by, _) = exp_times["fast", FASTEXP_MAIN]
+            t_ka, t_pa, t_exp, (b_a, _, _) = exp_times["accurate", FASTEXP_MAIN]
+            main_launches[name] = exp_launches[name]
+            extra = {"elements": FASTEXP_MAIN, "accurate_ms": t_ka, "accurate_plain_ms": t_pa,
+                     "accurate_bound_ms": b_a, "torch_exp_ms": t_exp}
+        else:
+            t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
         entries.append({
             "name": name,
             "route": "cuda",
@@ -774,6 +1033,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,
+            **extra,
         })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -9,33 +9,41 @@ One API owns the sweep lifecycle of a batch of replicas:
 
 Carry layout (`SweepCarry`), batched over replicas:
 
-    spins/h_space/h_tau   (B, rows, V) float32
+    spins/h_space/h_tau   (B, N) float32      flat rungs a1/a2
+                          (B, rows, V) float32 lane rungs a3/a4/cb
     betas                 (B,) float32       per-replica inverse temperature
-    rng                   (624, B*V) int32   V interlaced MT19937 generators
-                                             per replica (replica b owns
-                                             columns b*V..(b+1)*V), uint32
-                                             bits stored as int32
+    rng                   (624, B) int32     flat rungs: one scalar MT19937
+                                             per replica
+                          (624, B*V) int32   lane rungs: V interlaced MT19937
+                                             generators per replica (replica
+                                             b owns columns b*V..(b+1)*V);
+                                             uint32 bits stored as int32
 
 Backends (`register_backend`):
 
-  * ``"torch"`` — the plain PyTorch version (`kernels.ref`), any V, on CPU
-    or CUDA tensors; uniforms come from the host-side-formulated blocked
-    MT19937, one draw per sweep.
+  * ``"torch"`` — the plain PyTorch version (`kernels.ref`, `metropolis`),
+    every rung and exp flavour, any V, on CPU or CUDA tensors; uniforms
+    come from the host-side-formulated blocked MT19937, one draw per
+    sweep (``N`` per replica on the flat rungs, ``rows`` per lane on the
+    lane rungs).
   * ``"cuda"``  — the hand-written kernels: one launch advances every
     replica ``num_sweeps`` sweeps with the MT19937 twist/temper inside the
     kernel (rung "a4": kernels/csrc/metropolis_multisweep.cu, rung "cb":
     kernels/csrc/colored_multisweep.cu; on multi-tenant engines their twins
     metropolis_multisweep_multi.cu and colored_multisweep_multi.cu).  V
-    must be 128 and the device a CUDA device.
+    must be 128, the device a CUDA device, the rung a4 or cb and the exp
+    flavour "fast": the kernels compute nothing else.
 
 Both evaluate the identical twist -> temper -> 24-bit-float pipeline on
 the identical per-replica generator columns and the identical row (a4)
 or class (cb) visit order, so they are bit-exact with each other and
 with the JAX reference's jnp and Pallas backends.
 
-Rungs: "a4", the paper's sequential sweep, carries ``h_space``/``h_tau``
-as state and updates them incrementally; "cb", the graph-colored sweep,
-recomputes them densely at the end of each run.
+Rungs: the paper's ladder a1-a4 (`metropolis`) carries ``h_space``/
+``h_tau`` as state and updates them incrementally; "cb", the
+graph-colored sweep, recomputes them densely at the end of each run.
+a1 (edge-centric) and a2 (per-spin layout) sweep the flat layer-major
+layout; a3 and a4 the lane layout, a3 with per-lane neighbour updates.
 
 Multi-tenant engines (``create([m0, m1, ...])``, rungs "a4" and "cb"):
 one slot per model, all models on one lattice (same lane shape and
@@ -45,8 +53,8 @@ ride as ``[B, ...]`` tensors (`slot_tables`) that every launch reads, so
 one launch sweeps B slots each with its own model.  With B copies of one
 model this is the single-model engine, bit for bit.
 
-This port runs the rungs "a4" and "cb" on one device, for one model or
-one model per slot.  Rungs a1-a3, exp flavours other than "fast",
+This port runs every rung on one device: a4 and cb for one model or one
+model per slot, a1-a3 for one model on the "torch" backend.
 ``replica_tile`` and device meshes (``mesh``/``capacities``) are not
 ported yet and raise ValueError naming themselves.
 
@@ -68,13 +76,16 @@ import torch
 from repro_torch.core import fastexp, ising, metropolis, mt19937 as mt, reorder
 
 RUNGS = ("a1", "a2", "a3", "a4", "cb")
-#: Rungs this port implements.
-PORTED_RUNGS = ("a4", "cb")
+FLAT_RUNGS = ("a1", "a2")
+LANE_RUNGS = ("a3", "a4", "cb")
+#: Rungs the "cuda" backend implements (the fully vectorized lane layouts).
+CUDA_RUNGS = ("a4", "cb")
 #: Rungs with a multi-tenant flavour (one model per slot).
 MULTI_RUNGS = ("a4", "cb")
 
-#: Default exp flavour per rung (every ported rung uses the bit-trick exp).
-DEFAULT_EXP = {"a4": "fast", "cb": "fast"}
+#: Default exp flavour per rung (the paper's a1 uses the exact exp; every
+#: later rung the bit-trick "fast" one).
+DEFAULT_EXP = {"a1": "exact", "a2": "fast", "a3": "fast", "a4": "fast", "cb": "fast"}
 
 #: Seed-scrambling multiplier for per-lane MT19937 seeds (Knuth's 2^32/phi).
 LANE_SEED_MULT = np.uint32(2654435761)
@@ -83,11 +94,11 @@ LANE_SEED_MULT = np.uint32(2654435761)
 class SweepCarry(NamedTuple):
     """Batched sweep state: everything `run` needs, nothing it doesn't."""
 
-    spins: torch.Tensor  # (B, rows, V)
+    spins: torch.Tensor  # (B, N) | (B, rows, V)
     h_space: torch.Tensor  # same shape as spins
     h_tau: torch.Tensor  # same shape as spins
     betas: torch.Tensor  # (B,)
-    rng: torch.Tensor  # (624, B*V) int32 holding uint32 bits
+    rng: torch.Tensor  # (624, B) | (624, B*V) int32 holding uint32 bits
 
 
 class ParkedSlot(NamedTuple):
@@ -255,7 +266,8 @@ class SweepEngine:
         self.V = V
         self.exp_flavor = exp_flavor
         self.device = device
-        self.rows = reorder.check_lane_shape(model.n, model.L, V)
+        # Lane rows (None on the flat rungs, which have no lane layout).
+        self.rows = reorder.check_lane_shape(model.n, model.L, V) if rung in LANE_RUNGS else None
         self.classes = reorder.colored_classes(model, V) if rung == "cb" else None
         # Multi-tenant: the model each slot sweeps (None after a raw table
         # splice) and its coupling tables, stacked [B, ...].  The tables are
@@ -318,21 +330,23 @@ class SweepEngine:
             raise ValueError("device meshes (mesh=/capacities=) are not ported to repro_torch yet")
         if rung not in RUNGS:
             raise ValueError(f"unknown rung {rung!r}; choose from {RUNGS}")
-        if rung not in PORTED_RUNGS:
-            raise ValueError(
-                f"rung {rung!r} is not ported to repro_torch yet; ported: {PORTED_RUNGS}"
-            )
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; registered: {backends()}")
         batch = 1 if batch is None else int(batch)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         exp_flavor = exp_flavor or DEFAULT_EXP[rung]
-        fastexp.exp_fn(exp_flavor)  # raises for unported flavours
+        fastexp.exp_fn(exp_flavor)  # raises for unknown flavours
         device = torch.device(device)
         if backend == "cuda":
             from repro_torch.kernels import ops
 
+            if rung not in CUDA_RUNGS:
+                raise ValueError(
+                    f"backend='cuda' implements the fully vectorized rungs {CUDA_RUNGS} only; "
+                    f"got rung={rung!r} (use backend='torch')"
+                )
+            ops.check_sweep_flavour("backend='cuda'", exp_flavor, device)
             if V != ops.LANES:
                 raise ValueError(f"backend='cuda' requires V={ops.LANES}; got V={V}")
             if device.type != "cuda":
@@ -376,16 +390,21 @@ class SweepEngine:
                 spin_list = list(spins)
         if betas is None:
             betas = np.asarray([mm.beta for mm in slot_models], np.float32)
-        states = [
-            metropolis.make_lane_state(mm, sp, self.V, self.device)
-            for mm, sp in zip(slot_models, spin_list)
-        ]
+        states = [self._slot_state(mm, sp) for mm, sp in zip(slot_models, spin_list)]
         stacked = [torch.stack([s[i] for s in states]) for i in range(3)]
+        # Flat rungs: one scalar generator per replica, seeds scrambled like
+        # the lane rungs'.
         return SweepCarry(
             *stacked,
             betas=torch.as_tensor(np.asarray(betas, np.float32), device=self.device),
-            rng=mt.mt_init(lane_seeds(B, self.V, seed), self.device),
+            rng=mt.mt_init(lane_seeds(B, self._slot_lanes(), seed), self.device),
         )
+
+    def _slot_state(self, m: ising.LayeredModel, spins: np.ndarray):
+        """One replica's state in the rung's layout, fields from scratch."""
+        if self.rung in FLAT_RUNGS:
+            return metropolis.make_flat_state(m, spins, self.device)
+        return metropolis.make_lane_state(m, spins, self.V, self.device)
 
     def run(self, carry: SweepCarry, num_sweeps: int) -> SweepCarry:
         """Advance every replica by ``num_sweeps`` Metropolis sweeps (one
@@ -403,16 +422,24 @@ class SweepEngine:
     # -- views ----------------------------------------------------------------
 
     def spins_flat(self, carry: SweepCarry) -> np.ndarray:
-        """(B, N) spins in flat layer-major order (host numpy)."""
+        """(B, N) spins in flat layer-major order (host numpy), comparable
+        across rungs."""
         m = self.model
         spins = carry.spins.cpu().numpy()
+        if self.rung in FLAT_RUNGS:
+            return spins
         return np.stack([reorder.from_lane(s, m.n, m.L, self.V) for s in spins])
 
-    def state_of(self, carry: SweepCarry, b: int = 0) -> metropolis.LaneState:
-        """Replica ``b`` as a per-replica `LaneState`."""
-        return metropolis.LaneState(carry.spins[b], carry.h_space[b], carry.h_tau[b])
+    def state_of(self, carry: SweepCarry, b: int = 0):
+        """Replica ``b`` as a per-replica `FlatState` or `LaneState`."""
+        cls = metropolis.FlatState if self.rung in FLAT_RUNGS else metropolis.LaneState
+        return cls(carry.spins[b], carry.h_space[b], carry.h_tau[b])
 
     # -- per-slot splice/extract (the serve scheduler's admit/retire API) ------
+
+    def _slot_lanes(self) -> int:
+        """Generator columns owned by one slot (one on the flat rungs)."""
+        return self.V if self.rung in LANE_RUNGS else 1
 
     def _check_slot(self, b: int) -> None:
         if not 0 <= b < self.batch:
@@ -429,7 +456,8 @@ class SweepEngine:
         """A single-slot (batch=1 shaped) carry for `splice_slot`.
 
         Bit-identical to ``init_carry(seed=seed)`` on a ``batch=1`` engine.
-        ``rng_seeds`` overrides the per-lane seeds ((V,) uint32).
+        ``rng_seeds`` overrides the per-lane seeds ((V,) uint32; (1,) on
+        the flat rungs).
         ``model`` (multi-tenant engines only) computes the slot's fields and
         default beta from that model; splice its tables into the same slot
         (`set_slot_model`), or the carry will not match what the slot sweeps.
@@ -449,15 +477,16 @@ class SweepEngine:
             spins = np.asarray(spins, np.float32)
             if spins.ndim != 1:
                 raise ValueError(f"slot spins must be flat (N,), got {spins.shape}")
+        lanes = self._slot_lanes()
         if rng_seeds is None:
-            rng_seeds = lane_seeds(1, self.V, seed)
+            rng_seeds = lane_seeds(1, lanes, seed)
         else:
             rng_seeds = np.asarray(rng_seeds, np.uint32)
-            if rng_seeds.shape != (self.V,):
+            if rng_seeds.shape != (lanes,):
                 raise ValueError(
-                    f"rng_seeds must have shape ({self.V},), got {rng_seeds.shape}"
+                    f"rng_seeds must have shape ({lanes},), got {rng_seeds.shape}"
                 )
-        st = metropolis.make_lane_state(m, spins, self.V, self.device)
+        st = self._slot_state(m, spins)
         beta_arr = torch.full(
             (1,), m.beta if beta is None else beta, dtype=torch.float32, device=self.device
         )
@@ -470,7 +499,7 @@ class SweepEngine:
         """Write a single-slot carry into slot ``b``; returns a new carry.
         Pure data movement — bit-exact by construction."""
         self._check_slot(b)
-        V = self.V
+        V = self._slot_lanes()
         out = [x.clone() for x in carry]
         for i in range(4):
             out[i][b] = slot[i][0]
@@ -481,7 +510,7 @@ class SweepEngine:
         """Slot ``b`` of a batched carry as a single-slot carry (the exact
         inverse of `splice_slot`; a copy, so later carries never alias it)."""
         self._check_slot(b)
-        V = self.V
+        V = self._slot_lanes()
         return SweepCarry(
             *(x[b : b + 1].clone() for x in carry[:4]),
             carry.rng[:, b * V : (b + 1) * V].clone(),
@@ -590,9 +619,56 @@ def _a4_tensors(eng: SweepEngine) -> dict:
     )
 
 
+def _flat_runner(eng: SweepEngine, sweep) -> Callable:
+    """``run`` of a flat rung: per sweep, ``N`` uniforms of each replica's
+    scalar generator (one column of the (624, B) state), then
+    ``sweep(state, u (B, N), betas)``."""
+    N = eng.model.num_spins
+
+    def run(carry: SweepCarry, num_sweeps: int) -> SweepCarry:
+        st, rng = metropolis.FlatState(*carry[:3]), carry.rng
+        for _ in range(num_sweeps):
+            rng, u = mt.mt_uniforms_count(rng, N)
+            st = sweep(st, u.T, carry.betas)
+        return SweepCarry(*st, carry.betas, rng)
+
+    return run
+
+
 def _build_torch(eng: SweepEngine) -> Callable:
     from repro_torch.kernels import ref
 
+    m, dev = eng.model, eng.device
+    exp_fn = fastexp.exp_fn(eng.exp_flavor)
+    if eng.rung == "a1":
+        steps = metropolis.original_steps(*ising.original_arrays(m))
+        return _flat_runner(
+            eng, lambda st, u, beta: metropolis.sweep_original(st, steps, u, beta, exp_fn)
+        )
+    if eng.rung == "a2":
+        targets, J2 = ising.flat_arrays(m)
+        targets = torch.from_numpy(targets.astype(np.int64)).to(dev)
+        J2 = torch.from_numpy(J2).to(dev)
+        return _flat_runner(
+            eng, lambda st, u, beta: metropolis.sweep_flat(
+                st, targets, J2, u, beta, m.space_degree, exp_fn)
+        )
+    if eng.rung == "a3":
+        tabs = _a4_tensors(eng)
+
+        def run_a3(carry: SweepCarry, num_sweeps: int) -> SweepCarry:
+            st, rng = metropolis.LaneState(*carry[:3]), carry.rng
+            B, rows, V = st.spins.shape
+            for _ in range(num_sweeps):
+                rng, u = mt.mt_uniforms_count(rng, rows)
+                u = u.reshape(rows, B, V).permute(1, 0, 2)
+                st = metropolis.sweep_lane(
+                    st, tabs["base_nbr"], tabs["base_J2"], tabs["tau_J2"], u, carry.betas,
+                    m.n, exp_fn, scalar_updates=True,
+                )
+            return SweepCarry(*st, carry.betas, rng)
+
+        return run_a3
     if eng.rung == "a4":
         tabs = _a4_tensors(eng)
 

@@ -170,3 +170,87 @@ def energy(m: LayeredModel, spins) -> float:
         )
     e -= float(np.sum(m.tau_J.astype(np.float64) * s * np.roll(s, -1, axis=0)))
     return e
+
+
+# -----------------------------------------------------------------------------
+# Flat (layer-major) layouts for the paper's rungs a1 and a2: spin id = l * n + i.
+# -----------------------------------------------------------------------------
+
+
+def flat_arrays(m: LayeredModel) -> tuple[np.ndarray, np.ndarray]:
+    """Per-spin simplified layout (Figure 5/6): (targets, J2) of shape (N, D).
+
+    The last two slots of every row are the tau edges (the paper reorders
+    edges ahead of time precisely so ``isATauEdge`` can be deleted).  J is
+    pre-doubled (§2.3's "multiply all of the J's by 2 ahead of time").
+    """
+    n, L, sd = m.n, m.L, m.space_degree
+    N, D = n * L, sd + 2
+    targets = np.empty((N, D), dtype=np.int32)
+    J2 = np.empty((N, D), dtype=np.float32)
+    for l in range(L):
+        base = l * n
+        targets[base : base + n, :sd] = m.space_nbr + base
+        J2[base : base + n, :sd] = 2.0 * m.space_J
+        targets[base : base + n, sd] = ((l - 1) % L) * n + np.arange(n)
+        targets[base : base + n, sd + 1] = ((l + 1) % L) * n + np.arange(n)
+        J2[base : base + n, sd] = 2.0 * m.tau_J
+        J2[base : base + n, sd + 1] = 2.0 * m.tau_J
+    return targets, J2
+
+
+def original_arrays(m: LayeredModel):
+    """Edge-centric layout of Figure 4, for the a1 implementation.
+
+    Returns (graph_edges (E,2) int32, J (E,) f32, is_tau (E,) bool,
+    incident (N, D) int32 edge ids).  Padding uses a dummy self-edge with J=0
+    per spin so every incident list has exactly D entries (the original code
+    had variable-length lists).
+    """
+    n, L, sd = m.n, m.L, m.space_degree
+    N, D = n * L, sd + 2
+    edges = []
+    js = []
+    istau = []
+    incident = np.full((N, D), -1, dtype=np.int64)
+    counts = np.zeros(N, dtype=np.int64)
+
+    def add_edge(a, b, j, tau):
+        eid = len(edges)
+        edges.append((a, b))
+        js.append(j)
+        istau.append(tau)
+        for s in (a, b) if a != b else (a,):
+            incident[s, counts[s]] = eid
+            counts[s] += 1
+        return eid
+
+    for l in range(L):
+        base = l * n
+        for i in range(n):
+            for d in range(sd):
+                jmate = int(m.space_nbr[i, d])
+                if jmate == i:
+                    continue  # padding slot
+                if jmate > i:  # one edge per undirected pair
+                    add_edge(base + i, base + jmate, float(m.space_J[i, d]), False)
+        # Tau edges to the next layer (wrap-around covers the previous link).
+        nxt = ((l + 1) % L) * n
+        for i in range(n):
+            add_edge(base + i, nxt + i, float(m.tau_J[i]), True)
+    # Pad every incident list to D with per-spin dummy self-edges (J=0).
+    for s in range(N):
+        dummy = None
+        while counts[s] < D:
+            if dummy is None:
+                dummy = add_edge(s, s, 0.0, False)
+                continue  # add_edge already bumped counts[s]
+            incident[s, counts[s]] = dummy
+            counts[s] += 1
+    graph_edges = np.asarray(edges, dtype=np.int32)
+    return (
+        graph_edges,
+        np.asarray(js, dtype=np.float32),
+        np.asarray(istau, dtype=bool),
+        incident.astype(np.int32),
+    )

@@ -1,14 +1,30 @@
-"""The ported Metropolis sweeps (rungs "a4" and "cb") as plain PyTorch code.
+"""The Metropolis sweep ladder (paper Table 1) as plain PyTorch code.
 
-These are the plain versions of the rungs the CUDA kernels implement:
-`sweep_lane` (a4, kernels/csrc/metropolis_multisweep.cu,
-metropolis_multisweep_multi.cu and metropolis_sweep.cu) and the colored
-sweep (cb, kernels/csrc/colored_multisweep.cu and
-colored_multisweep_multi.cu).  They run on CPU or CUDA tensors
-and are bit-exact with the kernels and with the reference's jnp path.
+Every rung of the paper's ladder, and the colored rung beyond it, with
+the same semantics over its own memory layout, so rungs compare bit for
+bit under the same exp flavour and uniforms:
+
+  a1  `sweep_original`  — the edge-centric structures of Figure 4, the
+      neighbour select of Figure 2, 2*S_mul*J recomputed per edge; the
+      exact exp by default.
+  a2  `sweep_flat`      — the per-spin layout of Figure 5/6 (pre-doubled
+      J, tau edges last), one fused update line per spin.
+  a3  `sweep_lane(..., scalar_updates=True)` — the lane layout's vector
+      flip with its neighbour updates one lane at a time.
+  a4  `sweep_lane`      — fully vectorized: whole-row neighbour updates.
+  cb  `sweep_colored`   — graph-colored whole-lattice updates.
+
+a4 and cb are the plain versions of the CUDA kernels: `sweep_lane` (a4,
+kernels/csrc/metropolis_multisweep.cu, metropolis_multisweep_multi.cu and
+metropolis_sweep.cu) and the colored sweep (cb,
+kernels/csrc/colored_multisweep.cu and colored_multisweep_multi.cu).  a1-a3
+have no kernel: they are the paper's slower rungs, kept as eager loops.
+All run on CPU or CUDA tensors and are bit-exact with the reference's jnp
+path (a1 under the "exact" exp within its 1-ulp differences).
 
 Replicas are an explicit leading batch dimension: spins, fields and
-uniforms are ``(B, rows, V)``, betas ``(B,)``.
+uniforms are ``(B, N)`` on the flat rungs a1/a2 and ``(B, rows, V)`` on
+the lane rungs, betas ``(B,)``.
 
 a4 (the paper's fully vectorized rung, Figure 12b): the rows are walked
 in order; all V lanes of a row flip together, and the flip's field
@@ -47,10 +63,26 @@ import torch
 from repro_torch.core import ising, reorder
 
 
+class FlatState(NamedTuple):
+    spins: torch.Tensor  # (N,) float32 in {-1, +1}, or (B, N) batched
+    h_space: torch.Tensor  # includes the local field h
+    h_tau: torch.Tensor
+
+
 class LaneState(NamedTuple):
     spins: torch.Tensor  # (rows, V), or (B, rows, V) batched
     h_space: torch.Tensor
     h_tau: torch.Tensor
+
+
+def make_flat_state(m: ising.LayeredModel, spins: np.ndarray, device="cuda") -> FlatState:
+    """Flat-layout state of one configuration; fields from scratch."""
+    hs, ht = ising.h_eff_from_scratch(m, spins)
+
+    def flat(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    return FlatState(flat(spins), flat(hs), flat(ht))
 
 
 def make_lane_state(
@@ -102,6 +134,96 @@ def _flip(s, h_sum, u, beta, exp_fn):
     return s * mask, s * (1.0 - 2.0 * mask)
 
 
+# -----------------------------------------------------------------------------
+# a1 — the original edge-centric structures (Figure 2 / Figure 4).
+# -----------------------------------------------------------------------------
+
+
+def original_steps(graph_edges, J, is_tau, incident) -> list:
+    """a1's per-spin edge walk as host lists: for spin t, one
+    ``(neighbour, J, is_tau)`` per incident edge in the table's order.
+    The neighbour is the edge's other end (Figure 3's comparison-as-index
+    select); a padding self-edge (J = 0) names the spin itself."""
+    ge, inc = np.asarray(graph_edges), np.asarray(incident)
+    Jf, tau = np.asarray(J, np.float32), np.asarray(is_tau, bool)
+    steps = []
+    for t in range(inc.shape[0]):
+        edges = []
+        for e in inc[t]:
+            ends = ge[e]
+            edges.append((int(ends[int(ends[0] == t)]), float(Jf[e]), bool(tau[e])))
+        steps.append(edges)
+    return steps
+
+
+def sweep_original(
+    state: FlatState,  # batched (B, N)
+    steps: list,  # `original_steps` of the model's `ising.original_arrays`
+    u: torch.Tensor,  # (B, N) uniforms
+    beta: torch.Tensor,  # (B,)
+    exp_fn,
+) -> FlatState:
+    """One a1 sweep of every replica; returns a new state.
+
+    Spins are visited in id order.  After spin t's flip test, each of its
+    incident edges in turn subtracts ``(2 S_mul) J_e`` from the
+    neighbour's space or tau field and adds +0.0 to the other one — the
+    reference's ``where(is_tau, 0, -val)`` pair, signed zeros included.
+    """
+    spins, hs, ht = (x.clone() for x in state)
+    for t, edges in enumerate(steps):
+        smul, s_new = _flip(spins[:, t], hs[:, t] + ht[:, t], u[:, t], beta, exp_fn)
+        two_smul = 2.0 * smul
+        for nbr, j, tau in edges:
+            val = two_smul * j  # recomputed every edge (a1 style)
+            if tau:
+                hs[:, nbr] += 0.0
+                ht[:, nbr] -= val
+            else:
+                hs[:, nbr] -= val
+                ht[:, nbr] += 0.0
+        spins[:, t] = s_new
+    return FlatState(spins, hs, ht)
+
+
+# -----------------------------------------------------------------------------
+# a2 — the simplified per-spin layout (Figure 5/6): tau edges are the last
+# two slots, J pre-doubled, one fused update line.
+# -----------------------------------------------------------------------------
+
+
+def sweep_flat(
+    state: FlatState,  # batched (B, N)
+    targets: torch.Tensor,  # (N, D) int64
+    J2: torch.Tensor,  # (N, D) float32, pre-doubled
+    u: torch.Tensor,  # (B, N) uniforms
+    beta: torch.Tensor,  # (B,)
+    space_degree: int,
+    exp_fn,
+) -> FlatState:
+    """One a2 sweep of every replica; returns a new state.
+
+    After spin t's flip test, ``-S_mul * J2[t]`` is added at its targets:
+    the space slots into ``h_space``, the two tau slots into ``h_tau``.  A
+    spin's targets are distinct except its padding slots, which name the
+    spin itself and add a zero, so the adds' order cannot change a bit.
+    """
+    spins, hs, ht = (x.clone() for x in state)
+    sd = space_degree
+    for t in range(spins.shape[1]):
+        smul, s_new = _flip(spins[:, t], hs[:, t] + ht[:, t], u[:, t], beta, exp_fn)
+        contrib = -smul[:, None] * J2[t]  # == -= 2*S_mul*J with J pre-doubled
+        hs.index_add_(1, targets[t, :sd], contrib[:, :sd])
+        ht.index_add_(1, targets[t, sd:], contrib[:, sd:])
+        spins[:, t] = s_new
+    return FlatState(spins, hs, ht)
+
+
+# -----------------------------------------------------------------------------
+# a3 / a4 — the lane-interlaced sweep (Figure 12b, §3.1).
+# -----------------------------------------------------------------------------
+
+
 def sweep_lane(
     state: LaneState,  # batched (B, rows, V)
     base_nbr,  # (n, SD) in-layer neighbour site ids
@@ -111,9 +233,12 @@ def sweep_lane(
     beta: torch.Tensor,  # (B,)
     n: int,
     exp_fn,
+    scalar_updates: bool = False,
 ) -> LaneState:
     """One a4 sweep of every replica; returns a new state (the input's
-    tensors are not modified).
+    tensors are not modified).  ``scalar_updates=True`` is the paper's a3
+    rung: the same sweep with every neighbour-row update done one lane at
+    a time (lanes of a row are distinct elements, so a3 == a4 bit for bit).
 
     Row ``q`` (site ``i = q % n`` of layer block ``q // n``) flips where
     ``u < exp(-2 beta s h_eff)``; then, in this order, ``h_space`` of
@@ -134,23 +259,32 @@ def sweep_lane(
     j2_col = [[j2[:, i, d, None] for d in range(len(nbr[i]))] for i in range(n)]
     t2_col = [t2[:, i, None] for i in range(n)]
     col = beta.reshape(-1, 1)
+    lanes = range(spins.shape[2])
+
+    def add_row(arr, row, c):  # arr[:, row] += c, (B, V)
+        if scalar_updates:
+            for v in lanes:
+                arr[:, row, v] += c[:, v]
+        else:
+            arr[:, row] += c
+
     for q in range(rows):
         i = q % n
         base = q - i
         smul, s_new = _flip(spins[:, q], hs[:, q] + ht[:, q], u[:, q], col, exp_fn)
         spins[:, q] = s_new
         for d, t in enumerate(nbr[i]):
-            hs[:, base + t] += -smul * j2_col[i][d]
+            add_row(hs, base + t, -smul * j2_col[i][d])
         tc = -smul * t2_col[i]
         if q < n:  # first layer block: the down link wraps
-            ht[:, rows - n + i] += torch.roll(tc, -1, dims=-1)
-            ht[:, q + n] += tc
+            add_row(ht, rows - n + i, torch.roll(tc, -1, dims=-1))
+            add_row(ht, q + n, tc)
         elif q >= rows - n:  # last layer block: the up link wraps
-            ht[:, q - n] += tc
-            ht[:, i] += torch.roll(tc, 1, dims=-1)
+            add_row(ht, q - n, tc)
+            add_row(ht, i, torch.roll(tc, 1, dims=-1))
         else:
-            ht[:, q - n] += tc
-            ht[:, q + n] += tc
+            add_row(ht, q - n, tc)
+            add_row(ht, q + n, tc)
     return LaneState(spins, hs, ht)
 
 

@@ -205,3 +205,21 @@ def colored_classes(m: ising.LayeredModel, V: int) -> Tuple[ColorClass, ...]:
             )
         )
     return tuple(classes)
+
+
+def relabeled_flat_arrays(m: ising.LayeredModel, V: int):
+    """Flat (targets, J2) arrays for the model with spins RELABELED to lane
+    order (new id = row * V + lane).
+
+    Running the sequential sweep (a2) over this relabeled model in natural
+    id order visits spins in exactly the order the vectorized sweep (a4)
+    processes them — the bit-exact equivalence oracle for a4 and its
+    kernels (possible because lanes within a row are mutually non-adjacent).
+    """
+    targets, J2 = ising.flat_arrays(m)
+    perm = flat_to_lane_perm(m.n, m.L, V)  # new -> old
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)  # old -> new
+    new_targets = inv[targets[perm]].astype(np.int32)
+    new_J2 = J2[perm]
+    return new_targets, new_J2

@@ -33,6 +33,7 @@ MAX_SMEM = 232_448
 #: `mt_uniforms` launch counts under "mt_next_block": it is that kernel.
 launches = {
     "colored_multisweep": 0,
+    "fastexp_2d": 0,
     "colored_multisweep_multi": 0,
     "metropolis_multisweep": 0,
     "metropolis_multisweep_multi": 0,
@@ -84,6 +85,18 @@ def _need_cuda(name: str, dev: torch.device) -> None:
         raise ValueError(f"{name} runs on cuda (or cpu) tensors, got {dev}")
 
 
+def check_sweep_flavour(name: str, exp_flavor: str, dev: torch.device) -> None:
+    """Raise for an unknown exp flavour, and for any flavour but "fast"
+    off the CPU: the sweep kernels compute the "fast" exp only, the plain
+    versions every flavour."""
+    fx.exp_fn(exp_flavor)
+    if dev.type != "cpu" and exp_flavor != "fast":
+        raise ValueError(
+            f"{name}: the kernel computes the 'fast' exp only; exp_flavor={exp_flavor!r} "
+            "runs on the plain version (CPU tensors, or the engine's backend='torch')"
+        )
+
+
 _VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: ctypes signatures of the C entries (pointers, ints, float bit patterns,
 #: stream), in the order of their definitions in csrc/.
@@ -92,6 +105,7 @@ _COLORED_MULTI_ARGS = [_VP] * 19 + [_INT] * 6 + [_U32, _U32, _VP]
 _MULTISWEEP_ARGS = [_VP] * 13 + [_INT] * 6 + [_U32, _U32, _VP]
 _SWEEP_ARGS = [_VP] * 11 + [_INT] * 5 + [_U32, _U32, _VP]
 _MT_ARGS = [_VP] * 3 + [_INT] * 2 + [_VP]
+_FASTEXP_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT] + [_U32] * 5 + [_VP]
 
 
 def _same_device(dev: torch.device, **tensors) -> None:
@@ -201,7 +215,7 @@ def make_colored_multisweep(
     csrc/colored_multisweep.cu (one CTA per replica); on CPU tensors it
     runs `ref.colored_multisweep_ref`.
     """
-    fx.exp_fn(exp_flavor)  # raises for unported flavours
+    fx.exp_fn(exp_flavor)  # raises for unknown flavours
     classes = tuple(classes)
     host = {
         "h": np.asarray(h, np.float32),
@@ -238,6 +252,7 @@ def make_colored_multisweep(
                 spins, rng, beta, t["classes"], **t["plain"], n=n,
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
+        check_sweep_flavour("colored_multisweep", exp_flavor, dev)
         B, rows, *out, scratch = _colored_io(
             "colored_multisweep", spins, rng, beta, n, len(packed["row"]), num_sweeps
         )
@@ -277,7 +292,7 @@ def make_colored_multisweep_multi(
     (one CTA per slot); on CPU tensors it runs
     `ref.colored_multisweep_multi_ref`.
     """
-    fx.exp_fn(exp_flavor)  # raises for unported flavours
+    fx.exp_fn(exp_flavor)  # raises for unknown flavours
     classes = tuple(classes)
     base_nbr = np.asarray(base_nbr, np.int32)
     sd = base_nbr.shape[1]
@@ -297,6 +312,7 @@ def make_colored_multisweep_multi(
                 spins, rng, beta, t["classes"], h_b, t["base_nbr"], base_J_b, tau_J_b, n=n,
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
+        check_sweep_flavour("colored_multisweep_multi", exp_flavor, dev)
         B, rows, *out, scratch = _colored_io(
             "colored_multisweep_multi", spins, rng, beta, n, len(packed["row"]), num_sweeps
         )
@@ -391,9 +407,9 @@ def metropolis_multisweep(
     fields are carried and updated incrementally.  Returns ``(spins,
     h_space, h_tau, rng)``; the inputs are not modified.  On CPU tensors
     this runs `ref.metropolis_multisweep_ref`."""
-    fx.exp_fn(exp_flavor)  # raises for unported flavours
     num_sweeps = _sweeps(num_sweeps)
     dev = spins.device
+    check_sweep_flavour("metropolis_multisweep", exp_flavor, dev)
     if dev.type == "cpu":
         return ref.metropolis_multisweep_ref(
             spins, h_space, h_tau, rng, base_nbr, base_J2, tau_J2, beta, n, num_sweeps,
@@ -435,9 +451,9 @@ def metropolis_multisweep_multi(
     one CTA per slot).  Returns ``(spins, h_space, h_tau, rng)``; the
     inputs are not modified.  On CPU tensors this runs
     `ref.metropolis_multisweep_multi_ref`."""
-    fx.exp_fn(exp_flavor)  # raises for unported flavours
     num_sweeps = _sweeps(num_sweeps)
     dev = spins.device
+    check_sweep_flavour("metropolis_multisweep_multi", exp_flavor, dev)
     if dev.type == "cpu":
         return ref.metropolis_multisweep_multi_ref(
             spins, h_space, h_tau, rng, base_nbr, base_J2_b, tau_J2_b, beta, n, num_sweeps,
@@ -478,8 +494,8 @@ def metropolis_sweep(
     (csrc/metropolis_sweep.cu, one launch per sweep).  Returns ``(spins,
     h_space, h_tau)``; the inputs are not modified.  On CPU tensors this
     runs `ref.metropolis_sweep_ref`."""
-    fx.exp_fn(exp_flavor)
     dev = spins.device
+    check_sweep_flavour("metropolis_sweep", exp_flavor, dev)
     if dev.type == "cpu":
         return ref.metropolis_sweep_ref(
             spins, h_space, h_tau, u, base_nbr, base_J2, tau_J2, beta, n, exp_flavor
@@ -564,3 +580,45 @@ def mt_uniforms_count(state: torch.Tensor, count: int):
     discarded (the per-sweep draw of `core.mt19937.mt_uniforms_count`)."""
     state, u = mt_uniform_blocks(state, -(-int(count) // mt.N))
     return state, u[:count]
+
+
+# -----------------------------------------------------------------------------
+# The paper's bit-trick exp (csrc/fastexp_2d.cu).
+# -----------------------------------------------------------------------------
+
+#: Input dtypes of `fastexp` and their codes in csrc/fastexp_2d.cu.
+_FASTEXP_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+#: The kernel's float constants as bit patterns, in its argument order.
+_FASTEXP_CONSTS = tuple(fx.f32_bits(c) for c in (
+    fx.SCALE_F32, fx.CENTRE_F32, fx.SCALE4_F32, fx.ACCURATE_LO_F32, fx.ACCURATE_CLIP_HI_F32))
+
+
+def fastexp(x: torch.Tensor, flavor: str = "fast") -> torch.Tensor:
+    """The bit-trick exp of every element of ``x`` (any shape; float32,
+    float16 or bfloat16), as float32 of the same shape.  ``flavor`` is
+    "fast" or "accurate".  On a CUDA tensor this is one launch of
+    csrc/fastexp_2d.cu; on a CPU tensor it runs `ref.fastexp_ref`.
+
+    Any other flavour raises ValueError.  The reference's kernel runs its
+    "accurate" body for every flavour but "fast", "exact" included; the
+    exact exp has no bit trick to run, so here it is refused.
+    """
+    ref.check_fastexp_flavor(flavor)
+    if x.dtype not in _FASTEXP_DTYPES:
+        raise ValueError(f"fastexp takes {tuple(_FASTEXP_DTYPES)} input, got {x.dtype}")
+    dev = x.device
+    if dev.type == "cpu":
+        return ref.fastexp_ref(x, flavor)
+    _need_cuda("fastexp_2d", dev)
+    x = x.contiguous()
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    if x.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _kernel("fastexp_2d", _FASTEXP_ARGS)(
+            _ptr(x), _ptr(out), x.numel(), _FASTEXP_DTYPES[x.dtype], int(flavor == "accurate"),
+            *_FASTEXP_CONSTS, _stream(dev),
+        )
+    _raise_if_failed("fastexp_2d", err)
+    launches["fastexp_2d"] += 1
+    return out

@@ -13,6 +13,23 @@ from repro_torch.core import metropolis as mp
 from repro_torch.core import mt19937 as mt
 
 
+#: The flavours of the bit-trick exp (`fastexp_ref` and its kernel): every
+#: exp but the exact one, which has no bit trick.
+FASTEXP_FLAVORS = tuple(f for f in fx.EXP_FNS if f != "exact")
+
+
+def check_fastexp_flavor(flavor: str) -> None:
+    if flavor not in FASTEXP_FLAVORS:
+        raise ValueError(f"fastexp computes the flavours {FASTEXP_FLAVORS}, got {flavor!r}")
+
+
+def fastexp_ref(x, flavor: str = "fast"):
+    """The bit-trick exp ("fast" or "accurate") of every element of ``x``,
+    as float32 of the same shape."""
+    check_fastexp_flavor(flavor)
+    return fx.EXP_FNS[flavor](x)
+
+
 def mt_next_block_ref(state):
     """One twist of the (624, V) interlaced state; returns ``(new_state,
     tempered words)``, both int32 storage of uint32 bits."""

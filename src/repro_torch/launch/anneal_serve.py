@@ -4,12 +4,16 @@ Packs annealing jobs (seed + beta schedule + sweep budget) into the
 replica batch of ONE resident `SweepEngine`, advancing everyone by fused
 chunks — one launch of a multisweep CUDA kernel per chunk: the colored
 kernel for ``--rung cb`` (the default), the paper's sequential a4 kernel
-for ``--rung a4`` — and retiring/admitting between chunks.
+for ``--rung a4`` — and retiring/admitting between chunks.  The paper's
+slower rungs ``--rung a1|a2|a3`` have no kernel: they serve only with the
+plain version, which must be asked for with ``--backend torch``.
 
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve            # on the card
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve --rung a4  # a4, on the card
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
       --device cpu --jobs 8 --slots 4 --chunk 4 --n 8 --L 16 --V 4 [--rung a4]
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
+      --rung a2 --backend torch --device cpu --jobs 4 --slots 2 --n 8 --L 16
 
 ``--device cpu`` serves with the plain PyTorch version (``--backend``
 defaults to ``cuda`` on a CUDA device and to ``torch`` elsewhere).
@@ -101,8 +105,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cuda = the hand-written kernel, torch = the plain "
                          "version; default cuda on a CUDA device, else torch")
     ap.add_argument("--rung", default="cb",
-                    help="sweep rung: cb (graph-colored, the default) or a4 (the "
-                         "paper's sequential order); a1-a3 are not ported")
+                    help="sweep rung: cb (graph-colored, the default), a4 (the "
+                         "paper's sequential order) or the paper's slower rungs "
+                         "a1-a3 (plain version only: they need --backend torch)")
     ap.add_argument("--policy", default="fair", choices=["fifo", "backfill", "fair"])
     ap.add_argument("--V", type=int, default=128)
     ap.add_argument("--n", type=int, default=8)
@@ -126,6 +131,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     for attr, flag in _UNPORTED_FLAGS.items():
         if getattr(args, attr):
             raise ValueError(f"{flag} is not ported to repro_torch yet")
+    if args.rung in ("a1", "a2", "a3") and args.backend != "torch":
+        raise ValueError(
+            f"--rung {args.rung} has no kernel: it serves with the plain version only; "
+            "pass --backend torch"
+        )
     if args.backend is None:
         args.backend = "cuda" if args.device.startswith("cuda") else "torch"
     return args

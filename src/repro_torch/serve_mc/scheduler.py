@@ -49,11 +49,14 @@ at admission, so one launch sweeps each slot with its own model
 (``backend="cuda"``: the multi-tenant kernels).  A model-less job resets
 its slot to the server's model, so a retired tenant's tables never leak.
 
-The port serves on one device, on the rungs "a4" and "cb".  Not ported
-yet, each raising ValueError naming itself: rungs a1-a3, exp flavours
-other than "fast", ``replica_tile``, ``mesh``/``capacities``,
-``stream``, `arm_profiler`, snapshots (``snapshot_manager``,
-``snapshot_every_sweeps``, ``preemption``, `snapshot`, `restore`).
+The port serves on one device, on every rung: "a4" and "cb" on both
+backends, the paper's slower rungs a1-a3 (one model) on
+``backend="torch"`` only, where any exp flavour ("fast", "accurate",
+"exact") is accepted; ``backend="cuda"`` runs the "fast" exp.  Not ported
+yet, each raising ValueError naming itself: ``replica_tile``,
+``mesh``/``capacities``, ``stream``, `arm_profiler`, snapshots
+(``snapshot_manager``, ``snapshot_every_sweeps``, ``preemption``,
+`snapshot`, `restore`).
 """
 
 from __future__ import annotations

@@ -227,11 +227,11 @@ def _model():
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        (dict(rung="a3", backend="torch"), "a3"),
-        (dict(rung="a1", backend="torch"), "a1"),
+        (dict(rung="a2", backend="cuda", V=128, device="cuda"), "\\('a4', 'cb'\\)"),
+        (dict(rung="a1", backend="torch", exp_flavor="zz"), "unknown exp flavour 'zz'"),
         (dict(rung="zz", backend="torch"), "unknown rung"),
         (dict(backend="jnp"), "unknown backend"),
-        (dict(backend="torch", exp_flavor="accurate"), "accurate"),
+        (dict(backend="cuda", exp_flavor="accurate", V=128, device="cuda"), "'accurate'"),
         (dict(backend="torch", replica_tile=1), "replica_tile"),
         (dict(backend="torch", mesh=object()), "mesh"),
         (dict(backend="torch", capacities=[1]), "mesh"),
@@ -243,6 +243,10 @@ def _model():
          "mesh", "capacities", "batch0", "cuda-on-cpu", "cuda-V4"],
 )
 def test_engine_rejects_unported_modes(kwargs, match):
+    """Modes the port does not run raise ValueError naming themselves: the
+    "cuda" backend refuses the rungs and exp flavours its kernels do not
+    compute (ids "a3", "exp"), an unknown flavour is refused on any rung
+    (id "a1")."""
     kw = dict(V=4, device="cpu")
     kw.update(kwargs)
     with pytest.raises(ValueError, match=match):

@@ -173,3 +173,60 @@ def test_multi_tenant_server_on_card_matches_plain(rung):
     for jid, r in out[0].items():
         np.testing.assert_array_equal(r.spins, out[1][jid].spins)
         assert r.energy == out[1][jid].energy
+
+
+_EXP_INPUTS = {
+    "random": lambda: np.random.default_rng(0).uniform(-200, 200, 2**20).astype(np.float32),
+    "grid": lambda: np.linspace(-180, -80, 200_001).astype(np.float32),
+    "special": lambda: np.array(
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40, 1e-45, 1.1e-38, 1e10, -1e10, 88.7,
+         89.5, -87.5, -21.834, 22.18], np.float32),
+}
+
+
+def _one_nan(t):
+    return torch.where(t.isnan(), torch.full_like(t, float("nan")), t)
+
+
+@pytest.mark.parametrize("flavor", ["fast", "accurate"])
+@pytest.mark.parametrize("inputs", list(_EXP_INPUTS))
+def test_fastexp_kernel_bit_equals_plain(flavor, inputs):
+    """Kernel #7 against its plain version on the card and on the CPU."""
+    _need_card()
+    x = torch.from_numpy(_EXP_INPUTS[inputs]())
+    xd = x.cuda()
+    before = ops.launches["fastexp_2d"]
+    got = ops.fastexp(xd, flavor)
+    torch.cuda.synchronize()
+    assert ops.launches["fastexp_2d"] == before + 1
+    want = ref.fastexp_ref(xd, flavor)
+    cpu = ref.fastexp_ref(x, flavor)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # The card's float multiply makes NaNs without payload, the CPU's keeps
+    # the input's (IEEE 754 allows both): every other bit must agree.
+    assert torch.equal(_one_nan(want.cpu()).view(torch.int32), _one_nan(cpu).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(7,), (1000,), (3, 5, 11), (1, 4099)])
+def test_fastexp_kernel_shapes_and_dtypes(shape, dtype):
+    _need_card()
+    x = (torch.rand(shape, generator=torch.Generator().manual_seed(1)) * 60 - 30).to(dtype)
+    for flavor in ("fast", "accurate"):
+        got = ops.fastexp(x.cuda(), flavor)
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert torch.equal(got.view(torch.int32), ref.fastexp_ref(x.cuda(), flavor).view(torch.int32))
+        assert torch.equal(_one_nan(got.cpu()).view(torch.int32),
+                           _one_nan(ref.fastexp_ref(x, flavor)).view(torch.int32))
+    # A view that starts off a 16-byte boundary takes the element-wise path.
+    xd = x.cuda().reshape(-1)[1:]
+    assert torch.equal(ops.fastexp(xd).view(torch.int32), ref.fastexp_ref(xd).view(torch.int32))
+
+
+def test_sweep_kernels_refuse_other_flavours_on_the_card():
+    _need_card()
+    dev = torch.device("cuda")
+    c, tabs = _a4_case(6, 256, 1, dev)
+    with pytest.raises(ValueError, match="'accurate'"):
+        ops.metropolis_multisweep(c.spins, c.h_space, c.h_tau, c.rng, **tabs, beta=c.betas, n=6,
+                                  num_sweeps=1, exp_flavor="accurate")

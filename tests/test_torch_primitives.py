@@ -115,6 +115,10 @@ def test_torch_int_conversion_differs_where_the_port_must_not():
 
 
 def test_unported_exp_flavour_raises():
-    with pytest.raises(ValueError, match="accurate"):
-        tfx.exp_fn("accurate")
+    """Every flavour of the reference is ported; an unknown one raises,
+    naming itself."""
+    with pytest.raises(ValueError, match="zz"):
+        tfx.exp_fn("zz")
+    assert tfx.exp_fn("accurate") is tfx.fastexp_accurate
+    assert tfx.exp_fn("exact") is tfx.exp_reference
     assert tfx.exp_fn("fast") is tfx.fastexp_fast
