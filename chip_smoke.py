@@ -24,21 +24,24 @@ its final ok line; no phase catches an exception):
      together, sm_90a) and print ptxas's register / shared-memory lines;
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs, bit-equal (torch.equal on every output, the generator
-     state included): the cb multisweep at the main path's shape (n=96,
-     L=256, B=8, 8 sweeps), at a two-generator-block shape (n=320, L=256)
-     and at 0 sweeps; the a4 multisweep at the main shape, at three layer
-     blocks (n=6, L=384), at the two-block shape and at 0 sweeps; the a4
-     sweep at the main shape on the plain generator's uniforms; the MT19937
-     block in both flavours on (624, 128) and (624, 1024); the multi-tenant
-     cb and a4 multisweeps on 8 distinct tenants at the main shape, at the
-     two-generator-block shape and at 0 sweeps, and on 8 copies of one
-     model against the single-model kernel.  Each plain multisweep on the
-     card is also held against the plain version on the CPU at the main
-     shape.  The exp kernel, both flavours, against its plain version on
-     the card and the plain version on the card against the CPU's, bit for
-     bit: 2^20 uniforms in [-200, 200], the grid [-180, -80] (where the
-     flush of subnormal results decides), +-0, +-inf, NaN, subnormals,
-     +-1e10, shapes (7,), (1000,), (3, 5, 11), float16 and bfloat16 input;
+     state included): the cb multisweeps, single-model and on B distinct
+     tenants, at every shape of `CB_CHECKS` (n=96 L=256 at B = 1, 8 and
+     115; n=6 L=384, whose classes have fewer rows than the CTA has warps;
+     n=320 L=256, two generator blocks a sweep with the uniforms in device
+     memory; 0 sweeps) and at 4 and 8 warp groups a CTA; the a4
+     multisweep at the main shape, at three layer blocks (n=6, L=384), at
+     the two-block shape and at 0 sweeps; the a4 sweep at the main shape
+     on the plain generator's uniforms; the MT19937 block in both flavours
+     on (624, 128) and (624, 1024); the multi-tenant a4 multisweep on 8
+     distinct tenants at the main shape, at the two-generator-block shape
+     and at 0 sweeps; both multi-tenant kernels on 8 copies of one model
+     against the single-model kernel.  Each plain multisweep on the card
+     is also held against the plain version on the CPU at the main shape.
+     The exp kernel, both flavours, against its plain version on the card
+     and the plain version on the card against the CPU's, bit for bit:
+     2^20 uniforms in [-200, 200], the grid [-180, -80] (where the flush
+     of subnormal results decides), +-0, +-inf, NaN, subnormals, +-1e10,
+     shapes (7,), (1000,), (3, 5, 11), float16 and bfloat16 input;
   4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
      (constants and ramps, 64-256 sweeps) at the paper's per-model width
      (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
@@ -60,8 +63,10 @@ its final ok line; no phase catches an exception):
      sweep launch) at the main shape, counts zeroed just before and read
      just after; it must end in the fused kernel's carry, bit for bit;
   7. timings from CUDA events: each kernel and its plain version at B=8
-     and B=115 (the multi-tenant kernels on B distinct tenants), the least
-     time the card could take (bytes or operations), the launch-structure
+     and B=115 (the multi-tenant kernels on B distinct tenants; the cb
+     kernels also at 4 warp groups), the least time the card could take
+     (bytes or operations), the cb launch's split into fixed cost, class
+     walk and generator at each warp-group count, the launch-structure
      comparison (fused vs per-sweep, B = 1, 8, 115) and the sweep-order
      comparison (a4 vs cb, B=8); the serving phases' sweeps/s and
      spin-flips/s;
@@ -85,6 +90,7 @@ line ``{"kernels": [...]}`` and the final ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -145,6 +151,18 @@ SWEEP_KERNELS = tuple(k for k in KERNELS if k != "fastexp_2d")
 #: Rung -> the kernel of its serving path, single-model and multi-tenant.
 SERVE_KERNEL = {"cb": "colored_multisweep", "a4": "metropolis_multisweep"}
 MULTI_KERNEL = {"cb": "colored_multisweep_multi", "a4": "metropolis_multisweep_multi"}
+#: Shapes #1 and #2 are held bit-equal at: (what, n, L, B, sweeps).
+CB_CHECKS = (
+    ("the serving shape", MAIN_N, MAIN_L, MAIN_SLOTS, 8),
+    ("one replica", MAIN_N, MAIN_L, 1, 8),
+    ("the paper's 115 models", MAIN_N, MAIN_L, 115, 2),
+    ("3 layer blocks, classes of 4-5 rows, fewer than the warps", 6, 384, 3, 5),
+    ("2 generator blocks a sweep, uniforms in device memory", 320, 256, 4, 3),
+    ("0 sweeps", MAIN_N, MAIN_L, MAIN_SLOTS, 0),
+)
+#: Warp groups of 128 threads a colored CTA is checked and timed at; the
+#: last is `ops.COLORED_WARP_GROUPS`, the wrappers' default.
+CB_WARP_GROUPS = (4, 8)
 #: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
 #: each kernel reads (cb: h, J row, tau; a4: doubled J row and tau).
 TENANTS, MULTI_JOBS = 8, 16
@@ -226,6 +244,28 @@ def with_tables(counts: tuple[int, int, int], B: int, n: int, floats_per_site: i
     return nbytes + 4 * B * n * floats_per_site, int_ops, fp_ops
 
 
+#: The a4 row step's dependent path (csrc/a4_sweep.cuh: a4_sweep), in
+#: cycles: a row reads its own field cell, which the previous rows' flips
+#: updated (a shared-memory load, ~23 cycles), then 12 dependent
+#: single-cycle-issue operations of ~4 cycles each (the field sum, the two
+#: products of x, the exp's scale, conversion, bias add and centre product,
+#: the flush compare, the accept compare, the mask, -S_mul times J2 and the
+#: add into the neighbour's cell), then the store that the next row's load
+#: waits for (~23).  Approximate Hopper latencies, not a measurement.
+A4_ROW_CHAIN_CYCLES = 23 + 12 * 4 + 23
+#: The SM clock the peak rates above assume (H100 SXM boost).
+SM_CLOCK_HZ = 1.98e9
+
+
+def a4_chain_ms(rows: int, sweeps: int) -> float:
+    """Least time of an a4 launch from its dependence chain alone: a
+    replica's rows x sweeps row steps run one after another (each reads
+    what the previous flips wrote), whatever B, since replicas run side by
+    side.  A floor beside the operations bound, which assumes every
+    operation independent."""
+    return rows * sweeps * A4_ROW_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+
+
 def ops_seconds(int_ops: int, fp_ops: int) -> float:
     """Least time for the operations: int32 ops on their own lanes, and all
     of them on the float32 pipe that those lanes are part of."""
@@ -256,6 +296,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` on the card alone: the card spins ~5 ms
+    before the first event, so the host has queued every call by then, and
+    a call shorter than its wrapper's host time is not timed at the host's
+    rate (`cuda_ms`, back to back, would be)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -424,6 +482,54 @@ def assert_same(got, want, what: str, names=("spins", "h_space", "h_tau", "rng")
                 f"first {bad[0].tolist()}: {a[tuple(bad[0])].item()} vs {b[tuple(bad[0])].item()}"
             )
     return err
+
+
+@contextlib.contextmanager
+def warp_groups(W: int):
+    """Launch the colored kernels (#1, #2) with ``W`` warp groups a CTA."""
+    from repro_torch.kernels import ops
+
+    before, ops.COLORED_WARP_GROUPS = ops.COLORED_WARP_GROUPS, W
+    try:
+        yield
+    finally:
+        ops.COLORED_WARP_GROUPS = before
+
+
+def check_colored(dev) -> tuple[float, float]:
+    """#1 and #2 against their plain versions on the card, bit for bit, at
+    every shape of `CB_CHECKS` and every warp-group count of
+    `CB_WARP_GROUPS` (#2 on B distinct tenants); #2 on copies of one model
+    against #1; the plain versions on the card against the CPU's at the
+    main shape.  Returns the max |kernel - plain| of #1 and of #2."""
+    err1 = err2 = 0.0
+    for W in CB_WARP_GROUPS:
+        with warp_groups(W):
+            for what, n, L, B, S in CB_CHECKS:
+                _, rows, kernel, plain, inputs = colored_case(n, L, B, dev, seed=n + B)
+                err1 = max(err1, assert_same(kernel(*inputs, S), plain(*inputs, S),
+                                             f"cb {what} W={W}"))
+                mc = multi_case("cb", n, L, B, dev, seed=n + B)
+                err2 = max(err2, assert_same(mc.kernel(mc.inputs, S), mc.plain(mc.inputs, S),
+                                             f"cb multi {what} W={W}"))
+                print(f"[check cb] W={W} n={n} L={L} B={B} rows={rows} {S} sweeps ({what}): "
+                      f"colored_multisweep == plain, colored_multisweep_multi on {B} tenants == "
+                      f"plain (bit-equal)")
+            copies = multi_case("cb", MAIN_N, MAIN_L, MAIN_SLOTS, dev, seed=7, copies=True)
+            assert_same(copies.kernel(copies.inputs, 8), copies.single(copies.inputs, 8),
+                        f"cb multi on copies vs single-model kernel, W={W}")
+            print(f"[check cb multi] W={W}: {MAIN_SLOTS} copies of one model: "
+                  f"colored_multisweep_multi == colored_multisweep (bit-equal)")
+    _, _, _, plain, inputs = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
+    _, _, _, plain_cpu, _ = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
+    assert_same([t.cpu() for t in plain(*inputs, 8)], plain_cpu(*(t.cpu() for t in inputs), 8),
+                "cb plain cuda vs cpu")
+    mc = multi_case("cb", MAIN_N, MAIN_L, MAIN_SLOTS, dev)
+    mc_cpu = multi_case("cb", MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
+    assert_same([t.cpu() for t in mc.plain(mc.inputs, 8)], mc_cpu.plain(mc_cpu.inputs, 8),
+                "cb multi plain cuda vs cpu")
+    print("[check cb] main shape: both plain versions on card == on CPU (bit-equal)")
+    return err1, err2
 
 
 def serve_checked(rung: str) -> tuple:
@@ -779,10 +885,14 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing to test", file=sys.stderr)
         return 2
+    from repro_torch.core import ising, reorder
     from repro_torch.kernels import _build, ops, ref
 
     t_start = time.perf_counter()
     dev = torch.device("cuda:0")
+    if ops.COLORED_WARP_GROUPS != CB_WARP_GROUPS[-1]:
+        raise AssertionError(f"CB_WARP_GROUPS {CB_WARP_GROUPS} must end in the wrappers' "
+                             f"default, {ops.COLORED_WARP_GROUPS}")
     # -- 1. environment ----------------------------------------------------
     smi = nvidia_smi_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -797,23 +907,17 @@ def main(argv: list[str]) -> int:
           f"(one nvcc each, in parallel)")
     for name in KERNELS:
         print(f"[ptxas {name}]\n{_build.ptxas_report(name)}")
+    for what, n in (("the serving shape", MAIN_N), ("two generator blocks a sweep", 320)):
+        m = ising.random_layered_model(n=n, L=MAIN_L, seed=0, beta=1.1)
+        rows, C = n * MAIN_L // LANES, len(reorder.colored_classes(m, LANES))
+        nbytes, u_smem = ops.colored_smem_plan(rows, m.space_degree, C)
+        print(f"[smem colored] {what}: rows={rows} sd={m.space_degree} C={C}: {nbytes:,} B of "
+              f"dynamic shared memory a CTA, uniforms in "
+              f"{'shared memory' if u_smem else 'device-memory scratch'}")
 
     # -- 3. kernel vs plain, on the card -----------------------------------
     err = dict.fromkeys(KERNELS, 0.0)
-    _, rows, kernel, plain, inputs = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
-    err["colored_multisweep"] = assert_same(kernel(*inputs, 8), plain(*inputs, 8), "cb main shape")
-    cpu_in = tuple(t.cpu() for t in inputs)
-    _, _, _, plain_cpu, _ = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
-    assert_same([t.cpu() for t in plain(*inputs, 8)], plain_cpu(*cpu_in, 8), "cb plain cuda vs cpu")
-    print(f"[check cb] n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} rows={rows} 8 sweeps: kernel == plain "
-          f"(bit-equal), plain on card == plain on CPU")
-    _, rows2, kernel2, plain2, inputs2 = colored_case(320, 256, 4, dev, seed=5)
-    err["colored_multisweep"] = max(
-        err["colored_multisweep"],
-        assert_same(kernel2(*inputs2, 3), plain2(*inputs2, 3), "cb two-block shape"))
-    assert_same(kernel2(*inputs2, 0), plain2(*inputs2, 0), "cb zero sweeps")
-    print(f"[check cb] n=320 L=256 B=4 rows={rows2} (2 generator blocks/sweep) 3 sweeps and "
-          f"0 sweeps: kernel == plain (bit-equal)")
+    err["colored_multisweep"], err["colored_multisweep_multi"] = check_colored(dev)
 
     main_case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
     for what, case, sweeps in (
@@ -843,7 +947,7 @@ def main(argv: list[str]) -> int:
             err["mt_next_block"] = max(err["mt_next_block"], assert_same(
                 kern(state), pl(state), f"MT block (624, {V}) {out}", names=("state", out)))
         print(f"[check mt] (624, {V}): tempered words and uniforms: kernel == plain (bit-equal)")
-    for rung in ("cb", "a4"):
+    for rung in ("a4",):
         name = MULTI_KERNEL[rung]
         main_multi = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, dev)
         for what, case, sweeps in (
@@ -891,6 +995,7 @@ def main(argv: list[str]) -> int:
     # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
     times = {name: {} for name in SWEEP_KERNELS}  # name -> B -> (ms, plain ms, bound)
+    cb_w_times = {}  # (W, B) -> (#1 ms, #2 ms) at the other warp-group counts
     for B in (MAIN_SLOTS, 115):
         mB, rowsB, kB, pB, inB = colored_case(MAIN_N, MAIN_L, B, dev, seed=B)
         times["colored_multisweep"][B] = (
@@ -919,27 +1024,52 @@ def main(argv: list[str]) -> int:
                 cuda_ms(lambda: mc.kernel(mc.inputs, 8), reps=20),
                 cuda_ms(lambda: mc.plain(mc.inputs, 8), reps=3 if rung == "cb" else 1, warmup=1),
                 bound(with_tables(counts, B, MAIN_N, sd_m + extra), B))
+            if rung == "cb":
+                mc_cb = mc
+        # #1 and #2 at the other warp-group counts (same inputs).
+        for W in CB_WARP_GROUPS[:-1]:
+            with warp_groups(W):
+                cb_w_times[W, B] = (cuda_ms(lambda: kB(*inB, 8), reps=20),
+                                    cuda_ms(lambda: mc_cb.kernel(mc_cb.inputs, 8), reps=20))
         for name in SWEEP_KERNELS:
             t_k, t_p, (b_ms, b_by, occ_ms) = times[name][B]
             occ = "" if occ_ms is None else f", one-CTA-per-replica bound {occ_ms:.5f} ms"
+            if name in ("metropolis_multisweep", "metropolis_multisweep_multi"):
+                occ += f", row-chain bound {a4_chain_ms(2 * MAIN_N, 8):.5f} ms"
             print(f"[time {name}] B={B} n={MAIN_N} L={MAIN_L}: kernel {t_k:.4f} ms/launch, "
                   f"plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}){occ}")
+        for W in CB_WARP_GROUPS[:-1]:
+            print(f"[time colored W={W}] B={B}: colored_multisweep "
+                  f"{cb_w_times[W, B][0]:.4f} ms, colored_multisweep_multi "
+                  f"{cb_w_times[W, B][1]:.4f} ms (W={CB_WARP_GROUPS[-1]}: "
+                  f"{times['colored_multisweep'][B][0]:.4f} / "
+                  f"{times['colored_multisweep_multi'][B][0]:.4f} ms)")
         print(f"[time mt_next_block] B={B}: (624, {B * LANES}) uniforms {times['mt_next_block'][B][0]:.4f}"
               f" ms, tempered words {t_words:.4f} ms (bound {bound(mt_counts(B * LANES, False))[0]:.5f} ms)")
-    # Where a colored launch's time goes, B=8: fixed cost (0 sweeps),
-    # per-sweep cost (1 vs 8 sweeps), and its split between the generator
-    # twist (independent of rows) and the class walk (linear in rows).
-    split = {}
-    for n_s in (48, MAIN_N, 192):
-        _, rowsS, kS, _, inS = colored_case(n_s, MAIN_L, MAIN_SLOTS, dev, seed=n_s)
-        for S in ((0, 1, 8) if n_s == MAIN_N else (8,)):
-            split[rowsS, S] = cuda_ms(lambda: kS(*inS, S), reps=10)
-    per_sweep = (split[2 * MAIN_N, 8] - split[2 * MAIN_N, 1]) / 7
-    per_row = (split[384, 8] - split[96, 8]) / (384 - 96) / 8
-    print(f"[split cb] B={MAIN_SLOTS} rows={2 * MAIN_N}: launch {split[2 * MAIN_N, 0]:.4f} ms at 0 "
-          f"sweeps, {per_sweep:.4f} ms per sweep = {per_row * 2 * MAIN_N:.4f} ms class walk "
-          f"({per_row * 1e3:.3f} us/row) + {per_sweep - per_row * 2 * MAIN_N:.4f} ms generator; "
-          f"8-sweep launch at rows 96/192/384: {split[96, 8]:.4f}/{split[192, 8]:.4f}/{split[384, 8]:.4f} ms")
+    # Where a colored launch's time goes, B=8, at each warp-group count,
+    # timed on the card alone (a 0-sweep launch is shorter than its
+    # wrapper's host time): fixed cost (0 sweeps), per-sweep cost (1 vs 8
+    # sweeps), and its split between the generator (the twist does not
+    # depend on rows) and the class walk with the tempering of the rows'
+    # uniforms (linear in rows; rows 96/192/288 all keep their uniforms in
+    # shared memory).
+    split_cases = {n_s: colored_case(n_s, MAIN_L, MAIN_SLOTS, dev, seed=n_s)
+                   for n_s in (48, MAIN_N, 144)}
+    for W in CB_WARP_GROUPS:
+        split = {}
+        with warp_groups(W):
+            for n_s, (_, rowsS, kS, _, inS) in split_cases.items():
+                for S in ((0, 1, 8) if n_s == MAIN_N else (8,)):
+                    split[rowsS, S] = cuda_ms_queued(lambda: kS(*inS, S), reps=20)
+        rows_m = 2 * MAIN_N
+        per_sweep = (split[rows_m, 8] - split[rows_m, 1]) / 7
+        per_row = (split[288, 8] - split[96, 8]) / (288 - 96) / 8
+        print(f"[split cb] W={W} B={MAIN_SLOTS} rows={rows_m} (card alone): launch "
+              f"{split[rows_m, 0]:.4f} ms at 0 sweeps (fixed cost), {split[rows_m, 1]:.4f} ms at 1, "
+              f"{per_sweep:.4f} ms per sweep = {per_row * rows_m:.4f} ms class walk and "
+              f"tempering ({per_row * 1e6:.1f} ns/row) + {per_sweep - per_row * rows_m:.4f} ms "
+              f"twist; 8-sweep launch at rows 96/192/288: {split[96, 8]:.4f}/"
+              f"{split[rows_m, 8]:.4f}/{split[288, 8]:.4f} ms")
     # The same split for the a4 kernel: 0/1/8 sweeps at rows=192, and the
     # row walk's cost per row from rows 96/192 (lpv=2, fields in shared
     # memory); rows=384 keeps the fields in device memory (rows > 200).

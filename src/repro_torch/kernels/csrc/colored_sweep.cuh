@@ -1,29 +1,63 @@
 // The fused colored ("cb") multisweep of one replica, shared by the
 // single-model kernel (colored_multisweep.cu) and the multi-tenant one
 // (colored_multisweep_multi.cu), as the reference's two colored bodies
-// share colored_flip_spins and lane_h_eff.
+// (src/repro/kernels/metropolis_kernel.py: _make_colored_body and
+// _make_colored_multi_body) share colored_flip_spins and lane_h_eff.
 //
-// One CTA per replica, 128 threads, thread v owns lane v: the spin lattice
-// column v of every lane row, and MT19937 generator column b*128+v of the
-// (624, B*128) interlaced state.  Spins live in shared memory as int8
-// (rows*128 bytes), so the C class updates and the final dense field pass
-// never touch device memory.  Per sweep the generator column is twisted in
-// device memory (mt19937.cuh); the last block of a sweep is tempered on the
-// fly, earlier blocks (rows > 624) go to the caller's scratch buffer.
+// One CTA per replica of 128 * W threads: W warp groups of 4 warps, each
+// warp 32 threads of 4 neighbouring lanes.  The CTA owns the replica's 128
+// lanes and MT19937 generator columns b*128 .. b*128+127 of the
+// (624, B*128) interlaced state.
 //
-// Class tables.  The structural tables (rows, neighbour targets, tau
-// sources, roll masks) are a function of the lattice only, so every slot
-// of a multi-tenant engine shares them.  The coefficients (h, J, tau) of
-// class entry k are read at index coef(k): the single-model kernel passes
-// tables gathered per entry on the host (coef(k) = k), the multi-tenant
-// kernel its slot's site tables (coef(k) = the entry's site, row % n: the
-// gather the reference's class_coupling_slices does).  The dense refresh
-// reads the site tables h (n), J (n, sd), tau (n) of the CTA's model.
+// What bounds it on Hopper.  A colored sweep is C = 2-5 dependent steps,
+// one per color class; the rows of a class are conflict-free (no row of a
+// class reads another row of it: reorder.py's coloring), so every row of
+// a class can be updated at once.  The first design (one warp group
+// walking a class row after row, tables read from device memory) was
+// latency bound: 0.74 us a row, 0.142 ms of each 0.160 ms sweep at B=8,
+// rows=192 on an NVIDIA H100 80GB HBM3 at 700 W.  This design takes
+// ~0.021 ms a sweep there (0.17-0.19 ms an 8-sweep launch, PERF.md):
+//  1. spreads a class over the CTA: its rows are dealt to the 4W warps,
+//     one barrier per class; a warp updates all 128 lanes of its row,
+//     4 neighbouring lanes a thread (one 32-bit word of int8 spins, one
+//     16-byte word of uniforms).  Each row's uniform is fixed by its row
+//     id, so the visiting order does not change a bit
+//     (tests/test_torch_colored_layout.py holds that);
+//  2. stages the class tables once a launch into shared memory, packed
+//     per entry: (row, down row, up row) as byte offsets into the spin
+//     tile with the roll mask, (h, tau), and sd (target offset, J) pairs;
+//     the coefficients are gathered per entry at coef(k) (the entry itself
+//     for the single-model kernel, the entry's site for the multi-tenant
+//     one), so a row's update reads no device memory and #2's walk is #1's;
+//  3. draws a sweep's uniforms before its walk: the twist tempers each
+//     new word straight into a (rows, 128) float buffer, in shared memory
+//     when it fits (rows <= ~300 at sd=6), else in the caller's scratch
+//     buffer in device memory; the walk never tempers;
+//  4. twists across all warps in MT19937's three dependence phases: rows
+//     [0, 227) read only old words, [227, 454) old words and new words
+//     0-226, [454, 624) old words, new words 227-396 and new word 0.  Each
+//     warp owns a contiguous run of a phase's rows, all 128 columns of
+//     them (4 a thread, 16-byte loads and stores).  In place, row i reads
+//     old row i+1, which the next run rewrites in the same phase: every
+//     run's first row past its end is loaded before a barrier that
+//     precedes every store, and inside its own run a warp reads a row
+//     before it rewrites it;
+//  5. spreads the fixed cost over all threads, several 16-byte loads in
+//     flight a thread: the spin tile load, the 0-sweep state copy, and the
+//     dense refresh (by entries, from the staged tables: an entry's
+//     targets, tau rows and coefficients are those of lane_h_eff's row).
+// Spins live in shared memory as int8 (rows * 128 bytes, 24 KiB at
+// rows=192); shared memory is cb_smem_bytes (ops.colored_smem_bytes
+// computes the same, and ops.colored_smem_plan refuses a layout that does
+// not fit).
 //
-// Numerics.  Every product multiplies by a spin (+-1), by a spin sum in
-// {-2, 0, 2}, or is the one rounding of ((-2 beta) s) * h_eff and of
-// x * 2^23 log2(e); the build passes --fmad=false so the compiled code is
-// the written expression.
+// Numerics.  A product by a spin (+-1) is exact, so it is computed as a
+// sign flip (times_spin); spins become floats by bit operations (spin_of),
+// since int->float conversions issue at a quarter of the integer rate.
+// The other products multiply by a spin sum in {-2, 0, 2} or are the one
+// rounding of ((-2 beta) s) * h_eff and of x * 2^23 log2(e); the build
+// passes --fmad=false so the compiled code is the written expression, in
+// the reference's order, for each lane.
 
 #pragma once
 
@@ -37,9 +71,14 @@
 namespace {
 
 constexpr int CB_LANES = 128;
+constexpr int CB_MAX_GROUPS = 8;  // warp groups a CTA (1024 threads)
+constexpr int MT_SPAN = MT_N - MT_M;  // 227: rows of a twist phase
+constexpr int CB_INFLIGHT = 8;  // 16-byte loads a thread keeps in flight in the fixed cost
+constexpr int CB_TWIST_AHEAD = 4;  // generator rows loaded before any is stored; < 227
 
 // Structural class tables: every class's entries concatenated in visit
-// order, class c owning entries off[c] .. off[c+1]-1.
+// order, class c owning entries off[c] .. off[c+1]-1; entry k updates row
+// row[k] (every row is one entry).
 struct ColorTables {
   const int* __restrict__ off;
   const int* __restrict__ row;
@@ -59,85 +98,343 @@ struct SiteCoef {  // coefficients of site tables, read through the entry's site
   __device__ int operator()(int k) const { return site[k]; }
 };
 
-// Replica blockIdx.x: num_sweeps colored sweeps, then the dense field
-// refresh.  ch/cJ/ctau are the class coefficients, read at coef(k);
-// h/nbr/J/tau the site tables of the dense refresh.  sp is the CTA's
-// (rows, 128) int8 shared-memory tile.
-template <class Coef>
-__device__ void colored_multisweep_cta(
-    int8_t* sp, const float* __restrict__ spins_in, const uint32_t* rng_in, float beta,
-    float* __restrict__ spins_out, float* __restrict__ h_space, float* __restrict__ h_tau,
-    uint32_t* rng_out, float* u_scratch, ColorTables cls, const Coef& coef,
-    const float* __restrict__ ch, const float* __restrict__ cJ, const float* __restrict__ ctau,
-    const float* __restrict__ h, const int* __restrict__ nbr, const float* __restrict__ J,
-    const float* __restrict__ tau, int rows, int n, int sd, int num_sweeps, float scale,
-    float centre) {
-  const int b = blockIdx.x;
-  const int v = threadIdx.x;
-  const int vm = (v + CB_LANES - 1) & (CB_LANES - 1);  // lane read by rolled "down"
-  const int vp = (v + 1) & (CB_LANES - 1);             // lane read by rolled "up"
-  const size_t ld = (size_t)gridDim.x * CB_LANES;
-  const size_t tile = (size_t)b * rows * CB_LANES;
+__host__ __device__ inline size_t cb_align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-  for (int r = 0; r < rows; ++r)
-    sp[r * CB_LANES + v] = spins_in[tile + r * CB_LANES + v] > 0.0f ? 1 : -1;
+// Staged tables: per entry an int4 (row, down, up offsets, roll), a float2
+// (h, tau) and sd int2 (target offset, J bits); then the C+1 offsets.
+__host__ __device__ inline size_t cb_table_bytes(int rows, int sd, int C) {
+  return cb_align16(4 * ((size_t)(C + 1) + (size_t)rows * (4 + sd) + (size_t)rows * (2 + sd)));
+}
 
-  const uint32_t* rsrc = rng_in + (size_t)b * CB_LANES + v;
-  uint32_t* rcol = rng_out + (size_t)b * CB_LANES + v;
-  float* ucol = u_scratch ? u_scratch + (size_t)b * CB_LANES + v : nullptr;  // blocks > 1 only
-  const int blocks = (rows + MT_N - 1) / MT_N;
-  const int last0 = (blocks - 1) * MT_N;  // first row drawn from the last block
-  const float m2b = -2.0f * beta;
+// The CTA's dynamic shared memory: int8 spins, staged tables and, when
+// u_in_smem, a sweep's (rows, 128) float32 uniforms.
+__host__ __device__ inline size_t cb_smem_bytes(int rows, int sd, int C, bool u_in_smem) {
+  return cb_align16((size_t)rows * CB_LANES) + cb_table_bytes(rows, sd, C) +
+         (u_in_smem ? (size_t)rows * CB_LANES * 4 : 0);
+}
 
-  if (num_sweeps == 0)
-    for (int i = 0; i < MT_N; ++i) rcol[i * ld] = rsrc[i * ld];
-  __syncthreads();
+// Whether a launch keeps its uniforms in shared memory (the host and the
+// kernel both decide it from the scratch pointer).
+__host__ __device__ inline bool cb_u_in_smem(const float* u_scratch, int num_sweeps) {
+  return u_scratch == nullptr && num_sweeps > 0;
+}
 
-  for (int sweep = 0; sweep < num_sweeps; ++sweep) {
-    for (int blk = 0; blk < blocks; ++blk) {
-      twist_column(sweep == 0 && blk == 0 ? rsrc : rcol, rcol, ld);
-      if (blk + 1 < blocks)
-        for (int i = 0; i < MT_N; ++i) ucol[(blk * MT_N + i) * ld] = uniform24(rcol[i * ld]);
+struct CbShared {
+  int8_t* sp;   // (rows, 128) spins as +-1
+  int4* ent;    // (row, down, up) byte offsets into sp, roll mask
+  float2* hta;  // (h, tau)
+  int2* tj;     // (entries, sd): (target byte offset, J bits)
+  int* off;     // C+1 class offsets
+  float* u;     // (rows, 128) uniforms, or nullptr (device-memory scratch)
+};
+
+__device__ CbShared cb_carve(unsigned char* base, int rows, int sd, int C, bool u_in_smem) {
+  CbShared s;
+  const size_t tile = cb_align16((size_t)rows * CB_LANES);
+  s.sp = reinterpret_cast<int8_t*>(base);
+  s.ent = reinterpret_cast<int4*>(base + tile);
+  s.hta = reinterpret_cast<float2*>(s.ent + rows);
+  s.tj = reinterpret_cast<int2*>(s.hta + rows);
+  s.off = reinterpret_cast<int*>(s.tj + (size_t)rows * sd);
+  s.u = u_in_smem ? reinterpret_cast<float*>(base + tile + cb_table_bytes(rows, sd, C)) : nullptr;
+  return s;
+}
+
+// Rows [lo, hi) of twist phase p (0, 1, 2) that warp w of `warps` owns.
+__device__ __forceinline__ void phase_run(int p, int w, int warps, int& lo, int& hi) {
+  const int a = p * MT_SPAN, len = (p == 2 ? MT_N : a + MT_SPAN) - a;
+  lo = a + len * w / warps;
+  hi = a + len * (w + 1) / warps;
+}
+
+__device__ __forceinline__ uint4 twist4(uint4 u, uint4 v, uint4 m) {
+  return make_uint4(twist_word(u.x, v.x, m.x), twist_word(u.y, v.y, m.y),
+                    twist_word(u.z, v.z, m.z), twist_word(u.w, v.w, m.w));
+}
+
+// Twist rows [lo, hi) of 4 neighbouring generator columns in order (16
+// bytes a row, row stride ld4 16-byte words), CB_TWIST_AHEAD rows of loads
+// ahead of the stores.  v_hi is old row hi (or new row 0 for hi == 624),
+// loaded by the caller.  Row i's m term is mbase[(i + mshift) * ld4]: an
+// old word (src, +397) in the first phase, a new word of an earlier phase
+// (dst, -227) in the others.  Loads past the run's end are clamped to its
+// last row and not used, so the loop reads no row that another run
+// rewrites.  The generator is issue bound: 16-byte words and 32-bit
+// offsets keep its address arithmetic small.
+template <class Emit>
+__device__ void twist_rows(const uint4* src, uint4* dst, const uint4* mbase, int mshift,
+                           unsigned ld4, int lo, int hi, uint4 v_hi, const Emit& emit) {
+  for (int i0 = lo; i0 < hi; i0 += CB_TWIST_AHEAD) {
+    uint4 x[CB_TWIST_AHEAD + 1], m[CB_TWIST_AHEAD];
+#pragma unroll
+    for (int k = 0; k <= CB_TWIST_AHEAD; ++k) {
+      const int i = min(i0 + k, hi - 1);
+      x[k] = src[(unsigned)i * ld4];
+      if (k < CB_TWIST_AHEAD) m[k] = mbase[(unsigned)(i + mshift) * ld4];
     }
-    for (int c = 0; c < cls.C; ++c) {
-      for (int k = cls.off[c]; k < cls.off[c + 1]; ++k) {
-        const int r = cls.row[k];
-        const int e = coef(k);
-        const float s = (float)sp[r * CB_LANES + v];
-        float hs = ch[e];
-        for (int d = 0; d < sd; ++d)
-          hs = hs + cJ[e * sd + d] * (float)sp[cls.tgt[k * sd + d] * CB_LANES + v];
-        const int roll = cls.roll[k];
-        const float down = (float)sp[cls.down[k] * CB_LANES + ((roll & 1) ? vm : v)];
-        const float up = (float)sp[cls.up[k] * CB_LANES + ((roll & 2) ? vp : v)];
-        const float ht = ctau[e] * (down + up);
-        const float p = fastexp_fast((m2b * s) * (hs + ht), scale, centre);
-        const float u = r < last0 ? ucol[r * ld] : uniform24(rcol[(r - last0) * ld]);
-        if (u < p) sp[r * CB_LANES + v] = (int8_t)(s > 0.0f ? -1 : 1);
+#pragma unroll
+    for (int k = 0; k < CB_TWIST_AHEAD; ++k) {
+      const int i = i0 + k;
+      if (i < hi) {
+        const uint4 w = twist4(x[k], i + 1 < hi ? x[k + 1] : v_hi, m[k]);
+        dst[(unsigned)i * ld4] = w;
+        emit(i, w);
       }
-      __syncthreads();  // the next class reads this one's rows, other lanes too
     }
-  }
-
-  // Dense field refresh of the final spins (metropolis.lane_h_eff).
-  const int lpv = rows / n;
-  for (int r = 0; r < rows; ++r) {
-    const int p = r / n, i = r - p * n;
-    float hs = h[i];
-    for (int d = 0; d < sd; ++d)
-      hs = hs + J[i * sd + d] * (float)sp[(p * n + nbr[i * sd + d]) * CB_LANES + v];
-    const float down = p == 0 ? (float)sp[((lpv - 1) * n + i) * CB_LANES + vm]
-                              : (float)sp[(r - n) * CB_LANES + v];
-    const float up = p == lpv - 1 ? (float)sp[i * CB_LANES + vp] : (float)sp[(r + n) * CB_LANES + v];
-    const size_t o = tile + r * CB_LANES + v;
-    spins_out[o] = (float)sp[r * CB_LANES + v];
-    h_space[o] = hs;
-    h_tau[o] = tau[i] * (down + up);
   }
 }
 
-// Opt a kernel in to more than 48 KiB of dynamic shared memory when the
-// tile needs it; returns the CUDA error (0 on success).
+// One block advance of the CTA's 128 generator columns by all its warps,
+// 4 columns a thread (src, dst: the thread's 16-byte column; dst == src is
+// in place).  Ends with a barrier, so every new word and every emitted
+// uniform is visible.
+template <class Emit>
+__device__ void twist_block(const uint4* src, uint4* dst, unsigned ld4, int warp, int warps,
+                            const Emit& emit) {
+  uint4 edge[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    int lo, hi;
+    phase_run(p, warp, warps, lo, hi);
+    edge[p] = hi < MT_N ? src[(unsigned)hi * ld4] : uint4{};  // old row hi, before it is rewritten
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    int lo, hi;
+    phase_run(p, warp, warps, lo, hi);
+    twist_rows(src, dst, p == 0 ? src : dst, p == 0 ? MT_M : -MT_SPAN, ld4, lo, hi,
+               hi < MT_N ? edge[p] : dst[0], emit);
+    __syncthreads();  // the next phase reads this one's new words
+  }
+}
+
+// uniform24 (mt19937.cuh) without its int->float conversion, which issues
+// at a quarter of the integer rate: the 24-bit k of the tempered word is
+// 2^23 + k (k < 2^23) or 2k (k >= 2^23) as the float 0x4b000000 + k, and
+// both scalings are exact.  Bit-equal to uniform24 for every word (all
+// 2^24 values of k, checked in tests/test_torch_colored_layout.py).
+__device__ __forceinline__ float uniform_of(uint32_t y) {
+  const uint32_t k = temper(y) >> 8;
+  const float f = __uint_as_float(k + 0x4b000000u);
+  return k < 0x800000u ? (f - 8388608.0f) * 0x1p-24f : f * 0x1p-25f;
+}
+
+// Tempers each new word of block blk into the sweep's uniform of its row
+// (row blk*624 + i; rows past the sweep's last are the discarded tail).
+struct EmitUniform {
+  float4* u;  // the thread's 4 columns of the (rows, .) buffer
+  unsigned stride4;  // its row stride in 16-byte words
+  int base, rows;
+  __device__ void operator()(int i, uint4 w) const {
+    const int r = base + i;
+    if (r < rows)
+      u[(unsigned)r * stride4] =
+          make_float4(uniform_of(w.x), uniform_of(w.y), uniform_of(w.z), uniform_of(w.w));
+  }
+};
+
+// Spins are int8 +1 (0x01) or -1 (0xFF), 4 lanes to a 32-bit word.  The
+// sign bit of spin q (0-3) of word w, at bit 31:
+__device__ __forceinline__ uint32_t sign_of(uint32_t w, int q) {
+  return (w << (24 - 8 * q)) & 0x80000000u;
+}
+
+// Spin q as float, +-1.0f, without an int->float conversion.
+__device__ __forceinline__ float spin_of(uint32_t w, int q) {
+  return __uint_as_float(0x3f800000u | sign_of(w, q));
+}
+
+// x times spin q: x with its sign flipped where the spin is -1, which is
+// the float product for every x but a NaN (couplings and betas are not).
+__device__ __forceinline__ float times_spin(float x, uint32_t w, int q) {
+  return __uint_as_float(__float_as_uint(x) ^ sign_of(w, q));
+}
+
+// The fields of lanes 4l .. 4l+3 of entry e's row (lane_h_eff's
+// expression, per lane): hs = h + sum_d J_d s_d in d order, ht = tau *
+// (down + up), with the rolled tau rows read one lane over.  Returns the
+// row's own spin word.
+__device__ __forceinline__ uint32_t entry_fields(const CbShared& s, int k, int sd, int l,
+                                                 float hs[4], float ht[4]) {
+  const int4 e = s.ent[k];
+  const float2 c = s.hta[k];
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(s.sp);
+  const uint32_t sw = words[(e.x >> 2) + l];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) hs[q] = c.x;
+  const int2* tj = s.tj + (size_t)k * sd;
+  for (int d = 0; d < sd; ++d) {
+    const int2 t = tj[d];
+    const float Jd = __int_as_float(t.y);
+    const uint32_t w = words[(t.x >> 2) + l];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) hs[q] = hs[q] + times_spin(Jd, w, q);
+  }
+  const uint32_t* drow = words + (e.y >> 2);
+  const uint32_t* urow = words + (e.z >> 2);
+  uint32_t dw = drow[l], uw = urow[l];
+  if (e.w & 1) dw = __byte_perm(drow[(l + 31) & 31], dw, 0x6543);  // lanes 4l-1 .. 4l+2
+  if (e.w & 2) uw = __byte_perm(uw, urow[(l + 1) & 31], 0x4321);   // lanes 4l+1 .. 4l+4
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ht[q] = c.y * (spin_of(dw, q) + spin_of(uw, q));
+  return sw;
+}
+
+// Where the class walk reads a sweep's uniforms: row r, lanes 4l .. 4l+3.
+struct SharedUniforms {  // in shared memory, (rows, 128)
+  const float* u;
+  __device__ float4 operator()(int r, int l) const {
+    return reinterpret_cast<const float4*>(u + r * CB_LANES)[l];
+  }
+};
+
+struct ScratchUniforms {  // the replica's columns of the (rows, B*128) scratch
+  const float* u;
+  unsigned ld;
+  __device__ float4 operator()(int r, int l) const {
+    return reinterpret_cast<const float4*>(u + (unsigned)r * ld)[l];
+  }
+};
+
+// The class walk of class c: its rows dealt to the warps.  The caller
+// puts a barrier after it (the next class reads this one's rows).
+template <class Uniforms>
+__device__ void walk_class(const CbShared& s, const Uniforms& uni, int c, int sd, int warp,
+                           int warps, int l, float m2b, float scale, float centre) {
+  uint32_t* spw = reinterpret_cast<uint32_t*>(s.sp);
+  for (int k = s.off[c] + warp; k < s.off[c + 1]; k += warps) {
+    float hs[4], ht[4];
+    const uint32_t sw = entry_fields(s, k, sd, l, hs, ht);
+    const int ro = s.ent[k].x;  // byte offset of the row
+    const float4 u4 = uni(ro >> 7, l);
+    const float u[4] = {u4.x, u4.y, u4.z, u4.w};
+    uint32_t nw = sw;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float p = fastexp_fast(times_spin(m2b, sw, q) * (hs[q] + ht[q]), scale, centre);
+      if (u[q] < p) nw ^= 0xFEu << (8 * q);  // +1 (0x01) <-> -1 (0xFF)
+    }
+    if (nw != sw) spw[(ro >> 2) + l] = nw;
+  }
+}
+
+// Replica blockIdx.x: num_sweeps colored sweeps, then the dense field
+// refresh.  ch/cJ/ctau are the class coefficients, read at coef(k) when
+// staged.  u_scratch (rows, B*128) holds the uniforms when they do not
+// fit in shared memory, else it is nullptr; with num_sweeps == 0 there are
+// no uniforms.  Every pointer the kernel reads or writes in 16-byte words
+// is 16-byte aligned (the C entries check it).
+template <class Coef>
+__device__ void colored_multisweep_cta(
+    unsigned char* smem, const float* __restrict__ spins_in, const uint32_t* rng_in, float beta,
+    float* __restrict__ spins_out, float* __restrict__ h_space, float* __restrict__ h_tau,
+    uint32_t* rng_out, float* u_scratch, ColorTables cls, const Coef& coef,
+    const float* __restrict__ ch, const float* __restrict__ cJ, const float* __restrict__ ctau,
+    int rows, int sd, int num_sweeps, float scale, float centre) {
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, l = tid & 31, warps = nt >> 5;
+  const int C = cls.C;
+  const unsigned ld = gridDim.x * CB_LANES;  // words a state row
+  const size_t tile = (size_t)b * rows * CB_LANES;
+  const CbShared s = cb_carve(smem, rows, sd, C, cb_u_in_smem(u_scratch, num_sweeps));
+
+  // Stage the class tables and coefficients.
+  for (int i = tid; i <= C; i += nt) s.off[i] = cls.off[i];
+  for (int k = tid; k < rows; k += nt) {
+    const int e = coef(k);
+    s.ent[k] = make_int4(cls.row[k] * CB_LANES, cls.down[k] * CB_LANES, cls.up[k] * CB_LANES,
+                         cls.roll[k]);
+    s.hta[k] = make_float2(ch[e], ctau[e]);
+  }
+  for (int q = tid; q < rows * sd; q += nt) {
+    const int k = q / sd;
+    s.tj[q] = make_int2(cls.tgt[q] * CB_LANES, __float_as_int(cJ[coef(k) * sd + (q - k * sd)]));
+  }
+  // Load the spin tile, CB_INFLIGHT 16-byte words a thread at a time.
+  const float4* tin = reinterpret_cast<const float4*>(spins_in + tile);
+  const int words = rows * (CB_LANES / 4);
+  for (int q0 = tid; q0 < words; q0 += nt * CB_INFLIGHT) {
+    float4 f[CB_INFLIGHT];
+#pragma unroll
+    for (int j = 0; j < CB_INFLIGHT; ++j)
+      if (q0 + j * nt < words) f[j] = tin[q0 + j * nt];
+#pragma unroll
+    for (int j = 0; j < CB_INFLIGHT; ++j)
+      if (q0 + j * nt < words)
+        reinterpret_cast<char4*>(s.sp)[q0 + j * nt] =
+            make_char4(f[j].x > 0.0f ? 1 : -1, f[j].y > 0.0f ? 1 : -1, f[j].z > 0.0f ? 1 : -1,
+                       f[j].w > 0.0f ? 1 : -1);
+  }
+
+  // The thread's 4 generator columns, as 16-byte words (ld4 a state row).
+  const unsigned ld4 = ld / 4;
+  const uint4* rin = reinterpret_cast<const uint4*>(rng_in + (size_t)b * CB_LANES) + l;
+  uint4* rout = reinterpret_cast<uint4*>(rng_out + (size_t)b * CB_LANES) + l;
+  if (num_sweeps == 0) {  // the state passes through unchanged
+    for (int i0 = warp; i0 < MT_N; i0 += warps * CB_INFLIGHT) {
+      uint4 w[CB_INFLIGHT];
+#pragma unroll
+      for (int j = 0; j < CB_INFLIGHT; ++j)
+        if (i0 + j * warps < MT_N) w[j] = rin[(unsigned)(i0 + j * warps) * ld4];
+#pragma unroll
+      for (int j = 0; j < CB_INFLIGHT; ++j)
+        if (i0 + j * warps < MT_N) rout[(unsigned)(i0 + j * warps) * ld4] = w[j];
+    }
+  }
+  __syncthreads();
+
+  // A sweep's uniforms: shared memory (stride 128) or the scratch (ld).
+  float* ub = s.u ? s.u : u_scratch ? u_scratch + (size_t)b * CB_LANES : nullptr;
+  const unsigned ustride4 = (s.u ? CB_LANES : ld) / 4;
+  const int blocks = (rows + MT_N - 1) / MT_N;
+  const float m2b = -2.0f * beta;
+
+  float4* ub4 = ub ? reinterpret_cast<float4*>(ub) + l : nullptr;
+  for (int sweep = 0; sweep < num_sweeps; ++sweep) {
+    for (int blk = 0; blk < blocks; ++blk)
+      twist_block(sweep == 0 && blk == 0 ? rin : rout, rout, ld4, warp, warps,
+                  EmitUniform{ub4, ustride4, blk * MT_N, rows});
+    for (int c = 0; c < C; ++c) {
+      if (s.u)
+        walk_class(s, SharedUniforms{s.u}, c, sd, warp, warps, l, m2b, scale, centre);
+      else
+        walk_class(s, ScratchUniforms{ub, ld}, c, sd, warp, warps, l, m2b, scale, centre);
+      __syncthreads();  // the next class reads this one's rows
+    }
+  }
+
+  // Dense field refresh of the final spins (metropolis.lane_h_eff): entry
+  // k's tables are those of its row, so each warp refreshes whole rows.
+  for (int k = warp; k < rows; k += warps) {
+    float hs[4], ht[4];
+    const uint32_t sw = entry_fields(s, k, sd, l, hs, ht);
+    const size_t o = tile + (size_t)s.ent[k].x + 4 * l;
+    *reinterpret_cast<float4*>(spins_out + o) =
+        make_float4(spin_of(sw, 0), spin_of(sw, 1), spin_of(sw, 2), spin_of(sw, 3));
+    *reinterpret_cast<float4*>(h_space + o) = make_float4(hs[0], hs[1], hs[2], hs[3]);
+    *reinterpret_cast<float4*>(h_tau + o) = make_float4(ht[0], ht[1], ht[2], ht[3]);
+  }
+}
+
+// Checks shared by the C entries: the warp-group count, and the 16-byte
+// alignment of every array the kernel reads or writes in 16-byte words
+// (the wrappers copy a misaligned input).
+inline int cb_check(int warp_groups, const void* spins_in, const void* rng_in,
+                    const void* spins_out, const void* h_space, const void* h_tau,
+                    const void* rng_out, const void* u_scratch) {
+  if (warp_groups < 1 || warp_groups > CB_MAX_GROUPS) return (int)cudaErrorInvalidValue;
+  const uintptr_t any =
+      reinterpret_cast<uintptr_t>(spins_in) | reinterpret_cast<uintptr_t>(rng_in) |
+      reinterpret_cast<uintptr_t>(spins_out) | reinterpret_cast<uintptr_t>(h_space) |
+      reinterpret_cast<uintptr_t>(h_tau) | reinterpret_cast<uintptr_t>(rng_out) |
+      reinterpret_cast<uintptr_t>(u_scratch);
+  return (any & 15) ? (int)cudaErrorMisalignedAddress : 0;
+}
+
+// Opt a kernel in to more than 48 KiB of dynamic shared memory when it
+// needs it; returns the CUDA error (0 on success).
 template <class Kernel>
 int colored_smem_attr(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;

@@ -100,8 +100,8 @@ def check_sweep_flavour(name: str, exp_flavor: str, dev: torch.device) -> None:
 _VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: ctypes signatures of the C entries (pointers, ints, float bit patterns,
 #: stream), in the order of their definitions in csrc/.
-_COLORED_ARGS = [_VP] * 21 + [_INT] * 6 + [_U32, _U32, _VP]
-_COLORED_MULTI_ARGS = [_VP] * 19 + [_INT] * 6 + [_U32, _U32, _VP]
+_COLORED_ARGS = [_VP] * 17 + [_INT] * 6 + [_U32, _U32, _VP]
+_COLORED_MULTI_ARGS = [_VP] * 18 + [_INT] * 7 + [_U32, _U32, _VP]
 _MULTISWEEP_ARGS = [_VP] * 13 + [_INT] * 6 + [_U32, _U32, _VP]
 _SWEEP_ARGS = [_VP] * 11 + [_INT] * 5 + [_U32, _U32, _VP]
 _MT_ARGS = [_VP] * 3 + [_INT] * 2 + [_VP]
@@ -122,11 +122,12 @@ def _check(t: torch.Tensor, what: str, dtype, shape) -> None:
         )
 
 
-def _class_tables(classes, base_nbr, n: int) -> dict:
+def _class_tables(classes, n: int) -> dict:
     """The structural class tables both colored kernels read: every class's
     entries concatenated in visit order, with offsets; each entry's site
     (row % n) and absolute neighbour rows; the tau source rows; the roll
-    masks packed as bit 0 (down) | bit 1 (up); the neighbour table."""
+    masks packed as bit 0 (down) | bit 1 (up).  An entry's tables are also
+    those of its row's dense field refresh (`metropolis.lane_h_eff`)."""
     rows = np.concatenate([c.rows for c in classes])
     return {
         "off": np.concatenate([[0], np.cumsum([len(c.rows) for c in classes])]),
@@ -138,7 +139,6 @@ def _class_tables(classes, base_nbr, n: int) -> dict:
         "roll": np.concatenate(
             [c.down_roll.astype(np.int32) | (c.up_roll.astype(np.int32) << 1) for c in classes]
         ),
-        "nbr": np.asarray(base_nbr, np.int32).reshape(-1),
     }
 
 
@@ -163,12 +163,57 @@ def _to_device(x, device) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
-def _colored_io(name, spins, rng, beta, n: int, entries: int, num_sweeps: int):
+#: Warp groups of 128 threads in a colored kernel's CTA (1-8): the class
+#: walk, the generator twist and the fixed cost are spread over all of them
+#: (csrc/colored_sweep.cuh).  chip_smoke.py times other values.
+COLORED_WARP_GROUPS = 8
+
+
+def colored_smem_bytes(rows: int, sd: int, C: int, uniforms: bool) -> int:
+    """Shared memory of one colored CTA, as csrc/colored_sweep.cuh's
+    ``cb_smem_bytes`` lays it out (each part rounded up to 16 bytes): the
+    (rows, 128) int8 spin tile; the staged class tables (C+1 offsets; per
+    entry row, down, up, roll and ``sd`` targets as int32, h, tau and ``sd``
+    couplings as float32); with ``uniforms``, a sweep's (rows, 128) float32
+    uniforms."""
+    def align16(x):
+        return -(-x // 16) * 16
+
+    tables = align16(4 * ((C + 1) + rows * (4 + sd) + rows * (2 + sd)))
+    return align16(rows * LANES) + tables + (rows * LANES * 4 if uniforms else 0)
+
+
+def colored_smem_plan(rows: int, sd: int, C: int, num_sweeps: int = 1) -> tuple[int, bool]:
+    """``(shared-memory bytes, uniforms in shared memory)`` of a colored
+    launch.  The spin tile and the class tables must fit in `MAX_SMEM`; a
+    sweep's uniforms join them when they fit too, else they go to a
+    device-memory scratch buffer (and a launch of 0 sweeps has none).
+    Raises ValueError naming the largest ``rows`` the kernels take when the
+    tile and tables do not fit."""
+    base = colored_smem_bytes(rows, sd, C, uniforms=False)
+    if base > MAX_SMEM:
+        most = rows
+        while colored_smem_bytes(most, sd, C, uniforms=False) > MAX_SMEM:
+            most -= 1
+        raise ValueError(
+            f"rows={rows} needs {base} B of shared memory for the spin tile and class "
+            f"tables (sd={sd}, C={C}); the colored kernels hold at most {most} rows "
+            f"({MAX_SMEM} B)"
+        )
+    with_u = colored_smem_bytes(rows, sd, C, uniforms=True)
+    if num_sweeps > 0 and with_u <= MAX_SMEM:
+        return with_u, True
+    return base, False
+
+
+def _colored_io(name, spins, rng, beta, n: int, sd: int, C: int, entries: int, num_sweeps: int):
     """Check the colored kernels' replica inputs (CUDA tensors) against a
     lattice of ``entries`` class entries (one per row) and allocate their
-    outputs: ``(B, rows, out_spins, out_hs, out_ht, out_rng, scratch)``;
-    scratch holds a sweep's earlier generator blocks (rows > 624), else
-    None."""
+    outputs: ``(spins, rng, B, rows, out_spins, out_hs, out_ht, out_rng,
+    scratch)``.  ``spins`` and ``rng`` are the inputs, copied when they do
+    not start on a 16-byte boundary; scratch holds a sweep's (rows, B*128)
+    uniforms when they do not fit in shared memory (`colored_smem_plan`),
+    else it is None."""
     dev = spins.device
     _need_cuda(name, dev)
     if spins.dim() != 3:
@@ -181,19 +226,16 @@ def _colored_io(name, spins, rng, beta, n: int, entries: int, num_sweeps: int):
     if rows % n or rows // n < 2 or rows != entries:
         raise ValueError(f"rows={rows} is not the lane layout of the classes (n={n}, "
                          f"{entries} rows)")
-    if rows * LANES > MAX_SMEM:
-        raise ValueError(
-            f"rows={rows} needs {rows * LANES} B of shared memory; "
-            f"the kernel holds at most {MAX_SMEM // LANES} rows"
-        )
-    blocks = -(-rows // mt.N)
+    _, u_in_smem = colored_smem_plan(rows, sd, C, num_sweeps)
+    # The kernels read spins and generator state in 16-byte words.
+    spins, rng = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (spins, rng))
     scratch = (
-        torch.empty(((blocks - 1) * mt.N, B * LANES), dtype=torch.float32, device=dev)
-        if blocks > 1 and num_sweeps > 0
+        torch.empty((rows, B * LANES), dtype=torch.float32, device=dev)
+        if num_sweeps > 0 and not u_in_smem
         else None
     )
-    return (B, rows, torch.empty_like(spins), torch.empty_like(spins), torch.empty_like(spins),
-            torch.empty_like(rng), scratch)
+    return (spins, rng, B, rows, torch.empty_like(spins), torch.empty_like(spins),
+            torch.empty_like(spins), torch.empty_like(rng), scratch)
 
 
 def make_colored_multisweep(
@@ -212,8 +254,9 @@ def make_colored_multisweep(
     interlaced MT19937 state (int32 holding uint32 bits; replica b owns
     columns b*128..(b+1)*128), ``beta`` (B,) float32.  The inputs are not
     modified.  On CUDA tensors this launches the kernel of
-    csrc/colored_multisweep.cu (one CTA per replica); on CPU tensors it
-    runs `ref.colored_multisweep_ref`.
+    csrc/colored_multisweep.cu (one CTA of 128 * `COLORED_WARP_GROUPS`
+    threads per replica); on CPU tensors it runs
+    `ref.colored_multisweep_ref`.
     """
     fx.exp_fn(exp_flavor)  # raises for unknown flavours
     classes = tuple(classes)
@@ -226,7 +269,7 @@ def make_colored_multisweep(
     sd = host["base_nbr"].shape[1]
     # The class coefficients gathered per class entry, beside the
     # structural tables.
-    packed = _class_tables(classes, host["base_nbr"], n)
+    packed = _class_tables(classes, n)
     packed.update(
         h=np.concatenate([c.h for c in classes]),
         J=np.concatenate([c.space_J for c in classes]).reshape(-1),
@@ -253,18 +296,18 @@ def make_colored_multisweep(
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
         check_sweep_flavour("colored_multisweep", exp_flavor, dev)
-        B, rows, *out, scratch = _colored_io(
-            "colored_multisweep", spins, rng, beta, n, len(packed["row"]), num_sweeps
+        spins, rng, B, rows, *out, scratch = _colored_io(
+            "colored_multisweep", spins, rng, beta, n, sd, len(classes), len(packed["row"]),
+            num_sweeps,
         )
         t = tables(dev)
-        k, p = t["kernel"], t["plain"]
+        k = t["kernel"]
         with torch.cuda.device(dev):
             err = _kernel("colored_multisweep", _COLORED_ARGS)(
                 _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
                 _ptr(k["off"]), _ptr(k["row"]), _ptr(k["h"]), _ptr(k["J"]), _ptr(k["tgt"]),
                 _ptr(k["tau"]), _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]),
-                _ptr(p["h"]), _ptr(k["nbr"]), _ptr(p["base_J"]), _ptr(p["tau_J"]),
-                B, rows, n, sd, len(classes), num_sweeps,
+                B, rows, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS,
                 fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32),
                 _stream(dev),
             )
@@ -289,14 +332,14 @@ def make_colored_multisweep_multi(
     tenant; only the classes' structure is read, never their coefficients.
     The other arguments are as in `make_colored_multisweep`.  On CUDA
     tensors this launches the kernel of csrc/colored_multisweep_multi.cu
-    (one CTA per slot); on CPU tensors it runs
-    `ref.colored_multisweep_multi_ref`.
+    (one CTA of 128 * `COLORED_WARP_GROUPS` threads per slot); on CPU
+    tensors it runs `ref.colored_multisweep_multi_ref`.
     """
     fx.exp_fn(exp_flavor)  # raises for unknown flavours
     classes = tuple(classes)
     base_nbr = np.asarray(base_nbr, np.int32)
     sd = base_nbr.shape[1]
-    packed = _class_tables(classes, base_nbr, n)
+    packed = _class_tables(classes, n)
     tables = _per_device(lambda device: {
         "classes": metropolis.classes_to(classes, device),
         "base_nbr": _to_device(base_nbr, device).long(),
@@ -313,8 +356,9 @@ def make_colored_multisweep_multi(
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
         check_sweep_flavour("colored_multisweep_multi", exp_flavor, dev)
-        B, rows, *out, scratch = _colored_io(
-            "colored_multisweep_multi", spins, rng, beta, n, len(packed["row"]), num_sweeps
+        spins, rng, B, rows, *out, scratch = _colored_io(
+            "colored_multisweep_multi", spins, rng, beta, n, sd, len(classes),
+            len(packed["row"]), num_sweeps,
         )
         _check(h_b, "h_b", torch.float32, (B, n))
         _check(base_J_b, "base_J_b", torch.float32, (B, n, sd))
@@ -325,9 +369,9 @@ def make_colored_multisweep_multi(
             err = _kernel("colored_multisweep_multi", _COLORED_MULTI_ARGS)(
                 _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
                 _ptr(k["off"]), _ptr(k["row"]), _ptr(k["site"]), _ptr(k["tgt"]),
-                _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]), _ptr(h_b), _ptr(k["nbr"]),
-                _ptr(base_J_b), _ptr(tau_J_b),
-                B, rows, n, sd, len(classes), num_sweeps,
+                _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]), _ptr(h_b), _ptr(base_J_b),
+                _ptr(tau_J_b),
+                B, rows, n, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS,
                 fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32),
                 _stream(dev),
             )

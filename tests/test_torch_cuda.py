@@ -22,8 +22,10 @@ def _need_card():
 
 
 @pytest.mark.parametrize(
-    "n,L,B,S", [(96, 256, 8, 8), (4, 256, 3, 5), (320, 256, 2, 2), (6, 384, 2, 0)],
-    ids=["main", "tiny", "two-blocks", "zero-sweeps"],
+    "n,L,B,S",
+    [(96, 256, 8, 8), (4, 256, 3, 5), (320, 256, 2, 2), (6, 384, 2, 0), (96, 256, 1, 8),
+     (96, 256, 115, 2), (6, 384, 3, 5), (96, 256, 8, 0)],
+    ids=["main", "tiny", "two-blocks", "zero-sweeps", "B1", "B115", "lpv3", "main-zero-sweeps"],
 )
 def test_kernel_bit_equals_plain(n, L, B, S):
     _need_card()
@@ -124,8 +126,10 @@ _MULTI_KERNEL = {"cb": "colored_multisweep_multi", "a4": "metropolis_multisweep_
 
 @pytest.mark.parametrize("rung", ["cb", "a4"])
 @pytest.mark.parametrize(
-    "n,L,B,S", [(96, 256, 8, 8), (320, 256, 2, 2), (96, 256, 2, 0)],
-    ids=["main", "two-blocks", "zero-sweeps"],
+    "n,L,B,S",
+    [(96, 256, 8, 8), (320, 256, 2, 2), (96, 256, 2, 0), (96, 256, 1, 8), (96, 256, 115, 2),
+     (6, 384, 3, 5)],
+    ids=["main", "two-blocks", "zero-sweeps", "B1", "B115", "lpv3"],
 )
 def test_multi_kernel_bit_equals_plain(rung, n, L, B, S):
     """Kernels #2 and #4 on distinct tenants against the plain multi
@@ -155,6 +159,74 @@ def test_multi_kernel_on_copies_equals_single_kernel(rung):
     carry = single.init_carry(seed=2)
     for a, b in zip(multi.run(carry, 5), single.run(carry, 5)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8])
+@pytest.mark.parametrize("n,L,B,S", [(96, 256, 8, 4), (6, 384, 3, 5), (320, 256, 2, 2)],
+                         ids=["main", "lpv3", "two-blocks"])
+def test_colored_kernels_bit_equal_at_every_warp_group_count(n, L, B, S, W, monkeypatch):
+    """#1 and #2 spread a class's rows and the generator's phase runs over
+    W warp groups; the bits must not depend on W (classes smaller than the
+    CTA's warps included, id "lpv3")."""
+    _need_card()
+    dev = torch.device("cuda")
+    monkeypatch.setattr(ops, "COLORED_WARP_GROUPS", W)
+    m = ising.random_layered_model(n=n, L=L, seed=n, beta=1.0)
+    tenants = [ising.reseed_couplings(m, seed=100 + k) for k in range(B)]
+    for models in (m, tenants):
+        kw = dict(batch=B) if models is m else {}
+        plain = engine.SweepEngine.create(models, rung="cb", backend="torch", V=128, device=dev,
+                                          **kw)
+        kernel = engine.SweepEngine.create(models, rung="cb", backend="cuda", V=128, device=dev,
+                                           **kw)
+        carry = plain.init_carry(seed=3)._replace(betas=torch.linspace(0.2, 2.0, B, device=dev))
+        for a, b in zip(kernel.run(carry, S), plain.run(carry, S)):
+            assert torch.equal(a, b)
+
+
+def test_colored_kernels_take_inputs_off_a_16_byte_boundary():
+    """#1 and #2 read spins and generator state in 16-byte words; an input
+    view that starts 4 bytes in is copied by the wrapper, and the results
+    stay bit-equal."""
+    _need_card()
+    dev = torch.device("cuda")
+    n, L, B, S = 6, 384, 2, 3
+    m = ising.random_layered_model(n=n, L=L, seed=n, beta=1.0)
+    eng = engine.SweepEngine.create(m, rung="cb", backend="torch", batch=B, V=128, device=dev)
+    carry = eng.init_carry(seed=1)
+    betas = torch.linspace(0.2, 2.0, B, device=dev)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+
+    spins, rng = shifted(carry.spins), shifted(carry.rng)
+    fn = ops.make_colored_multisweep(eng.classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=n)
+    want = fn(carry.spins, carry.rng, betas, S)
+    for a, b in zip(fn(spins, rng, betas, S), want):
+        assert torch.equal(a, b)
+    multi = ops.make_colored_multisweep_multi(eng.classes, m.space_nbr, n=n)
+    tabs = [torch.as_tensor(np.stack([x] * B), device=dev) for x in (m.h, m.space_J, m.tau_J)]
+    for a, b in zip(multi(spins, rng, betas, *tabs, S), want):
+        assert torch.equal(a, b)
+
+
+def test_colored_kernel_refuses_rows_past_its_shared_memory():
+    """The staged class tables lower the largest rows a colored launch
+    takes; past it the wrapper raises before launching."""
+    _need_card()
+    dev = torch.device("cuda")
+    m = ising.random_layered_model(n=600, L=256, seed=1, beta=1.0)  # rows=1200
+    eng = engine.SweepEngine.create(m, rung="cb", backend="torch", batch=1, V=128, device=dev)
+    fn = ops.make_colored_multisweep(eng.classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=600)
+    carry = eng.init_carry(seed=1)
+    before = ops.launches["colored_multisweep"]
+    with pytest.raises(ValueError, match="the colored kernels hold at most"):
+        fn(carry.spins, carry.rng, carry.betas, 1)
+    assert ops.launches["colored_multisweep"] == before
 
 
 @pytest.mark.parametrize("rung", ["cb", "a4"])
