@@ -28,15 +28,18 @@ its final ok line; no phase catches an exception):
      tenants, at every shape of `CB_CHECKS` (n=96 L=256 at B = 1, 8 and
      115; n=6 L=384, whose classes have fewer rows than the CTA has warps;
      n=320 L=256, two generator blocks a sweep with the uniforms in device
-     memory; 0 sweeps) and at 4 and 8 warp groups a CTA; the a4
-     multisweep at the main shape, at three layer blocks (n=6, L=384), at
-     the two-block shape and at 0 sweeps; the a4 sweep at the main shape
-     on the plain generator's uniforms; the MT19937 block in both flavours
-     on (624, 128) and (624, 1024); the multi-tenant a4 multisweep on 8
-     distinct tenants at the main shape, at the two-generator-block shape
-     and at 0 sweeps; both multi-tenant kernels on 8 copies of one model
-     against the single-model kernel.  Each plain multisweep on the card
-     is also held against the plain version on the CPU at the main shape.
+     memory; 0 sweeps) and at 4 and 8 warp groups a CTA; the a4 kernels
+     (the multisweep, its multi-tenant twin on B distinct tenants, the
+     one-sweep kernel on the plain generator's uniforms) bit pattern for
+     bit pattern at every shape of `A4_CHECKS` (B = 1, 8 and 115 at the
+     main shape, three layer blocks, rows=640 with two generator blocks a
+     sweep and the fields in device memory, 0 sweeps), and at every
+     replica tile a CTA takes at the shapes of `A4_TILE_CHECKS`; the
+     MT19937 block in both flavours on (624, 128) and (624, 1024); both
+     multi-tenant kernels on 8 copies of one model against the
+     single-model kernel.  Each plain multisweep
+     on the card is also held against the plain version on the CPU at
+     the main shape.
      The exp kernel, both flavours, against its plain version on the card
      and the plain version on the card against the CPU's, bit for bit:
      2^20 uniforms in [-200, 200], the grid [-180, -80] (where the flush
@@ -66,7 +69,8 @@ its final ok line; no phase catches an exception):
      and B=115 (the multi-tenant kernels on B distinct tenants; the cb
      kernels also at 4 warp groups), the least time the card could take
      (bytes or operations), the cb launch's split into fixed cost, class
-     walk and generator at each warp-group count, the launch-structure
+     walk and generator at each warp-group count, the a4 launch's split
+     into fixed cost, row walk and generator, the launch-structure
      comparison (fused vs per-sweep, B = 1, 8, 115) and the sweep-order
      comparison (a4 vs cb, B=8); the serving phases' sweeps/s and
      spin-flips/s;
@@ -92,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -163,6 +168,18 @@ CB_CHECKS = (
 #: Warp groups of 128 threads a colored CTA is checked and timed at; the
 #: last is `ops.COLORED_WARP_GROUPS`, the wrappers' default.
 CB_WARP_GROUPS = (4, 8)
+#: Shapes #3, #4 and #5 are held bit-equal (bit patterns) at: (what, n, L,
+#: B, sweeps); #5 runs one sweep at each shape with sweeps > 0.
+A4_CHECKS = (
+    ("the serving shape", MAIN_N, MAIN_L, MAIN_SLOTS, 8),
+    ("one replica", MAIN_N, MAIN_L, 1, 8),
+    ("the paper's 115 models", MAIN_N, MAIN_L, 115, 2),
+    ("3 layer blocks", 6, 384, 3, 5),
+    ("rows=640: 2 generator blocks a sweep, fields in device memory", 320, 256, 4, 3),
+    ("0 sweeps", MAIN_N, MAIN_L, MAIN_SLOTS, 0),
+)
+#: Shapes where replica tiles > 1 fit: (n, L, B, sweeps); rows 32 and 64.
+A4_TILE_CHECKS = ((16, MAIN_L, MAIN_SLOTS, 5), (32, MAIN_L, MAIN_SLOTS, 3))
 #: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
 #: each kernel reads (cb: h, J row, tau; a4: doubled J row and tau).
 TENANTS, MULTI_JOBS = 8, 16
@@ -280,6 +297,25 @@ def bound(counts: tuple[int, int, int], ctas: int | None = None):
     t_ops = ops_seconds(int_ops, fp_ops) * 1e3
     t_occ = t_ops * SMS / min(ctas, SMS) if ctas else None
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", t_occ
+
+
+def ptxas_summary(report: str) -> str:
+    """One line of a build's ptxas report: its kernel instantiations, their
+    registers, spill bytes and stack frames, and the template arguments of
+    any instantiation that spills."""
+    def ints(pattern, text=report):
+        return [int(x) for x in re.findall(pattern, text)]
+
+    regs, spills = ints(r"Used (\d+) registers"), ints(r"(\d+) bytes spill stores")
+    stack = ints(r"(\d+) bytes stack frame")
+    spilling = []
+    for chunk in report.split("Compiling entry function")[1:]:
+        args = re.search(r"kernelI((?:L[ib]\d+E)+)E", chunk)
+        if args and max(ints(r"(\d+) bytes spill stores", chunk), default=0):
+            spilling.append("<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">")
+    return (f"{len(regs)} kernel instantiation(s), registers {min(regs)}-{max(regs)}, spill stores "
+            f"<= {max(spills, default=0)} B, stack <= {max(stack, default=0)} B"
+            + (f"; spilling: {' '.join(spilling)}" if spilling else ""))
 
 
 def nvidia_smi_line() -> str:
@@ -404,7 +440,8 @@ def a4_case(n: int, L: int, B: int, device, seed: int = 0) -> types.SimpleNamesp
 
     return types.SimpleNamespace(
         m=m, rows=rows, inputs=(c.spins, c.h_space, c.h_tau, c.rng),
-        fused=lambda inputs, sweeps: ops.metropolis_multisweep(*inputs, **kw, num_sweeps=sweeps),
+        fused=lambda inputs, sweeps, tile=None: ops.metropolis_multisweep(
+            *inputs, **kw, num_sweeps=sweeps, replica_tile=tile),
         plain=lambda inputs, sweeps: ref.metropolis_multisweep_ref(
             *inputs, **kw, num_sweeps=sweeps),
         sweep=lambda inputs, u: ops.metropolis_sweep(*inputs[:3], u, **kw),
@@ -453,8 +490,8 @@ def multi_case(rung: str, n: int, L: int, B: int, device, seed: int = 0,
     nbr = torch.as_tensor(m.space_nbr, dtype=torch.int32, device=device)
     return types.SimpleNamespace(
         m=m, rows=eng.rows, inputs=(c.spins, c.h_space, c.h_tau, c.rng),
-        kernel=lambda inp, S: ops.metropolis_multisweep_multi(
-            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S),
+        kernel=lambda inp, S, tile=None: ops.metropolis_multisweep_multi(
+            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S, replica_tile=tile),
         plain=lambda inp, S: ref.metropolis_multisweep_multi_ref(
             *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S),
         single=lambda inp, S: ops.metropolis_multisweep(
@@ -468,13 +505,20 @@ def mt_state(V: int, device, seed: int = 0) -> torch.Tensor:
     return mt.mt_init(np.arange(V, dtype=np.uint32) * np.uint32(2654435761) + np.uint32(seed), device)
 
 
-def assert_same(got, want, what: str, names=("spins", "h_space", "h_tau", "rng")) -> float:
-    """Raise unless every output is bit-equal; return the max |difference|
-    over the float outputs (0.0 when equal)."""
+def assert_same(got, want, what: str, names=("spins", "h_space", "h_tau", "rng"),
+                bits: bool = False) -> float:
+    """Raise unless every output is equal (``bits``: float32 outputs also
+    bit pattern for bit pattern, so -0.0 != +0.0); return the max
+    |difference| over the float outputs (0.0 when equal)."""
     err = 0.0
     for name, a, b in zip(names, got, want, strict=True):
         if a.dtype.is_floating_point:
             err = max(err, float((a.double() - b.double()).abs().max()))
+        if bits and a.dtype == torch.float32 and not torch.equal(a.view(torch.int32),
+                                                                b.view(torch.int32)):
+            bad = (a.view(torch.int32) != b.view(torch.int32)).nonzero()
+            raise AssertionError(f"{what}: {name} differs in bit pattern at {bad.shape[0]} of "
+                                 f"{a.numel()} places, first {bad[0].tolist()}")
         if not torch.equal(a, b):
             bad = (a != b).nonzero()
             raise AssertionError(
@@ -494,6 +538,81 @@ def warp_groups(W: int):
         yield
     finally:
         ops.COLORED_WARP_GROUPS = before
+
+
+def accepted_tiles(rows: int, n: int, sd: int, B: int, multi: bool) -> list[int]:
+    """The replica tiles > 1 that divide B and that an a4 CTA takes at this
+    shape (`ops.a4_smem_plan`)."""
+    from repro_torch.kernels import ops
+
+    tiles = []
+    for tile in range(2, B + 1):
+        if B % tile:
+            continue
+        try:
+            ops.a4_smem_plan(rows, n, sd, tile, multi)
+        except ValueError:
+            continue
+        tiles.append(tile)
+    return tiles
+
+
+def check_a4(dev) -> tuple[float, float, float]:
+    """#3, #4 (on B distinct tenants) and #5 against their plain versions on
+    the card, bit pattern for bit pattern, at every shape of `A4_CHECKS`;
+    each accepted replica tile at the shapes of `A4_TILE_CHECKS`; #4 on
+    copies of one model against #3; the plain versions on the card against
+    the CPU's at the main shape.
+    Returns the max |kernel - plain| of #3, #4 and #5."""
+    err3 = err4 = err5 = 0.0
+    for what, n, L, B, S in A4_CHECKS:
+        case = a4_case(n, L, B, dev, seed=n + B)
+        mc = multi_case("a4", n, L, B, dev, seed=n + B)
+        want, want_multi = case.plain(case.inputs, S), mc.plain(mc.inputs, S)
+        want_sweep = case.sweep_plain(case.inputs, case.uniforms) if S else None
+        err3 = max(err3, assert_same(case.fused(case.inputs, S), want, f"a4 {what}", bits=True))
+        err4 = max(err4, assert_same(mc.kernel(mc.inputs, S), want_multi, f"a4 multi {what}",
+                                     bits=True))
+        if S:
+            err5 = max(err5, assert_same(
+                case.sweep(case.inputs, case.uniforms), want_sweep, f"a4 one sweep {what}",
+                names=("spins", "h_space", "h_tau"), bits=True))
+        print(f"[check a4] n={n} L={L} B={B} rows={case.rows} {S} sweeps ({what}): "
+              f"metropolis_multisweep, metropolis_multisweep_multi on {B} tenants"
+              f"{' and metropolis_sweep' if S else ''} == plain (bit patterns)")
+    checked_tiles = 0
+    for n, L, B, S in A4_TILE_CHECKS:
+        case = a4_case(n, L, B, dev, seed=n)
+        mc = multi_case("a4", n, L, B, dev, seed=n)
+        want, want_multi = case.plain(case.inputs, S), mc.plain(mc.inputs, S)
+        sd = case.m.space_degree
+        tiles = accepted_tiles(case.rows, n, sd, B, multi=False)
+        tiles_m = accepted_tiles(case.rows, n, sd, B, multi=True)
+        for tile in tiles:
+            err3 = max(err3, assert_same(case.fused(case.inputs, S, tile), want,
+                                         f"a4 tile {tile}", bits=True))
+        for tile in tiles_m:
+            err4 = max(err4, assert_same(mc.kernel(mc.inputs, S, tile), want_multi,
+                                         f"a4 multi tile {tile}", bits=True))
+        checked_tiles += len(tiles) + len(tiles_m)
+        print(f"[check a4 tile] n={n} L={L} B={B} rows={case.rows} {S} sweeps: replica tiles "
+              f"{tiles} (multi-tenant {tiles_m}) == plain (bit patterns)")
+    if not checked_tiles:
+        raise AssertionError(f"no replica tile > 1 fits at any shape of {A4_TILE_CHECKS}")
+    main = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
+    cpu = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
+    assert_same([t.cpu() for t in main.plain(main.inputs, 8)], cpu.plain(cpu.inputs, 8),
+                "a4 plain cuda vs cpu", bits=True)
+    mc = multi_case("a4", MAIN_N, MAIN_L, MAIN_SLOTS, dev)
+    mc_cpu = multi_case("a4", MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
+    assert_same([t.cpu() for t in mc.plain(mc.inputs, 8)], mc_cpu.plain(mc_cpu.inputs, 8),
+                "a4 multi plain cuda vs cpu", bits=True)
+    copies = multi_case("a4", MAIN_N, MAIN_L, MAIN_SLOTS, dev, seed=7, copies=True)
+    assert_same(copies.kernel(copies.inputs, 8), copies.single(copies.inputs, 8),
+                "a4 multi on copies vs single-model kernel", bits=True)
+    print(f"[check a4] main shape: both plain versions on card == on CPU; {MAIN_SLOTS} copies of "
+          f"one model: metropolis_multisweep_multi == metropolis_multisweep (bit patterns)")
+    return err3, err4, err5
 
 
 def check_colored(dev) -> tuple[float, float]:
@@ -906,7 +1025,7 @@ def main(argv: list[str]) -> int:
     print(f"[build] {', '.join(f'{k}.cu' for k in KERNELS)} in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc each, in parallel)")
     for name in KERNELS:
-        print(f"[ptxas {name}]\n{_build.ptxas_report(name)}")
+        print(f"[ptxas {name}] {ptxas_summary(_build.ptxas_report(name))}")
     for what, n in (("the serving shape", MAIN_N), ("two generator blocks a sweep", 320)):
         m = ising.random_layered_model(n=n, L=MAIN_L, seed=0, beta=1.1)
         rows, C = n * MAIN_L // LANES, len(reorder.colored_classes(m, LANES))
@@ -916,30 +1035,20 @@ def main(argv: list[str]) -> int:
               f"{'shared memory' if u_smem else 'device-memory scratch'}")
 
     # -- 3. kernel vs plain, on the card -----------------------------------
+    phase_s = {"environment, build": time.perf_counter() - t_start}  # phase -> seconds
+    t_phase = time.perf_counter()
+
+    def end_phase(what: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[what], t_phase = now - t_phase, now
+
     err = dict.fromkeys(KERNELS, 0.0)
     err["colored_multisweep"], err["colored_multisweep_multi"] = check_colored(dev)
 
+    (err["metropolis_multisweep"], err["metropolis_multisweep_multi"],
+     err["metropolis_sweep"]) = check_a4(dev)
     main_case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
-    for what, case, sweeps in (
-        (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} rows={main_case.rows} 8 sweeps", main_case, 8),
-        ("n=6 L=384 B=3 rows=18 (3 layer blocks) 5 sweeps", a4_case(6, 384, 3, dev, seed=2), 5),
-        ("n=320 L=256 B=4 rows=640 (2 generator blocks/sweep, fields in device memory) 3 sweeps",
-         a4_case(320, 256, 4, dev, seed=5), 3),
-        (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} 0 sweeps", main_case, 0),
-    ):
-        err["metropolis_multisweep"] = max(err["metropolis_multisweep"], assert_same(
-            case.fused(case.inputs, sweeps), case.plain(case.inputs, sweeps), f"a4 {what}"))
-        print(f"[check a4] {what}: kernel == plain (bit-equal)")
-    cpu_case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
-    assert_same([t.cpu() for t in main_case.plain(main_case.inputs, 8)],
-                cpu_case.plain(cpu_case.inputs, 8), "a4 plain cuda vs cpu")
-    print("[check a4] main shape: plain on card == plain on CPU (bit-equal)")
-    err["metropolis_sweep"] = assert_same(
-        main_case.sweep(main_case.inputs, main_case.uniforms),
-        main_case.sweep_plain(main_case.inputs, main_case.uniforms),
-        "a4 one sweep", names=("spins", "h_space", "h_tau"))
-    print(f"[check a4 sweep] n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS}, the plain generator's uniforms: "
-          f"kernel == plain (bit-equal)")
     for V in (LANES, 8 * LANES):
         state = mt_state(V, dev, seed=V)
         for kern, pl, out in ((ops.mt_next_block, ref.mt_next_block_ref, "words"),
@@ -947,31 +1056,11 @@ def main(argv: list[str]) -> int:
             err["mt_next_block"] = max(err["mt_next_block"], assert_same(
                 kern(state), pl(state), f"MT block (624, {V}) {out}", names=("state", out)))
         print(f"[check mt] (624, {V}): tempered words and uniforms: kernel == plain (bit-equal)")
-    for rung in ("a4",):
-        name = MULTI_KERNEL[rung]
-        main_multi = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, dev)
-        for what, case, sweeps in (
-            (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} {TENANTS} tenants, 8 sweeps", main_multi, 8),
-            ("n=320 L=256 B=4 rows=640 (2 generator blocks/sweep) 4 tenants, 3 sweeps",
-             multi_case(rung, 320, 256, 4, dev, seed=5), 3),
-            (f"n={MAIN_N} L={MAIN_L} B={MAIN_SLOTS} 0 sweeps", main_multi, 0),
-        ):
-            err[name] = max(err[name], assert_same(
-                case.kernel(case.inputs, sweeps), case.plain(case.inputs, sweeps),
-                f"{rung} multi {what}"))
-            print(f"[check {rung} multi] {what}: kernel == plain (bit-equal)")
-        cpu_multi = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, "cpu")
-        assert_same([t.cpu() for t in main_multi.plain(main_multi.inputs, 8)],
-                    cpu_multi.plain(cpu_multi.inputs, 8), f"{rung} multi plain cuda vs cpu")
-        copies = multi_case(rung, MAIN_N, MAIN_L, MAIN_SLOTS, dev, seed=7, copies=True)
-        assert_same(copies.kernel(copies.inputs, 8), copies.single(copies.inputs, 8),
-                    f"{rung} multi on copies vs single-model kernel")
-        print(f"[check {rung} multi] main shape: plain on card == plain on CPU; {MAIN_SLOTS} "
-              f"copies of one model: {name} == {SERVE_KERNEL[rung]} (bit-equal)")
     err["fastexp_2d"] = check_fastexp(dev)
     if quick:
         print(f"quick checks passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    end_phase("checks")
 
     # -- 4. the serving paths, through the CLI entry point -----------------
     cb_report, cb_launches = serve_checked("cb")
@@ -992,6 +1081,7 @@ def main(argv: list[str]) -> int:
           f"mt_next_block + {ps_launches['metropolis_sweep']} metropolis_sweep launches; "
           f"carry == the fused kernel's (bit-equal)")
 
+    end_phase("serving, per-sweep path")
     # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
     times = {name: {} for name in SWEEP_KERNELS}  # name -> B -> (ms, plain ms, bound)
@@ -1070,23 +1160,36 @@ def main(argv: list[str]) -> int:
               f"tempering ({per_row * 1e6:.1f} ns/row) + {per_sweep - per_row * rows_m:.4f} ms "
               f"twist; 8-sweep launch at rows 96/192/288: {split[96, 8]:.4f}/"
               f"{split[rows_m, 8]:.4f}/{split[288, 8]:.4f} ms")
-    # The same split for the a4 kernel: 0/1/8 sweeps at rows=192, and the
-    # row walk's cost per row from rows 96/192 (lpv=2, fields in shared
-    # memory); rows=384 keeps the fields in device memory (rows > 200).
+    # Where an a4 launch's time goes, B=8, on the card alone (a 0-sweep
+    # launch is shorter than its wrapper's host time): #3's fixed cost (0
+    # sweeps) and per-sweep cost (1 vs 8 sweeps).  The row walk from the
+    # walker alone: #5 (one sweep on given uniforms, no generator) at rows
+    # 96 vs 192 (lpv=2, fields in shared memory), less the growth of the
+    # fixed cost (#3 at 0 sweeps, same rows).  The generator from #3 at
+    # rows 32, where the walk is shorter than a block's twist, so each
+    # sweep waits on the generator.  rows=384 keeps the fields in device
+    # memory.
+    split_cases = {n_s: main_case if n_s == MAIN_N else a4_case(n_s, MAIN_L, MAIN_SLOTS, dev,
+                                                                 seed=n_s)
+                   for n_s in (16, 48, MAIN_N, 192)}
     split = {}
-    for n_s in (48, MAIN_N, 192):
-        c = main_case if n_s == MAIN_N else a4_case(n_s, MAIN_L, MAIN_SLOTS, dev, seed=n_s)
-        for S in ((0, 1, 8) if n_s == MAIN_N else (8,)):
-            split[c.rows, S] = cuda_ms(lambda: c.fused(c.inputs, S), reps=10)
-    per_sweep = (split[2 * MAIN_N, 8] - split[2 * MAIN_N, 1]) / 7
-    per_row = (split[192, 8] - split[96, 8]) / (192 - 96) / 8
-    per_row_dev = (split[384, 8] - split[2 * MAIN_N, 0]) / 384 / 8
-    print(f"[split a4] B={MAIN_SLOTS} rows={2 * MAIN_N}: launch {split[2 * MAIN_N, 0]:.4f} ms at 0 "
-          f"sweeps, {per_sweep:.4f} ms per sweep = {per_row * 2 * MAIN_N:.4f} ms row walk "
-          f"({per_row * 1e3:.3f} us/row) + {per_sweep - per_row * 2 * MAIN_N:.4f} ms generator; "
-          f"8-sweep launch at rows 96/192: {split[96, 8]:.4f}/{split[192, 8]:.4f} ms (fields in "
-          f"shared memory), at rows 384: {split[384, 8]:.4f} ms (fields in device memory, "
-          f"~{per_row_dev * 1e3:.3f} us/row)")
+    for n_s, c in split_cases.items():
+        for S in ((0, 8) if n_s == 48 else (0, 1, 8) if n_s in (16, MAIN_N) else (8,)):
+            split[c.rows, S] = cuda_ms_queued(lambda: c.fused(c.inputs, S), reps=10)
+        if n_s in (48, MAIN_N):
+            split[c.rows, "walk"] = cuda_ms_queued(lambda: c.sweep(c.inputs, c.uniforms), reps=20)
+    rows_m = 2 * MAIN_N
+    per_sweep = (split[rows_m, 8] - split[rows_m, 1]) / 7
+    per_row = ((split[rows_m, "walk"] - split[96, "walk"])
+               - (split[rows_m, 0] - split[96, 0])) / (rows_m - 96)
+    gen = (split[32, 8] - split[32, 1]) / 7
+    print(f"[split a4] B={MAIN_SLOTS} rows={rows_m} (card alone): launch {split[rows_m, 0]:.4f} ms "
+          f"at 0 sweeps (fixed cost), {split[rows_m, 1]:.4f} ms at 1, {per_sweep:.4f} ms per sweep "
+          f"= {per_row * rows_m:.4f} ms row walk ({per_row * 1e3:.4f} us/row, the walker alone) + "
+          f"{per_sweep - per_row * rows_m:.4f} ms the generator and sweep barrier add; generator "
+          f"{gen:.4f} ms per sweep (rows 32, walk {per_row * 32:.4f} ms); 8-sweep launch at rows "
+          f"96/192: {split[96, 8]:.4f}/{split[rows_m, 8]:.4f} ms, at rows 384 (fields in device "
+          f"memory): {split[384, 8]:.4f} ms")
     # Launch structure (the reference's launch_structure_compare): one
     # fused launch of 8 sweeps against, per sweep, the block kernel and one
     # sweep launch; both must end in the same carry.
@@ -1103,18 +1206,22 @@ def main(argv: list[str]) -> int:
     print(f"[sweep order] B={MAIN_SLOTS} n={MAIN_N} L={MAIN_L}: a4 {us_a4:.2f} us/sweep, "
           f"cb {us_cb:.2f} us/sweep (cb/a4 speed {us_a4 / us_cb:.3f}x)")
 
+    end_phase("timings")
     # -- 8. the exp path and its timings -------------------------------------
     exp_launches, exp_err = fastexp_path(dev)
     err["fastexp_2d"] = max(err["fastexp_2d"], exp_err)
     exp_times = time_fastexp(dev)
+    end_phase("exp")
 
     # -- 9. the ladder's slower rungs (plain version) --------------------------
     ladder(dev)
+    end_phase("ladder")
 
     if profile:
         profile_serve("cb")
         profile_serve("a4")
         profile_serve("cb", multi=True)
+        profile_serve("a4", multi=True)
     drains = [(rung, SERVE_KERNEL[rung], report.seconds, launches)
               for rung, report, launches in (("cb", cb_report, cb_launches),
                                              ("a4", a4_report, a4_launches))]
@@ -1128,7 +1235,10 @@ def main(argv: list[str]) -> int:
         share = launches[name] * t_k * 1e-3 / seconds
         print(f"[serve {what}] kernel share of the drain's wall time <= {share:.3f} "
               f"({launches[name]} launches x {t_k:.4f} ms / {seconds:.3f} s)")
-    print(f"[total] {time.perf_counter() - t_start:.1f} s")
+    if profile:
+        end_phase("profile")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{what} {sec:.1f} s" for what, sec in phase_s.items()))
     main_launches = {
         "colored_multisweep": cb_launches["colored_multisweep"],
         "metropolis_multisweep": a4_launches["metropolis_multisweep"],

@@ -54,9 +54,20 @@ one launch sweeps B slots each with its own model.  With B copies of one
 model this is the single-model engine, bit for bit.
 
 This port runs every rung on one device: a4 and cb for one model or one
-model per slot, a1-a3 for one model on the "torch" backend.
-``replica_tile`` and device meshes (``mesh``/``capacities``) are not
-ported yet and raise ValueError naming themselves.
+model per slot, a1-a3 for one model on the "torch" backend.  Device
+meshes (``mesh``/``capacities``) are not ported yet and raise ValueError
+naming themselves.
+
+``replica_tile`` (backend "cuda" only, as the reference takes it on its
+Pallas backend only) must divide the batch.  On a4 it is the replicas a
+CTA holds: each walked by its own 4 warps, all sharing the CTA's
+generator warps (kernels/csrc/a4_sweep.cuh); a tile whose shared memory
+or threads do not fit is refused (at n=96 L=256 only a tile of 1 fits,
+and no CTA takes more than 2).  The
+colored kernels already give each replica its own CTA of 1,024 threads,
+so on cb the knob is checked and the launch does not change.  Results do
+not depend on it.  ``create`` refuses a lattice past a rung's kernel
+limits (`ops.check_kernel_rows`) before anything is built.
 
 Slots: a batched carry is a row of independent slots; slot b owns row b
 of spins/fields/betas and its own generator columns, so a slot's
@@ -258,8 +269,10 @@ class SweepEngine:
         exp_flavor: str,
         device: torch.device,
         models: tuple | None = None,
+        replica_tile: int | None = None,
     ):
         self.model = model
+        self.replica_tile = replica_tile
         self.rung = rung
         self.backend = backend
         self.batch = batch
@@ -324,8 +337,6 @@ class SweepEngine:
                     f"multi-tenant engines implement rungs {MULTI_RUNGS}; got rung={rung!r}"
                 )
             models, batch = multi[0], len(multi)
-        if replica_tile is not None:
-            raise ValueError("replica_tile is not ported to repro_torch")
         if mesh is not None or capacities is not None:
             raise ValueError("device meshes (mesh=/capacities=) are not ported to repro_torch yet")
         if rung not in RUNGS:
@@ -338,6 +349,10 @@ class SweepEngine:
         exp_flavor = exp_flavor or DEFAULT_EXP[rung]
         fastexp.exp_fn(exp_flavor)  # raises for unknown flavours
         device = torch.device(device)
+        if replica_tile is not None and backend != "cuda":
+            raise ValueError("replica_tile is a cuda-backend knob")
+        if replica_tile is not None and (replica_tile < 1 or batch % replica_tile != 0):
+            raise ValueError(f"replica_tile {replica_tile} must divide batch {batch}")
         if backend == "cuda":
             from repro_torch.kernels import ops
 
@@ -354,7 +369,14 @@ class SweepEngine:
                     f"backend='cuda' runs on a CUDA device; got device={str(device)!r} "
                     "(use backend='torch' on the CPU)"
                 )
-        return cls(models, rung, backend, batch, V, exp_flavor, device, models=multi)
+            ops.check_kernel_rows(
+                rung, reorder.check_lane_shape(models.n, models.L, V), models.n,
+                models.space_degree,
+                len(reorder.colored_classes(models, V)) if rung == "cb" else 0,
+                replica_tile=replica_tile or 1, multi=multi is not None,
+            )
+        return cls(models, rung, backend, batch, V, exp_flavor, device, models=multi,
+                   replica_tile=replica_tile)
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -706,6 +728,7 @@ def _build_cuda(eng: SweepEngine) -> Callable:
             spins, hs, ht, rng = ops.metropolis_multisweep(
                 carry.spins, carry.h_space, carry.h_tau, carry.rng, **tabs,
                 beta=carry.betas, n=m.n, num_sweeps=num_sweeps, exp_flavor=eng.exp_flavor,
+                replica_tile=eng.replica_tile,
             )
             return SweepCarry(spins, hs, ht, carry.betas, rng)
 
@@ -773,7 +796,7 @@ def _build_cuda_multi(eng: SweepEngine) -> Callable:
             spins, hs, ht, rng = ops.metropolis_multisweep_multi(
                 carry.spins, carry.h_space, carry.h_tau, carry.rng, base_nbr,
                 tabs["base_J2"], tabs["tau_J2"], carry.betas, n=m.n, num_sweeps=num_sweeps,
-                exp_flavor=eng.exp_flavor,
+                exp_flavor=eng.exp_flavor, replica_tile=eng.replica_tile,
             )
             return SweepCarry(spins, hs, ht, carry.betas, rng)
 

@@ -72,9 +72,7 @@ namespace {
 
 constexpr int CB_LANES = 128;
 constexpr int CB_MAX_GROUPS = 8;  // warp groups a CTA (1024 threads)
-constexpr int MT_SPAN = MT_N - MT_M;  // 227: rows of a twist phase
 constexpr int CB_INFLIGHT = 8;  // 16-byte loads a thread keeps in flight in the fixed cost
-constexpr int CB_TWIST_AHEAD = 4;  // generator rows loaded before any is stored; < 227
 
 // Structural class tables: every class's entries concatenated in visit
 // order, class c owning entries off[c] .. off[c+1]-1; entry k updates row
@@ -139,100 +137,6 @@ __device__ CbShared cb_carve(unsigned char* base, int rows, int sd, int C, bool 
   s.u = u_in_smem ? reinterpret_cast<float*>(base + tile + cb_table_bytes(rows, sd, C)) : nullptr;
   return s;
 }
-
-// Rows [lo, hi) of twist phase p (0, 1, 2) that warp w of `warps` owns.
-__device__ __forceinline__ void phase_run(int p, int w, int warps, int& lo, int& hi) {
-  const int a = p * MT_SPAN, len = (p == 2 ? MT_N : a + MT_SPAN) - a;
-  lo = a + len * w / warps;
-  hi = a + len * (w + 1) / warps;
-}
-
-__device__ __forceinline__ uint4 twist4(uint4 u, uint4 v, uint4 m) {
-  return make_uint4(twist_word(u.x, v.x, m.x), twist_word(u.y, v.y, m.y),
-                    twist_word(u.z, v.z, m.z), twist_word(u.w, v.w, m.w));
-}
-
-// Twist rows [lo, hi) of 4 neighbouring generator columns in order (16
-// bytes a row, row stride ld4 16-byte words), CB_TWIST_AHEAD rows of loads
-// ahead of the stores.  v_hi is old row hi (or new row 0 for hi == 624),
-// loaded by the caller.  Row i's m term is mbase[(i + mshift) * ld4]: an
-// old word (src, +397) in the first phase, a new word of an earlier phase
-// (dst, -227) in the others.  Loads past the run's end are clamped to its
-// last row and not used, so the loop reads no row that another run
-// rewrites.  The generator is issue bound: 16-byte words and 32-bit
-// offsets keep its address arithmetic small.
-template <class Emit>
-__device__ void twist_rows(const uint4* src, uint4* dst, const uint4* mbase, int mshift,
-                           unsigned ld4, int lo, int hi, uint4 v_hi, const Emit& emit) {
-  for (int i0 = lo; i0 < hi; i0 += CB_TWIST_AHEAD) {
-    uint4 x[CB_TWIST_AHEAD + 1], m[CB_TWIST_AHEAD];
-#pragma unroll
-    for (int k = 0; k <= CB_TWIST_AHEAD; ++k) {
-      const int i = min(i0 + k, hi - 1);
-      x[k] = src[(unsigned)i * ld4];
-      if (k < CB_TWIST_AHEAD) m[k] = mbase[(unsigned)(i + mshift) * ld4];
-    }
-#pragma unroll
-    for (int k = 0; k < CB_TWIST_AHEAD; ++k) {
-      const int i = i0 + k;
-      if (i < hi) {
-        const uint4 w = twist4(x[k], i + 1 < hi ? x[k + 1] : v_hi, m[k]);
-        dst[(unsigned)i * ld4] = w;
-        emit(i, w);
-      }
-    }
-  }
-}
-
-// One block advance of the CTA's 128 generator columns by all its warps,
-// 4 columns a thread (src, dst: the thread's 16-byte column; dst == src is
-// in place).  Ends with a barrier, so every new word and every emitted
-// uniform is visible.
-template <class Emit>
-__device__ void twist_block(const uint4* src, uint4* dst, unsigned ld4, int warp, int warps,
-                            const Emit& emit) {
-  uint4 edge[3];
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    int lo, hi;
-    phase_run(p, warp, warps, lo, hi);
-    edge[p] = hi < MT_N ? src[(unsigned)hi * ld4] : uint4{};  // old row hi, before it is rewritten
-  }
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    int lo, hi;
-    phase_run(p, warp, warps, lo, hi);
-    twist_rows(src, dst, p == 0 ? src : dst, p == 0 ? MT_M : -MT_SPAN, ld4, lo, hi,
-               hi < MT_N ? edge[p] : dst[0], emit);
-    __syncthreads();  // the next phase reads this one's new words
-  }
-}
-
-// uniform24 (mt19937.cuh) without its int->float conversion, which issues
-// at a quarter of the integer rate: the 24-bit k of the tempered word is
-// 2^23 + k (k < 2^23) or 2k (k >= 2^23) as the float 0x4b000000 + k, and
-// both scalings are exact.  Bit-equal to uniform24 for every word (all
-// 2^24 values of k, checked in tests/test_torch_colored_layout.py).
-__device__ __forceinline__ float uniform_of(uint32_t y) {
-  const uint32_t k = temper(y) >> 8;
-  const float f = __uint_as_float(k + 0x4b000000u);
-  return k < 0x800000u ? (f - 8388608.0f) * 0x1p-24f : f * 0x1p-25f;
-}
-
-// Tempers each new word of block blk into the sweep's uniform of its row
-// (row blk*624 + i; rows past the sweep's last are the discarded tail).
-struct EmitUniform {
-  float4* u;  // the thread's 4 columns of the (rows, .) buffer
-  unsigned stride4;  // its row stride in 16-byte words
-  int base, rows;
-  __device__ void operator()(int i, uint4 w) const {
-    const int r = base + i;
-    if (r < rows)
-      u[(unsigned)r * stride4] =
-          make_float4(uniform_of(w.x), uniform_of(w.y), uniform_of(w.z), uniform_of(w.w));
-  }
-};
 
 // Spins are int8 +1 (0x01) or -1 (0xFF), 4 lanes to a 32-bit word.  The
 // sign bit of spin q (0-3) of word w, at bit 31:

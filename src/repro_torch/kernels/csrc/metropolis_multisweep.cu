@@ -7,43 +7,27 @@
 // src/repro_torch/kernels/ref.py:metropolis_multisweep_ref; the two agree
 // bit for bit.
 //
-// Layout.  One CTA per replica, 128 threads, thread v owns lane v: the
-// lattice column v of every lane row, and MT19937 generator column
-// b*128+v of the (624, B*128) interlaced state.  Every state-row, spin-row
-// and field-row access of a warp is 32 neighbouring words.  The row walk
-// and the fused per-replica body are a4_sweep.cuh (the walk shared with
-// metropolis_sweep.cu, the body with metropolis_multisweep_multi.cu); the
-// twist and temper are mt19937.cuh.
+// Layout.  A CTA holds `tile` replicas (1 unless the caller asks for a
+// replica tile): 4 walker warps each, a lane a thread, and up to 5
+// generator warps that twist the replicas' MT19937 columns b*128 ..
+// b*128+127 of the (624, B*128) interlaced state and temper each sweep's
+// uniforms into the scratch u (B, 2, rows, 128): sweep s+1's while sweep s
+// is walked.
+// The body is a4_sweep.cuh (shared with metropolis_multisweep_multi.cu and,
+// for the walk, metropolis_sweep.cu); the split twist is mt19937.cuh.
 //
 // What bounds it.  Per launch the function must move
 //     4*B*(6*rows*128 + 2*624*128) bytes
 // (spins, h_space, h_tau in and out; generator state in and out): 9.8 MB
-// at B=8, rows=192, 2.9 us at the HBM rate.  Its operations take longer:
-// 8 int ops per generator word twisted, and per spin per sweep 14 int ops
-// (tempering, conversions, the exp's bias add) and 2*sd+16 float ops come
-// to 3.8 us at the card's int32 rate (8 sweeps, B=8), so operations bound
-// it.  With one CTA per replica only B of the 132 SMs work: the same
-// operations take at least 62 us.  This design is far from both: the row
-// walk is a serial chain (a row's flip reads fields that the rows before
-// it wrote), so the only parallelism is lanes x replicas, and each row is
-// a chain of dependent shared-memory read-modify-writes.  What the design
-// does about it: the tile lives in shared memory (int8 spins, float32
-// fields: 221 KiB at rows=192), so a row step never touches device memory
-// except for its uniform; the tables are small and broadcast from L1; the
-// generator is twisted once per block, 8 rows of loads ahead of the
-// stores, and the last block of a sweep is tempered on the fly, so it
-// needs no buffer.  With rows > 624 the earlier blocks of a sweep are
-// overwritten by the next twist, so their uniforms go to a scratch buffer
-// the caller allocates; with rows > 200 the fields do not fit shared
-// memory and stay in the output tensors (each thread its own column).
+// at B=8, rows=192, 2.9 us at the HBM rate.  Its operations take longer
+// (chip_smoke.py: a4_counts): 3.8 us at the card's int32 rate for 8 sweeps
+// at B=8, so operations bound it.  The row walk is a serial chain (a row's
+// flip reads fields that the rows before it wrote): a4_sweep.cuh says what
+// the design does about it.
 //
 // Fields.  h_space and h_tau come in and go out updated incrementally, as
 // in the reference; they are never recomputed densely, which would change
 // their bits.
-//
-// Numerics.  Every field update multiplies by -S_mul in {-1, -0, +0, +1}
-// and rounds once; the build passes --fmad=false so the compiled code is
-// the written expression.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,41 +38,26 @@
 
 namespace {
 
-__global__ void __launch_bounds__(LANES) metropolis_multisweep_kernel(
-    const float* __restrict__ spins_in, const float* __restrict__ hs_in,
-    const float* __restrict__ ht_in, const uint32_t* rng_in, const int* __restrict__ nbr,
-    const float* __restrict__ j2, const float* __restrict__ tau2, const float* __restrict__ beta,
-    float* __restrict__ spins_out, float* hs_out, float* ht_out, uint32_t* rng_out,
-    float* u_scratch, int rows, int n, int sd, int num_sweeps, bool fields_in_smem, float scale,
-    float centre) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  a4_multisweep_cta(smem, spins_in, hs_in, ht_in, rng_in, nbr, j2, tau2, beta[blockIdx.x],
-                    spins_out, hs_out, ht_out, rng_out, u_scratch, rows, n, sd, num_sweeps,
-                    fields_in_smem, scale, centre);
+template <bool FIELDS_IN_SMEM, int SDT>
+__global__ void __launch_bounds__(A4_MAX_THREADS) metropolis_multisweep_kernel(A4_KERNEL_PARAMS) {
+  a4_cta<FIELDS_IN_SMEM, SDT>(A4_KERNEL_IO, sh);
 }
 
 }  // namespace
 
-// Launches one CTA per replica on `stream`; returns cudaGetLastError().
+// Launches B / tile CTAs on `stream`; u_scratch holds (B, 2, rows, 128)
+// floats.  Returns a CUDA error code (0 on success).
 extern "C" int metropolis_multisweep(const float* spins_in, const float* hs_in, const float* ht_in,
                                      const uint32_t* rng_in, const int* nbr, const float* j2,
                                      const float* tau2, const float* beta, float* spins_out,
                                      float* hs_out, float* ht_out, uint32_t* rng_out,
                                      float* u_scratch, int B, int rows, int n, int sd,
-                                     int num_sweeps, int max_smem, uint32_t scale_bits,
-                                     uint32_t centre_bits, void* stream) {
-  const bool fields_in_smem = a4_smem_bytes(rows, true) <= (size_t)max_smem;
-  const size_t smem = a4_smem_bytes(rows, fields_in_smem);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(metropolis_multisweep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  float scale, centre;
-  memcpy(&scale, &scale_bits, sizeof scale);
-  memcpy(&centre, &centre_bits, sizeof centre);
-  metropolis_multisweep_kernel<<<B, LANES, smem, (cudaStream_t)stream>>>(
-      spins_in, hs_in, ht_in, rng_in, nbr, j2, tau2, beta, spins_out, hs_out, ht_out, rng_out,
-      u_scratch, rows, n, sd, num_sweeps, fields_in_smem, scale, centre);
-  return (int)cudaGetLastError();
+                                     int num_sweeps, int max_smem, int tile,
+                                     uint32_t scale_bits, uint32_t centre_bits, void* stream) {
+  const A4Io io{spins_in, hs_in, ht_in, rng_in, nbr, j2, tau2, beta,
+                spins_out, hs_out, ht_out, rng_out, u_scratch};
+  A4Shape sh{B, rows, n, sd, num_sweeps, tile, false, true};
+  memcpy(&sh.scale, &scale_bits, sizeof sh.scale);
+  memcpy(&sh.centre, &centre_bits, sizeof sh.centre);
+  return A4_LAUNCH(metropolis_multisweep_kernel, io, sh, max_smem, stream);
 }

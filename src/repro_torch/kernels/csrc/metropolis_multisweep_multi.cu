@@ -8,19 +8,17 @@
 // src/repro_torch/kernels/ref.py:metropolis_multisweep_multi_ref; the two
 // agree bit for bit.
 //
-// Layout.  metropolis_multisweep.cu with per-slot tables: one CTA per slot,
-// 128 threads, thread v owns lane v and generator column b*128+v; the
-// fused body a4_multisweep_cta of a4_sweep.cuh, which both kernels share.
-// The row walk reads its couplings by site (row q reads site q % n), so the
+// Layout.  metropolis_multisweep.cu with per-slot tables, through the same
+// body (a4_sweep.cuh: a4_cta with multi set): a CTA stages each of its
+// replicas' slot tables (j2_b + b*n*sd, tau2_b + b*n) beside the shared
+// neighbour table, so the row walk is the single-model kernel's.  The
 // reference's tiling of the tables to (B, rows, .) is the same values read
-// through j2_b + b*n*sd and tau2_b + b*n: no tiled copy is made.  The
-// neighbour table is topology, shared by every slot.
+// by site (row q reads site q % n): no tiled copy is made.
 //
 // What bounds it.  metropolis_multisweep.cu's bytes plus the per-slot
 // tables, 4*B*n*(sd+1) bytes (22 KB at B=8, n=96, sd=6), and the same
-// operations: operations bound it, and one CTA per slot leaves it latency
-// bound like the single-model kernel.  A slot's tables (2.7 KiB at n=96)
-// stay in L1, as the shared tables do there.
+// operations: operations bound it, and the serial row walk sets its time
+// as in the single-model kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,41 +29,25 @@
 
 namespace {
 
-__global__ void __launch_bounds__(LANES) metropolis_multisweep_multi_kernel(
-    const float* __restrict__ spins_in, const float* __restrict__ hs_in,
-    const float* __restrict__ ht_in, const uint32_t* rng_in, const int* __restrict__ nbr,
-    const float* __restrict__ j2_b, const float* __restrict__ tau2_b,
-    const float* __restrict__ beta, float* __restrict__ spins_out, float* hs_out, float* ht_out,
-    uint32_t* rng_out, float* u_scratch, int rows, int n, int sd, int num_sweeps,
-    bool fields_in_smem, float scale, float centre) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t b = blockIdx.x;
-  a4_multisweep_cta(smem, spins_in, hs_in, ht_in, rng_in, nbr, j2_b + b * n * sd, tau2_b + b * n,
-                    beta[b], spins_out, hs_out, ht_out, rng_out, u_scratch, rows, n, sd,
-                    num_sweeps, fields_in_smem, scale, centre);
+template <bool FIELDS_IN_SMEM, int SDT>
+__global__ void __launch_bounds__(A4_MAX_THREADS)
+    metropolis_multisweep_multi_kernel(A4_KERNEL_PARAMS) {
+  a4_cta<FIELDS_IN_SMEM, SDT>(A4_KERNEL_IO, sh);
 }
 
 }  // namespace
 
-// Launches one CTA per slot on `stream`; returns cudaGetLastError().
+// As metropolis_multisweep, with (B, n, sd) j2_b and (B, n) tau2_b.
 extern "C" int metropolis_multisweep_multi(
     const float* spins_in, const float* hs_in, const float* ht_in, const uint32_t* rng_in,
     const int* nbr, const float* j2_b, const float* tau2_b, const float* beta, float* spins_out,
     float* hs_out, float* ht_out, uint32_t* rng_out, float* u_scratch, int B, int rows, int n,
-    int sd, int num_sweeps, int max_smem, uint32_t scale_bits, uint32_t centre_bits,
+    int sd, int num_sweeps, int max_smem, int tile, uint32_t scale_bits, uint32_t centre_bits,
     void* stream) {
-  const bool fields_in_smem = a4_smem_bytes(rows, true) <= (size_t)max_smem;
-  const size_t smem = a4_smem_bytes(rows, fields_in_smem);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(metropolis_multisweep_multi_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  float scale, centre;
-  memcpy(&scale, &scale_bits, sizeof scale);
-  memcpy(&centre, &centre_bits, sizeof centre);
-  metropolis_multisweep_multi_kernel<<<B, LANES, smem, (cudaStream_t)stream>>>(
-      spins_in, hs_in, ht_in, rng_in, nbr, j2_b, tau2_b, beta, spins_out, hs_out, ht_out,
-      rng_out, u_scratch, rows, n, sd, num_sweeps, fields_in_smem, scale, centre);
-  return (int)cudaGetLastError();
+  const A4Io io{spins_in, hs_in, ht_in, rng_in, nbr, j2_b, tau2_b, beta,
+                spins_out, hs_out, ht_out, rng_out, u_scratch};
+  A4Shape sh{B, rows, n, sd, num_sweeps, tile, true, true};
+  memcpy(&sh.scale, &scale_bits, sizeof sh.scale);
+  memcpy(&sh.centre, &centre_bits, sizeof sh.centre);
+  return A4_LAUNCH(metropolis_multisweep_multi_kernel, io, sh, max_smem, stream);
 }

@@ -41,11 +41,6 @@ launches = {
     "mt_next_block": 0,
 }
 
-#: Shared-memory bytes of the a4 kernels' lane-roll exchange buffers
-#: (csrc/a4_sweep.cuh: XBUF_BYTES).
-_A4_XBUF = 2 * LANES * 4
-
-
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
@@ -102,7 +97,7 @@ _VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 #: stream), in the order of their definitions in csrc/.
 _COLORED_ARGS = [_VP] * 17 + [_INT] * 6 + [_U32, _U32, _VP]
 _COLORED_MULTI_ARGS = [_VP] * 18 + [_INT] * 7 + [_U32, _U32, _VP]
-_MULTISWEEP_ARGS = [_VP] * 13 + [_INT] * 6 + [_U32, _U32, _VP]
+_MULTISWEEP_ARGS = [_VP] * 13 + [_INT] * 7 + [_U32, _U32, _VP]
 _SWEEP_ARGS = [_VP] * 11 + [_INT] * 5 + [_U32, _U32, _VP]
 _MT_ARGS = [_VP] * 3 + [_INT] * 2 + [_VP]
 _FASTEXP_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT] + [_U32] * 5 + [_VP]
@@ -183,6 +178,14 @@ def colored_smem_bytes(rows: int, sd: int, C: int, uniforms: bool) -> int:
     return align16(rows * LANES) + tables + (rows * LANES * 4 if uniforms else 0)
 
 
+def _colored_max_rows(sd: int, C: int) -> int:
+    """The largest rows whose spin tile and class tables fit `MAX_SMEM`."""
+    most = MAX_SMEM // LANES
+    while colored_smem_bytes(most, sd, C, uniforms=False) > MAX_SMEM:
+        most -= 1
+    return most
+
+
 def colored_smem_plan(rows: int, sd: int, C: int, num_sweeps: int = 1) -> tuple[int, bool]:
     """``(shared-memory bytes, uniforms in shared memory)`` of a colored
     launch.  The spin tile and the class tables must fit in `MAX_SMEM`; a
@@ -192,13 +195,10 @@ def colored_smem_plan(rows: int, sd: int, C: int, num_sweeps: int = 1) -> tuple[
     tile and tables do not fit."""
     base = colored_smem_bytes(rows, sd, C, uniforms=False)
     if base > MAX_SMEM:
-        most = rows
-        while colored_smem_bytes(most, sd, C, uniforms=False) > MAX_SMEM:
-            most -= 1
         raise ValueError(
             f"rows={rows} needs {base} B of shared memory for the spin tile and class "
-            f"tables (sd={sd}, C={C}); the colored kernels hold at most {most} rows "
-            f"({MAX_SMEM} B)"
+            f"tables (sd={sd}, C={C}); the colored kernels hold at most "
+            f"{_colored_max_rows(sd, C)} rows ({MAX_SMEM} B)"
         )
     with_u = colored_smem_bytes(rows, sd, C, uniforms=True)
     if num_sweeps > 0 and with_u <= MAX_SMEM:
@@ -386,12 +386,106 @@ def make_colored_multisweep_multi(
 # The a4 rung: fused multisweep (in-kernel MT19937) and one sweep per launch.
 # -----------------------------------------------------------------------------
 
+#: Most space neighbours a site may have on the a4 kernels
+#: (csrc/a4_sweep.cuh: A4_MAX_SD).
+A4_MAX_SD = 8
+#: Rows of a walker's uniform ring in shared memory (csrc/a4_sweep.cuh).
+A4_URING = 8
+#: Most threads of an a4 CTA (csrc/a4_sweep.cuh: A4_MAX_THREADS): 4 walker
+#: warps a replica, a lane a thread, and at least one generator warp.
+A4_MAX_THREADS = 384
+
+
+def a4_table_bytes(n: int, sd: int) -> int:
+    """Bytes of one model's staged a4 tables: per site ``sd`` (target
+    offset, J2) int32 pairs and one (tau2, same-cell mask) pair, rounded up
+    to 16 (csrc/a4_sweep.cuh: a4_table_bytes)."""
+    return -(-n * (sd + 1) * 8 // 16) * 16
+
+
+def a4_smem_bytes(rows: int, n: int, sd: int, tile: int = 1, tables: int = 1,
+                  fields: bool = True) -> int:
+    """Shared memory of one a4 CTA of ``tile`` replicas, as
+    csrc/a4_sweep.cuh's ``a4_smem_bytes`` lays it out: with ``fields``
+    their (rows, 128) float32 h_space and h_tau, their int8 spins,
+    ``tables`` staged tables, their (`A4_URING`, 128) float32 uniform
+    rings and their (2, 128) float32 tau exchange buffers."""
+    cells = tile * rows * LANES
+    return ((8 * cells if fields else 0) + cells + tables * a4_table_bytes(n, sd)
+            + tile * (A4_URING + 2) * LANES * 4)
+
+
+def a4_smem_plan(rows: int, n: int, sd: int, tile: int = 1,
+                 multi: bool = False) -> tuple[int, bool]:
+    """``(shared-memory bytes, fields in shared memory)`` of an a4 launch
+    of ``tile`` replicas a CTA.  The fields join the spins and tables in
+    shared memory when they fit; a single replica keeps them in device
+    memory otherwise, a tile of several must fit them.  Raises ValueError
+    naming the limit when the launch does not fit."""
+    if sd > A4_MAX_SD:
+        raise ValueError(f"sd={sd}: the a4 kernels take at most {A4_MAX_SD} space neighbours")
+    if 4 * tile + 1 > A4_MAX_THREADS // 32:
+        raise ValueError(f"replica_tile {tile} leaves no generator warp in a CTA of "
+                         f"{A4_MAX_THREADS} threads")
+    tables = tile if multi else 1
+    with_fields = a4_smem_bytes(rows, n, sd, tile, tables, fields=True)
+    if with_fields <= MAX_SMEM:
+        return with_fields, True
+    if tile > 1:
+        raise ValueError(
+            f"replica_tile {tile} at rows={rows} needs {with_fields} B of shared memory for "
+            f"its replicas' fields, spins and tables; the a4 kernels hold at most "
+            f"{_a4_max_rows(n, sd, tile, multi)} rows a replica at that tile "
+            f"({MAX_SMEM} B)"
+        )
+    base = a4_smem_bytes(rows, n, sd, 1, 1, fields=False)
+    if base > MAX_SMEM:
+        raise ValueError(
+            f"rows={rows} needs {base} B of shared memory for the spin tile and tables "
+            f"(n={n}, sd={sd}); the a4 kernels hold at most "
+            f"{_a4_max_rows(n, sd, 1, multi)} rows ({MAX_SMEM} B)"
+        )
+    return base, False
+
+
+def _a4_max_rows(n: int, sd: int, tile: int, multi: bool) -> int:
+    """The largest rows an a4 CTA of ``tile`` replicas takes on a lattice
+    of ``n`` sites (a single replica with its fields in device memory)."""
+    tables = tile if multi else 1
+    fixed = a4_smem_bytes(0, n, sd, tile, tables, fields=tile > 1)
+    per_row = a4_smem_bytes(1, n, sd, tile, tables, fields=tile > 1) - fixed
+    return max(0, (MAX_SMEM - fixed) // per_row)
+
+
+def check_kernel_rows(rung: str, rows: int, n: int, sd: int, C: int = 0,
+                      replica_tile: int = 1, multi: bool = False) -> int:
+    """The largest lane rows ``rung``'s kernels take on a lattice of ``n``
+    sites with ``sd`` space neighbours and ``C`` color classes, or a
+    ValueError naming it when ``rows`` is past it (or the replica tile
+    does not fit); the check `SweepEngine.create` makes for
+    ``backend="cuda"``, before any launch.  cb holds its spin tile and
+    class tables in shared memory (`colored_smem_plan`); a4 its spins and
+    tables, and the fields of a tile of several replicas
+    (`a4_smem_plan`)."""
+    if rung == "cb":
+        colored_smem_plan(rows, sd, C)
+        return _colored_max_rows(sd, C)
+    a4_smem_plan(rows, n, sd, replica_tile, multi)
+    return _a4_max_rows(n, sd, replica_tile, multi)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it does not start on a 16-byte boundary
+    (the a4 kernels read spins, fields and generator state in 16-byte words)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
 
 def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: int,
-               per_slot: bool = False):
-    """Check the a4 kernels' common inputs (CUDA tensors); returns
-    ``(B, rows, sd)``.  ``per_slot``: the coupling tables carry a leading
-    batch dimension (the multi-tenant kernel)."""
+               per_slot: bool = False, tile: int = 1):
+    """Check the a4 kernels' common inputs (CUDA tensors) and plan their
+    CTA (`a4_smem_plan`); returns ``(B, rows, sd)``.  ``per_slot``: the
+    coupling tables carry a leading batch dimension (the multi-tenant
+    kernel)."""
     dev = spins.device
     _need_cuda(name, dev)
     if spins.dim() != 3:
@@ -401,13 +495,11 @@ def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: 
         _check(t, what, torch.float32, (B, rows, LANES))
     if rows % n or rows // n < 2:
         raise ValueError(f"rows={rows} is not a lane layout of n={n}")
-    if _A4_XBUF + rows * LANES > MAX_SMEM:
-        raise ValueError(
-            f"rows={rows} needs {_A4_XBUF + rows * LANES} B of shared memory; "
-            f"the a4 kernels hold at most {(MAX_SMEM - _A4_XBUF) // LANES} rows"
-        )
+    if tile < 1 or B % tile:
+        raise ValueError(f"replica_tile {tile} must divide batch {B}")
     sd = base_nbr.shape[-1] if base_nbr.dim() == 2 else -1
     _check(base_nbr, "base_nbr", torch.int32, (n, sd))
+    a4_smem_plan(rows, n, sd, tile, per_slot)  # raises naming the limit
     lead = (B,) if per_slot else ()
     _check(base_J2, "base_J2", torch.float32, (*lead, n, sd))
     for what, t, shape in (("tau_J2", tau_J2, (*lead, n)), ("beta", beta, (B,))):
@@ -417,20 +509,31 @@ def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: 
     return B, rows, sd
 
 
-def _a4_fused_outputs(spins, h_space, h_tau, rng, num_sweeps: int):
-    """The fused a4 kernels' outputs ``(spins, h_space, h_tau, rng)`` and
-    their scratch for a sweep's earlier generator blocks (rows > 624, else
-    None)."""
-    B, rows, _ = spins.shape
-    blocks = -(-rows // mt.N)
+def _a4_fused(name, per_slot, spins, h_space, h_tau, rng, base_nbr, base_J2, tau_J2, beta,
+              n: int, num_sweeps: int, replica_tile):
+    """Launch a fused a4 kernel (#3, or #4 with ``per_slot`` tables) with,
+    when there are sweeps to run, a scratch of each replica's uniforms of
+    two sweeps, (B, 2, rows, 128); returns ``(spins, h_space, h_tau,
+    rng)``."""
+    tile = 1 if replica_tile is None else int(replica_tile)
+    B, rows, sd = _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n,
+                             per_slot=per_slot, tile=tile)
+    _check(rng, "rng", torch.int32, (mt.N, B * LANES))
+    _same_device(spins.device, rng=rng)
+    spins, h_space, h_tau, rng = (_aligned(t) for t in (spins, h_space, h_tau, rng))
     out = (torch.empty_like(spins), torch.empty_like(h_space), torch.empty_like(h_tau),
            torch.empty_like(rng))
-    scratch = (
-        torch.empty(((blocks - 1) * mt.N, B * LANES), dtype=torch.float32, device=spins.device)
-        if blocks > 1 and num_sweeps > 0
-        else None
-    )
-    return out, scratch
+    scratch = (torch.empty((B, 2, rows, LANES), dtype=torch.float32, device=spins.device)
+               if num_sweeps > 0 else None)
+    with torch.cuda.device(spins.device):
+        err = _kernel(name, _MULTISWEEP_ARGS)(
+            _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
+            _ptr(base_J2), _ptr(tau_J2), _ptr(beta), *(_ptr(t) for t in out), _ptr(scratch),
+            B, rows, n, sd, num_sweeps, MAX_SMEM, tile, fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32), _stream(spins.device),
+        )
+    _raise_if_failed(name, err)
+    launches[name] += 1
+    return out
 
 
 def metropolis_multisweep(
@@ -445,12 +548,15 @@ def metropolis_multisweep(
     n: int,
     num_sweeps: int,
     exp_flavor: str = "fast",
+    replica_tile: int | None = None,
 ):
     """``num_sweeps`` fused a4 sweeps of every replica, MT19937 in the
-    kernel (csrc/metropolis_multisweep.cu, one CTA per replica); the
-    fields are carried and updated incrementally.  Returns ``(spins,
-    h_space, h_tau, rng)``; the inputs are not modified.  On CPU tensors
-    this runs `ref.metropolis_multisweep_ref`."""
+    kernel (csrc/metropolis_multisweep.cu: ``replica_tile`` replicas a CTA,
+    default 1, each walked by its own 4 warps beside the CTA's generator
+    warps); the fields are carried and updated incrementally.  Returns
+    ``(spins, h_space, h_tau, rng)``; the inputs are not modified.  On CPU
+    tensors this runs `ref.metropolis_multisweep_ref` (any tile: the
+    results do not depend on it)."""
     num_sweeps = _sweeps(num_sweeps)
     dev = spins.device
     check_sweep_flavour("metropolis_multisweep", exp_flavor, dev)
@@ -459,22 +565,8 @@ def metropolis_multisweep(
             spins, h_space, h_tau, rng, base_nbr, base_J2, tau_J2, beta, n, num_sweeps,
             exp_flavor,
         )
-    B, rows, sd = _a4_inputs(
-        "metropolis_multisweep", spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n
-    )
-    _check(rng, "rng", torch.int32, (mt.N, B * LANES))
-    _same_device(dev, rng=rng)
-    out, scratch = _a4_fused_outputs(spins, h_space, h_tau, rng, num_sweeps)
-    with torch.cuda.device(dev):
-        err = _kernel("metropolis_multisweep", _MULTISWEEP_ARGS)(
-            _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
-            _ptr(base_J2), _ptr(tau_J2), _ptr(beta), *(_ptr(t) for t in out), _ptr(scratch),
-            B, rows, n, sd, num_sweeps, MAX_SMEM,
-            fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32), _stream(dev),
-        )
-    _raise_if_failed("metropolis_multisweep", err)
-    launches["metropolis_multisweep"] += 1
-    return out
+    return _a4_fused("metropolis_multisweep", False, spins, h_space, h_tau, rng, base_nbr,
+                     base_J2, tau_J2, beta, n, num_sweeps, replica_tile)
 
 
 def metropolis_multisweep_multi(
@@ -489,12 +581,12 @@ def metropolis_multisweep_multi(
     n: int,
     num_sweeps: int,
     exp_flavor: str = "fast",
+    replica_tile: int | None = None,
 ):
     """`metropolis_multisweep` where slot b sweeps its own model's tables
-    ``base_J2_b[b]``, ``tau_J2_b[b]`` (csrc/metropolis_multisweep_multi.cu,
-    one CTA per slot).  Returns ``(spins, h_space, h_tau, rng)``; the
-    inputs are not modified.  On CPU tensors this runs
-    `ref.metropolis_multisweep_multi_ref`."""
+    ``base_J2_b[b]``, ``tau_J2_b[b]`` (csrc/metropolis_multisweep_multi.cu).
+    Returns ``(spins, h_space, h_tau, rng)``; the inputs are not modified.
+    On CPU tensors this runs `ref.metropolis_multisweep_multi_ref`."""
     num_sweeps = _sweeps(num_sweeps)
     dev = spins.device
     check_sweep_flavour("metropolis_multisweep_multi", exp_flavor, dev)
@@ -503,23 +595,8 @@ def metropolis_multisweep_multi(
             spins, h_space, h_tau, rng, base_nbr, base_J2_b, tau_J2_b, beta, n, num_sweeps,
             exp_flavor,
         )
-    B, rows, sd = _a4_inputs(
-        "metropolis_multisweep_multi", spins, h_space, h_tau, base_nbr, base_J2_b, tau_J2_b,
-        beta, n, per_slot=True,
-    )
-    _check(rng, "rng", torch.int32, (mt.N, B * LANES))
-    _same_device(dev, rng=rng)
-    out, scratch = _a4_fused_outputs(spins, h_space, h_tau, rng, num_sweeps)
-    with torch.cuda.device(dev):
-        err = _kernel("metropolis_multisweep_multi", _MULTISWEEP_ARGS)(
-            _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
-            _ptr(base_J2_b), _ptr(tau_J2_b), _ptr(beta), *(_ptr(t) for t in out),
-            _ptr(scratch), B, rows, n, sd, num_sweeps, MAX_SMEM,
-            fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32), _stream(dev),
-        )
-    _raise_if_failed("metropolis_multisweep_multi", err)
-    launches["metropolis_multisweep_multi"] += 1
-    return out
+    return _a4_fused("metropolis_multisweep_multi", True, spins, h_space, h_tau, rng, base_nbr,
+                     base_J2_b, tau_J2_b, beta, n, num_sweeps, replica_tile)
 
 
 def metropolis_sweep(
@@ -549,6 +626,7 @@ def metropolis_sweep(
     )
     _check(u, "u", torch.float32, (B, rows, LANES))
     _same_device(dev, u=u)
+    spins, h_space, h_tau, u = (_aligned(t) for t in (spins, h_space, h_tau, u))
     out = [torch.empty_like(spins), torch.empty_like(h_space), torch.empty_like(h_tau)]
     with torch.cuda.device(dev):
         err = _kernel("metropolis_sweep", _SWEEP_ARGS)(

@@ -6,14 +6,15 @@ chunks — one launch of a multisweep CUDA kernel per chunk: the colored
 kernel for ``--rung cb`` (the default), the paper's sequential a4 kernel
 for ``--rung a4`` — and retiring/admitting between chunks.  The paper's
 slower rungs ``--rung a1|a2|a3`` have no kernel: they serve only with the
-plain version, which must be asked for with ``--backend torch``.
+plain version, ``--backend torch`` (the default off the card; on a CUDA
+device it must be asked for).
 
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve            # on the card
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve --rung a4  # a4, on the card
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
       --device cpu --jobs 8 --slots 4 --chunk 4 --n 8 --L 16 --V 4 [--rung a4]
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
-      --rung a2 --backend torch --device cpu --jobs 4 --slots 2 --n 8 --L 16
+      --rung a2 --device cpu --jobs 4 --slots 2 --n 8 --L 16
 
 ``--device cpu`` serves with the plain PyTorch version (``--backend``
 defaults to ``cuda`` on a CUDA device and to ``torch`` elsewhere).
@@ -22,10 +23,10 @@ Admission defaults to the weighted-fair priority scheduler
 ``--trace PATH`` writes the run's Chrome-trace-event JSON; ``--metrics``
 prints the Prometheus text exposition of the server's registry.
 
-The job mix is anneal-only: parallel-tempering jobs (``--pt-replicas``),
-device meshes (``--devices``) and snapshots (``--snapshot-dir``,
-``--snapshot-every``, ``--resume``) are not ported yet and raise
-ValueError.
+The job mix is anneal-only: parallel tempering (``--pt-replicas``,
+``--pt-rounds``, and ``--smoke``, whose mix has a PT job), device meshes
+(``--devices``) and snapshots (``--snapshot-dir``, ``--snapshot-every``,
+``--resume``) are not ported yet and raise ValueError naming the flag.
 """
 
 from __future__ import annotations
@@ -87,7 +88,9 @@ def build_job_mix(args) -> list:
 
 
 _UNPORTED_FLAGS = {
+    "smoke": "--smoke",
     "pt_replicas": "--pt-replicas",
+    "pt_rounds": "--pt-rounds",
     "devices": "--devices",
     "snapshot_dir": "--snapshot-dir",
     "snapshot_every": "--snapshot-every",
@@ -107,7 +110,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rung", default="cb",
                     help="sweep rung: cb (graph-colored, the default), a4 (the "
                          "paper's sequential order) or the paper's slower rungs "
-                         "a1-a3 (plain version only: they need --backend torch)")
+                         "a1-a3 (plain version only: --backend torch, the "
+                         "default off the card)")
     ap.add_argument("--policy", default="fair", choices=["fifo", "backfill", "fair"])
     ap.add_argument("--V", type=int, default=128)
     ap.add_argument("--n", type=int, default=8)
@@ -122,22 +126,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="print the Prometheus text exposition after the drain")
     ap.add_argument("--quiet", action="store_true", help="print nothing")
     # Not ported yet: accepted so that using them fails with a clear error.
+    ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--pt-replicas", type=int, default=0)
+    ap.add_argument("--pt-rounds", type=int, default=None)
     ap.add_argument("--devices", type=int, default=0)
     ap.add_argument("--snapshot-dir", default=None)
     ap.add_argument("--snapshot-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
     for attr, flag in _UNPORTED_FLAGS.items():
-        if getattr(args, attr):
+        if getattr(args, attr) != ap.get_default(attr):
             raise ValueError(f"{flag} is not ported to repro_torch yet")
+    if args.backend is None:
+        args.backend = "cuda" if args.device.startswith("cuda") else "torch"
     if args.rung in ("a1", "a2", "a3") and args.backend != "torch":
         raise ValueError(
             f"--rung {args.rung} has no kernel: it serves with the plain version only; "
             "pass --backend torch"
         )
-    if args.backend is None:
-        args.backend = "cuda" if args.device.startswith("cuda") else "torch"
     return args
 
 

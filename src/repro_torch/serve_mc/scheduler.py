@@ -588,7 +588,6 @@ class AdaptiveChunker:
 #: ServeConfig fields naming features that are not ported yet, with the
 #: value that means "off".
 _UNPORTED = {
-    "replica_tile": None,
     "mesh": None,
     "capacities": None,
     "stream": None,
@@ -608,8 +607,11 @@ class ServeConfig:
     defaults serve on the card: ``backend="cuda"``, ``V=128``,
     ``device="cuda"``; pass ``backend="torch", device="cpu"`` (any V) for
     the plain version on the CPU.  ``multi_tenant=True`` admits jobs that
-    carry their own model.  The fields after ``multi_tenant`` name
-    features that are not ported yet; setting one raises ValueError.
+    carry their own model.  ``replica_tile`` goes to the engine
+    (`SweepEngine.create`; backend "cuda" only).  ``placement`` is the
+    reference's slot-placement mode, "affine" or "flat": on the one device
+    this port serves on, both place alike.  The fields after ``placement``
+    name features that are not ported yet; setting one raises ValueError.
     """
 
     slots: int = 8
@@ -628,6 +630,7 @@ class ServeConfig:
     telemetry: object = True
     multi_tenant: bool = False
     replica_tile: int | None = None
+    placement: str = "affine"
     mesh: object = None
     capacities: tuple | None = None
     stream: object = None
@@ -660,6 +663,10 @@ class SampleServer:
         for name, off in _UNPORTED.items():
             if getattr(cfg, name) != off:
                 raise ValueError(f"{name} is not ported to repro_torch yet")
+        if cfg.placement not in ("affine", "flat"):
+            raise ValueError(
+                f"placement mode must be 'affine' or 'flat', got {cfg.placement!r}"
+            )
         self.config = cfg
         chunk_sweeps = cfg.chunk_sweeps
         if chunk_sweeps == "adaptive":
@@ -683,6 +690,7 @@ class SampleServer:
             V=cfg.V,
             exp_flavor=cfg.exp_flavor,
             device=cfg.device,
+            replica_tile=cfg.replica_tile,
         )
         # Idle slots hold (and keep sweeping) this placeholder state until
         # a job is spliced over it.

@@ -288,7 +288,7 @@ def test_uniform_without_conversion_is_exact():
     # And that is what the plain generator draws: mt.uniforms_from_u32.
     words = torch.from_numpy((k[::4099] << np.uint32(8)).view(np.int32))
     np.testing.assert_array_equal(mt.uniforms_from_u32(words).numpy(), want[::4099])
-    src = (ops._build.CSRC / "colored_sweep.cuh").read_text()
+    src = (ops._build.CSRC / "mt19937.cuh").read_text()
     assert "__uint_as_float(k + 0x4b000000u)" in src
     assert "(f - 8388608.0f) * 0x1p-24f : f * 0x1p-25f" in src
 

@@ -302,3 +302,109 @@ def test_sweep_kernels_refuse_other_flavours_on_the_card():
     with pytest.raises(ValueError, match="'accurate'"):
         ops.metropolis_multisweep(c.spins, c.h_space, c.h_tau, c.rng, **tabs, beta=c.betas, n=6,
                                   num_sweeps=1, exp_flavor="accurate")
+
+
+# -- the a4 kernels (#3, #4, #5), bit pattern for bit pattern -------------------
+
+_A4_PLAIN = {}
+
+
+def _bits_equal(got, want):
+    for a, b in zip(got, want, strict=True):
+        if a.dtype == torch.float32:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert torch.equal(a, b)
+
+
+def _a4_plain(n, L, B, S):
+    """The plain versions of #3, #4 (B distinct tenants) and #5 at one
+    shape, on the card, computed once: (inputs, multi tables, outputs)."""
+    key = (n, L, B, S)
+    if key not in _A4_PLAIN:
+        dev = torch.device("cuda")
+        c, tabs = _a4_case(n, L, B, dev)
+        m = ising.random_layered_model(n=n, L=L, seed=n, beta=1.0)
+        tenants = engine.SweepEngine.create(
+            [ising.reseed_couplings(m, seed=100 + k) for k in range(B)], rung="a4",
+            backend="torch", V=128, device=dev).slot_tables
+        args = (c.spins, c.h_space, c.h_tau, c.rng)
+        rows = c.spins.shape[1]
+        u = mt.mt_uniforms_count(c.rng, rows)[1].reshape(rows, B, 128).permute(1, 0, 2)
+        u = u.contiguous()
+        _A4_PLAIN[key] = (c, tabs, tenants, u, (
+            ref.metropolis_multisweep_ref(*args, **tabs, beta=c.betas, n=n, num_sweeps=S),
+            ref.metropolis_multisweep_multi_ref(*args, tabs["base_nbr"], tenants["base_J2"],
+                                                tenants["tau_J2"], c.betas, n, S),
+            ref.metropolis_sweep_ref(*args[:3], u, **tabs, beta=c.betas, n=n)))
+    return _A4_PLAIN[key]
+
+
+@pytest.mark.parametrize(
+    "n,L,B,S",
+    [(96, 256, 8, 8), (96, 256, 1, 8), (96, 256, 115, 2), (6, 384, 3, 5), (320, 256, 4, 3),
+     (96, 256, 8, 0)],
+    ids=["main", "B1", "B115", "lpv3", "rows640", "zero-sweeps"],
+)
+def test_a4_kernels_bit_patterns(n, L, B, S):
+    """#3, #4 on distinct tenants and #5 against their plain versions, bit
+    pattern for bit pattern (-0.0 != +0.0)."""
+    _need_card()
+    c, tabs, tenants, u, (want3, want4, want5) = _a4_plain(n, L, B, S)
+    args = (c.spins, c.h_space, c.h_tau, c.rng)
+    _bits_equal(ops.metropolis_multisweep(*args, **tabs, beta=c.betas, n=n, num_sweeps=S), want3)
+    _bits_equal(ops.metropolis_multisweep_multi(*args, tabs["base_nbr"], tenants["base_J2"],
+                                                tenants["tau_J2"], c.betas, n, S), want4)
+    _bits_equal(ops.metropolis_sweep(*args[:3], u, **tabs, beta=c.betas, n=n), want5)
+
+
+@pytest.mark.parametrize("n", [16, 32], ids=["rows32", "rows64"])
+def test_a4_kernels_bit_patterns_at_every_accepted_tile(n):
+    """#3 and #4 with several replicas a CTA (sharing its generator warps)
+    equal their plain versions at every tile the CTA takes, and the engine
+    takes the knob."""
+    _need_card()
+    B, S = 8, 3
+    c, tabs, tenants, _, (want3, want4, _) = _a4_plain(n, 256, B, S)
+    rows, sd = c.spins.shape[1], tabs["base_nbr"].shape[1]
+    args = (c.spins, c.h_space, c.h_tau, c.rng)
+    checked = []
+    for tile in (2, 4, 8):
+        for multi, want in ((False, want3), (True, want4)):
+            try:
+                ops.a4_smem_plan(rows, n, sd, tile, multi)
+            except ValueError:
+                continue
+            checked.append((tile, multi))
+            if multi:
+                got = ops.metropolis_multisweep_multi(*args, tabs["base_nbr"], tenants["base_J2"],
+                                                      tenants["tau_J2"], c.betas, n, S,
+                                                      replica_tile=tile)
+            else:
+                got = ops.metropolis_multisweep(*args, **tabs, beta=c.betas, n=n, num_sweeps=S,
+                                                replica_tile=tile)
+            _bits_equal(got, want)
+    assert checked
+    if (2, False) not in checked:
+        return
+    m = ising.random_layered_model(n=n, L=256, seed=n, beta=1.0)
+    tiled = engine.SweepEngine.create(m, rung="a4", backend="cuda", batch=B, replica_tile=2,
+                                      device="cuda")
+    plain = engine.SweepEngine.create(m, rung="a4", backend="torch", batch=B, device="cuda")
+    carry = plain.init_carry(seed=5)
+    _bits_equal(tiled.run(carry, S), plain.run(carry, S))
+
+
+def test_a4_server_with_a_replica_tile_matches_plain():
+    _need_card()
+    m = ising.random_layered_model(n=8, L=256, seed=0, beta=1.2)
+    out = []
+    for backend, tile in (("cuda", 2), ("torch", None)):
+        server = SampleServer(m, slots=4, chunk_sweeps=4, rung="a4", backend=backend,
+                              device="cuda", replica_tile=tile)
+        for i in range(6):
+            server.submit(AnnealJob.constant(seed=i, sweeps=5 + 3 * i, beta=0.5 + 0.2 * i))
+        out.append({r.jid: r for r in server.drain()})
+    for jid, r in out[0].items():
+        np.testing.assert_array_equal(r.spins, out[1][jid].spins)
+        assert r.energy == out[1][jid].energy

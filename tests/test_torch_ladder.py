@@ -13,7 +13,7 @@
 * served a1-a3 jobs against the reference's `SampleServer(rung=...)`
   under fifo and fair;
 * the CLI with ``--rung a2 --backend torch``, and the refusals: the
-  "cuda" backend and a CLI without ``--backend torch`` refuse a1-a3.
+  "cuda" backend refuses a1-a3, in the engine, the server and the CLI.
 """
 
 import dataclasses
@@ -345,6 +345,8 @@ def test_cuda_backend_refuses_the_slower_rungs(rung):
         engine.SweepEngine.create(tm, rung=rung, backend="cuda", V=128, device="cuda")
     with pytest.raises(ValueError, match="\\('a4', 'cb'\\)"):
         SampleServer(tm, slots=2, rung=rung, backend="cuda", V=128, device="cuda")
-    for extra in ([], ["--backend", "cuda"]):
+    # The CLI's backend defaults to cuda on a CUDA device (off it to torch,
+    # which serves these rungs).
+    for extra in (["--device", "cuda"], ["--device", "cpu", "--backend", "cuda"]):
         with pytest.raises(ValueError, match="--backend torch"):
-            anneal_serve.main(["--rung", rung, "--device", "cpu"] + extra)
+            anneal_serve.main(["--rung", rung] + extra)

@@ -182,9 +182,9 @@ def test_cli_serves_on_cpu(tmp_path, capsys, rung):
 
 @pytest.mark.parametrize(
     "flag", [["--pt-replicas", "3"], ["--devices", "4"], ["--snapshot-dir", "x"],
-             ["--snapshot-every", "8"], ["--resume"]],
-    ids=["pt", "devices", "snapshot-dir", "snapshot-every", "resume"],
+             ["--snapshot-every", "8"], ["--resume"], ["--smoke"], ["--pt-rounds", "2"]],
+    ids=["pt", "devices", "snapshot-dir", "snapshot-every", "resume", "smoke", "pt-rounds"],
 )
 def test_cli_rejects_unported_flags(flag):
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=f"{flag[0]} is not ported"):
         anneal_serve.main(["--device", "cpu", "--V", "4", "--L", "16"] + flag)
