@@ -35,7 +35,9 @@ its final ok line; no phase catches an exception):
      main shape, three layer blocks, rows=640 with two generator blocks a
      sweep and the fields in device memory, 0 sweeps), and at every
      replica tile a CTA takes at the shapes of `A4_TILE_CHECKS`; the
-     MT19937 block in both flavours on (624, 128) and (624, 1024); both
+     MT19937 block in both flavours, bit patterns, at every V of
+     `MT_CHECK_V` (a partial tile, odd counts, B=8 and B=115 lanes), one
+     block and 5 chained blocks; both
      multi-tenant kernels on 8 copies of one model against the
      single-model kernel.  Each plain multisweep
      on the card is also held against the plain version on the CPU at
@@ -44,7 +46,9 @@ its final ok line; no phase catches an exception):
      and the plain version on the card against the CPU's, bit for bit:
      2^20 uniforms in [-200, 200], the grid [-180, -80] (where the flush
      of subnormal results decides), +-0, +-inf, NaN, subnormals, +-1e10,
-     shapes (7,), (1000,), (3, 5, 11), float16 and bfloat16 input;
+     shapes (7,), (1000,), (3, 5, 11), float16 and bfloat16 input; then
+     the kernel against the plain version on the card over all 2^32
+     float32 bit patterns, NaNs unified;
   4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
      (constants and ramps, 64-256 sweeps) at the paper's per-model width
      (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
@@ -53,7 +57,8 @@ its final ok line; no phase catches an exception):
      bit-identical to the same jobs served with the plain version on the
      card, and the rung's kernel must have been launched once per served
      chunk (launch counts are zeroed just before each run and read just
-     after);
+     after); the drain's wall split into admission, launches and the rest
+     of each step, from the server's telemetry events;
   5. multi-tenant serving, once per rung: `SampleServer(multi_tenant=True)`
      at the same width, 8 slots, chunks of 8, 16 anneal jobs (constants and
      ramps, 64-256 sweeps), job i on tenant i % 8 of 8 reseeded tenants,
@@ -67,7 +72,8 @@ its final ok line; no phase catches an exception):
      just after; it must end in the fused kernel's carry, bit for bit;
   7. timings from CUDA events: each kernel and its plain version at B=8
      and B=115 (the multi-tenant kernels on B distinct tenants; the cb
-     kernels also at 4 warp groups), the least time the card could take
+     kernels also at 4 warp groups; #5 and #6 on the card alone), the
+     least time the card could take
      (bytes or operations), the cb launch's split into fixed cost, class
      walk and generator at each warp-group count, the a4 launch's split
      into fixed cost, row walk and generator, the launch-structure
@@ -81,7 +87,8 @@ its final ok line; no phase catches an exception):
      error envelopes; then each flavour of the kernel, its plain
      version and `torch.exp` (the paper's exact-exp baseline, not a library
      form of the kernel) timed with a cold L2 at 2^20, 2,826,240 and 2^26
-     elements, with GB/s and the bytes bound, and the Figure-17 relative
+     elements (L2 clean, and as the flush leaves it dirty), with GB/s and
+     the bytes bound, and the Figure-17 relative
      error (min, max, mean) of the card's outputs on the 400,001-point grid;
   9. the ladder: one engine sweep on the card with the plain version of
      rungs a3 (n=96, L=256, B=1; bit-equal to the a4 engine through kernel
@@ -178,6 +185,11 @@ A4_CHECKS = (
     ("rows=640: 2 generator blocks a sweep, fields in device memory", 320, 256, 4, 3),
     ("0 sweeps", MAIN_N, MAIN_L, MAIN_SLOTS, 0),
 )
+#: Generator columns #6 is held bit-equal at (a partial tile, odd and
+#: even counts, B=8 and B=115 lanes), one block and `MT_CHAINED` chained
+#: blocks, both flavours.
+MT_CHECK_V = (1, 31, 33, 200, 1024, 115 * LANES)
+MT_CHAINED = 5
 #: Shapes where replica tiles > 1 fit: (n, L, B, sweeps); rows 32 and 64.
 A4_TILE_CHECKS = ((16, MAIN_L, MAIN_SLOTS, 5), (32, MAIN_L, MAIN_SLOTS, 3))
 #: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
@@ -358,16 +370,23 @@ def cuda_ms_queued(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cuda_ms_cold(fn, reps: int, flush: torch.Tensor) -> float:
+def cuda_ms_cold(fn, reps: int, flush: torch.Tensor, clean: torch.Tensor | None = None) -> float:
     """Mean ms of ``fn`` with a cold L2: ``flush`` (larger than the 50 MB
     L2) is rewritten before each call, and only the call is timed, by a
     pair of CUDA events around it.  The card then spins for ~1 ms, so the
     host has queued the events and the call before the card reaches them:
-    the time is the card's, not the host's launch overhead."""
+    the time is the card's, not the host's launch overhead.
+
+    The rewrite leaves L2 full of dirty lines, whose write-back the timed
+    call pays for as it evicts them.  ``clean`` (also larger than L2) is
+    then read after the rewrite, so L2 holds only clean lines and the call
+    pays for its own traffic alone."""
     fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        if clean is not None:
+            torch.sum(clean)
         torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -540,6 +559,30 @@ def warp_groups(W: int):
         ops.COLORED_WARP_GROUPS = before
 
 
+def check_mt(dev) -> float:
+    """#6 in both flavours against its plain version on the card, bit for
+    bit: the new state and the output of one block, and of `MT_CHAINED`
+    blocks chained through the kernel's own state, at every V of
+    `MT_CHECK_V`.  Returns the max |kernel - plain| of the uniforms."""
+    from repro_torch.kernels import ops, ref
+
+    err = 0.0
+    for V in MT_CHECK_V:
+        start = mt_state(V, dev, seed=V)
+        for kern, plain, out in ((ops.mt_next_block, ref.mt_next_block_ref, "words"),
+                                 (ops.mt_uniforms, ref.mt_uniforms_ref, "uniforms")):
+            got, want = start, start
+            for b in range(MT_CHAINED):
+                got, got_out = kern(got)
+                want, want_out = plain(want)
+                err = max(err, assert_same((got, got_out), (want, want_out),
+                                           f"MT block (624, {V}) {out}, block {b + 1}",
+                                           names=("state", out), bits=True))
+    print(f"[check mt] (624, V) at V = {', '.join(map(str, MT_CHECK_V))}, one block and "
+          f"{MT_CHAINED} chained: tempered words and uniforms, kernel == plain (bit patterns)")
+    return err
+
+
 def accepted_tiles(rows: int, n: int, sd: int, B: int, multi: bool) -> list[int]:
     """The replica tiles > 1 that divide B and that an a4 CTA takes at this
     shape (`ops.a4_smem_plan`)."""
@@ -686,6 +729,7 @@ def serve_checked(rung: str) -> tuple:
                 and g.sweeps_done == r.sweeps_done and g.chunks == r.chunks
                 and g.extras["final_beta"] == r.extras["final_beta"]):
             raise AssertionError(f"{rung} job {r.jid}: kernel-served result != plain-served result")
+    host_split(rung, report.server, report.seconds)
     if list(report.server._retired) != list(plain_report.server._retired):
         raise AssertionError(f"{rung}: retirement order differs between kernel and plain serving")
     sweeps_s = served["busy_slot_sweeps"] / report.seconds
@@ -696,6 +740,36 @@ def serve_checked(rung: str) -> tuple:
           f"{len(report.results) / report.seconds:.1f} jobs/s; plain-served on the card: "
           f"{plain_report.seconds:.3f} s; results bit-identical")
     return report, launches
+
+
+def host_split(what: str, server, seconds: float) -> None:
+    """Print where a served drain's wall time went, as shares of it, from
+    the server's own telemetry events: admission (the `sched.admit`
+    spans), the launches (`engine.launch`: enqueue to the card's finish),
+    the rest of each step (retire, finalize, gauges: `sched.step` less
+    those two) and the time outside the steps (the drain loop)."""
+    tel = server.telemetry
+    if tel.dropped_events:
+        raise AssertionError(f"{what}: the telemetry ring dropped {tel.dropped_events} events")
+    total = {"sched.step": 0.0, "sched.admit": 0.0, "engine.launch": 0.0}
+    opened, steps = {}, 0
+    for ev in tel.events():
+        name = ev["name"]
+        if name not in total:
+            continue
+        if ev["ph"] == "B":
+            opened[name] = ev["ts"]
+        elif ev["ph"] == "E":
+            total[name] += ev["ts"] - opened.pop(name)
+            steps += name == "sched.step"
+        elif ev["ph"] == "X":
+            total[name] += ev["dur"]
+    wall = seconds * 1e6
+    step, admit, launch = total["sched.step"], total["sched.admit"], total["engine.launch"]
+    print(f"[host split {what}] {steps} steps in {seconds:.3f} s, shares of the wall: admit "
+          f"{admit / wall:.3f}, launch {launch / wall:.3f} (enqueue to the card's finish), the "
+          f"rest of the step (retire, finalize) {(step - admit - launch) / wall:.3f}, outside the "
+          f"steps {(wall - step) / wall:.3f} (telemetry on)")
 
 
 def multi_job_specs(base, tenant_models) -> list:
@@ -879,6 +953,34 @@ def check_fastexp(dev) -> float:
     return err
 
 
+def check_fastexp_exhaustive(dev, chunk: int = 2**28) -> None:
+    """#7 in both flavours against its plain version on the card over all
+    2^32 float32 bit patterns, ``chunk`` at a time, bit for bit with NaNs
+    unified (a NaN in both is equal whatever its payload)."""
+    from repro_torch.kernels import ops, ref
+
+    nan_bits = torch.tensor(0x7FC00000, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    nans = dict.fromkeys(("fast", "accurate"), 0)
+    for lo in range(-(2**31), 2**31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device=dev).view(torch.float32)
+        for flavor in nans:
+            got, want = ops.fastexp(x, flavor), ref.fastexp_ref(x, flavor)
+            g, w = (torch.where(t.isnan(), nan_bits, t.view(torch.int32)) for t in (got, want))
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()
+                i = int(bad[0])
+                raise AssertionError(
+                    f"fastexp {flavor}: {bad.shape[0]} of the {chunk} bit patterns from {lo:#x} "
+                    f"differ, first x bits {lo + i:#010x}: {got[i].item()} vs {want[i].item()}")
+            nans[flavor] += int(got.isnan().sum())
+        del x, got, want, g, w
+    torch.cuda.synchronize()
+    print(f"[check fastexp] all 2^32 float32 bit patterns, chunks of {chunk:,}: fast and accurate: "
+          f"kernel == plain (bit-equal, NaNs unified; NaN results: fast {nans['fast']:,}, "
+          f"accurate {nans['accurate']:,}) in {time.perf_counter() - t0:.1f} s")
+
+
 def rel_err_stats(got: torch.Tensor, x: torch.Tensor) -> tuple[float, float, float]:
     """min, max and mean of got / exp(x) - 1 (float64 exp of the float32 x)."""
     r = got.double() / torch.exp(x.double()) - 1.0
@@ -920,26 +1022,37 @@ def fastexp_path(dev) -> tuple[dict, float]:
 
 def time_fastexp(dev) -> dict:
     """Each flavour of #7, its plain version and `torch.exp` with a cold
-    L2, at `FASTEXP_SIZES`; then the Figure-17 error of the card's outputs.
-    Returns {(flavor, n): (kernel ms, plain ms, torch.exp ms, bound)}."""
+    L2, at `FASTEXP_SIZES`, by both flushes of `cuda_ms_cold` (L2 left
+    dirty, and clean); then the Figure-17 error of the card's outputs.
+    Returns {(flavor, n): (kernel ms, plain ms, torch.exp ms, bound, kernel
+    ms with L2 left dirty, torch.exp ms with L2 left dirty)}."""
     from repro_torch.kernels import ops, ref
 
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)  # 128 MB > L2
+    clean = torch.ones(32 * 2**20, dtype=torch.float32, device=dev)
     gen = torch.Generator(device="cpu").manual_seed(1)
     out = {}
     for n in FASTEXP_SIZES:
         x = (torch.rand(n, generator=gen) * 40.0 - 20.0).to(dev)
-        t_exp = cuda_ms_cold(lambda: torch.exp(x), 20, flush)
+        t_exp = cuda_ms_cold(lambda: torch.exp(x), 20, flush, clean)
+        t_exp_dirty = cuda_ms_cold(lambda: torch.exp(x), 20, flush)
         for flavor in ("fast", "accurate"):
-            t_k = cuda_ms_cold(lambda: ops.fastexp(x, flavor), 20, flush)
-            t_p = cuda_ms_cold(lambda: ref.fastexp_ref(x, flavor), 5, flush)
+            t_k = cuda_ms_cold(lambda: ops.fastexp(x, flavor), 20, flush, clean)
+            t_k_dirty = cuda_ms_cold(lambda: ops.fastexp(x, flavor), 20, flush)
+            t_p = cuda_ms_cold(lambda: ref.fastexp_ref(x, flavor), 5, flush, clean)
+            t_p_dirty = cuda_ms_cold(lambda: ref.fastexp_ref(x, flavor), 5, flush)
             b = bound(fastexp_counts(n, flavor))
-            out[flavor, n] = (t_k, t_p, t_exp, b)
+            out[flavor, n] = (t_k, t_p, t_exp, b, t_k_dirty, t_exp_dirty)
             gbs = 8 * n / (t_k * 1e-3) / 1e9
-            print(f"[time fastexp] n={n:,} {flavor}: kernel {t_k:.4f} ms ({gbs:.0f} GB/s), plain "
+            verdict = ("at half its bound or above" if b[0] / t_k >= 0.5 else "under half its bound")
+            print(f"[time fastexp] n={n:,} {flavor}, clean cold L2: kernel {t_k:.4f} ms ({gbs:.0f} "
+                  f"GB/s, {b[0] / t_k:.3f} of the bound: {verdict}; "
+                  f"{'no slower' if t_k <= t_exp else 'slower'} than torch.exp), plain "
                   f"{t_p:.4f} ms, torch.exp (the paper's exact-exp baseline) {t_exp:.4f} ms "
                   f"({8 * n / (t_exp * 1e-3) / 1e9:.0f} GB/s); bound {b[0]:.5f} ms ({b[1]}, "
                   f"8 B an element at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+            print(f"[time fastexp] n={n:,} {flavor}, L2 left dirty by the flush: kernel "
+                  f"{t_k_dirty:.4f} ms, plain {t_p_dirty:.4f} ms, torch.exp {t_exp_dirty:.4f} ms")
     grid = torch.linspace(ACCURATE_LO + 0.01, ACCURATE_HI - 0.01, 400_001, dtype=torch.float64)
     grid = grid.float().to(dev)
     for flavor in ("fast", "accurate"):
@@ -1049,14 +1162,9 @@ def main(argv: list[str]) -> int:
     (err["metropolis_multisweep"], err["metropolis_multisweep_multi"],
      err["metropolis_sweep"]) = check_a4(dev)
     main_case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev)
-    for V in (LANES, 8 * LANES):
-        state = mt_state(V, dev, seed=V)
-        for kern, pl, out in ((ops.mt_next_block, ref.mt_next_block_ref, "words"),
-                              (ops.mt_uniforms, ref.mt_uniforms_ref, "uniforms")):
-            err["mt_next_block"] = max(err["mt_next_block"], assert_same(
-                kern(state), pl(state), f"MT block (624, {V}) {out}", names=("state", out)))
-        print(f"[check mt] (624, {V}): tempered words and uniforms: kernel == plain (bit-equal)")
+    err["mt_next_block"] = check_mt(dev)
     err["fastexp_2d"] = check_fastexp(dev)
+    check_fastexp_exhaustive(dev)
     if quick:
         print(f"quick checks passed in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -1096,16 +1204,18 @@ def main(argv: list[str]) -> int:
             cuda_ms(lambda: c.fused(c.inputs, 8), reps=20),
             cuda_ms(lambda: c.plain(c.inputs, 8), reps=1, warmup=1),
             bound(a4_counts(B, c.rows, sd, 8), B))
+        # #5 and #6 on the card alone: their launches are about as short
+        # as their wrappers' host time.
         times["metropolis_sweep"][B] = (
-            cuda_ms(lambda: c.sweep(c.inputs, c.uniforms), reps=50),
+            cuda_ms_queued(lambda: c.sweep(c.inputs, c.uniforms), reps=50),
             cuda_ms(lambda: c.sweep_plain(c.inputs, c.uniforms), reps=2, warmup=1),
             bound(sweep_counts(B, c.rows, sd), B))
         state = c.inputs[3]
         times["mt_next_block"][B] = (
-            cuda_ms(lambda: ops.mt_uniforms(state), reps=100),
+            cuda_ms_queued(lambda: ops.mt_uniforms(state), reps=50),
             cuda_ms(lambda: ref.mt_uniforms_ref(state), reps=10),
             bound(mt_counts(B * LANES, uniforms=True)))
-        t_words = cuda_ms(lambda: ops.mt_next_block(state), reps=100)
+        t_words = cuda_ms_queued(lambda: ops.mt_next_block(state), reps=50)
         for rung, extra in (("cb", 2), ("a4", 1)):
             mc = multi_case(rung, MAIN_N, MAIN_L, B, dev, seed=B)
             sd_m = mc.m.space_degree
@@ -1135,7 +1245,8 @@ def main(argv: list[str]) -> int:
                   f"{times['colored_multisweep'][B][0]:.4f} / "
                   f"{times['colored_multisweep_multi'][B][0]:.4f} ms)")
         print(f"[time mt_next_block] B={B}: (624, {B * LANES}) uniforms {times['mt_next_block'][B][0]:.4f}"
-              f" ms, tempered words {t_words:.4f} ms (bound {bound(mt_counts(B * LANES, False))[0]:.5f} ms)")
+              f" ms, tempered words {t_words:.4f} ms (bound {bound(mt_counts(B * LANES, False))[0]:.5f} ms)"
+              f", card alone")
     # Where a colored launch's time goes, B=8, at each warp-group count,
     # timed on the card alone (a 0-sweep launch is shorter than its
     # wrapper's host time): fixed cost (0 sweeps), per-sweep cost (1 vs 8
@@ -1192,14 +1303,19 @@ def main(argv: list[str]) -> int:
           f"memory): {split[384, 8]:.4f} ms")
     # Launch structure (the reference's launch_structure_compare): one
     # fused launch of 8 sweeps against, per sweep, the block kernel and one
-    # sweep launch; both must end in the same carry.
+    # sweep launch; both must end in the same carry.  Timed back to back
+    # (the host's rate where it is the slower) and on the card alone.
     for B in (1, MAIN_SLOTS, 115):
         c = a4_case(MAIN_N, MAIN_L, B, dev, seed=100 + B)
         assert_same(c.per_sweep(c.inputs, 8), c.fused(c.inputs, 8), f"launch structure B={B}")
         t_f = cuda_ms(lambda: c.fused(c.inputs, 8), reps=10)
         t_s = cuda_ms(lambda: c.per_sweep(c.inputs, 8), reps=10)
+        q_f = cuda_ms_queued(lambda: c.fused(c.inputs, 8), reps=10)
+        q_s = cuda_ms_queued(lambda: c.per_sweep(c.inputs, 8), reps=3)
         print(f"[launch structure] B={B} n={MAIN_N} L={MAIN_L} 8 sweeps: fused {t_f * 1e3 / 8:.2f} "
-              f"us/sweep, per-sweep {t_s * 1e3 / 8:.2f} us/sweep ({t_s / t_f:.3f}x); same carry")
+              f"us/sweep, per-sweep {t_s * 1e3 / 8:.2f} us/sweep ({t_s / t_f:.3f}x); card alone: "
+              f"fused {q_f * 1e3 / 8:.2f}, per-sweep {q_s * 1e3 / 8:.2f} us/sweep "
+              f"({q_s / q_f:.3f}x); same carry")
     # Sweep order (the reference's colored_vs_sequential), B=8.
     us_a4 = times["metropolis_multisweep"][MAIN_SLOTS][0] * 1e3 / 8
     us_cb = times["colored_multisweep"][MAIN_SLOTS][0] * 1e3 / 8
@@ -1253,11 +1369,12 @@ def main(argv: list[str]) -> int:
         extra = {}
         if name == "fastexp_2d":
             # The "fast" flavour at the paper's one-sweep size; "accurate" beside it.
-            t_k, t_p, _, (b_ms, b_by, _) = exp_times["fast", FASTEXP_MAIN]
-            t_ka, t_pa, t_exp, (b_a, _, _) = exp_times["accurate", FASTEXP_MAIN]
+            t_k, t_p, _, (b_ms, b_by, _), t_kd, t_expd = exp_times["fast", FASTEXP_MAIN]
+            t_ka, t_pa, t_exp, (b_a, _, _), t_kad, _ = exp_times["accurate", FASTEXP_MAIN]
             main_launches[name] = exp_launches[name]
             extra = {"elements": FASTEXP_MAIN, "accurate_ms": t_ka, "accurate_plain_ms": t_pa,
-                     "accurate_bound_ms": b_a, "torch_exp_ms": t_exp}
+                     "accurate_bound_ms": b_a, "torch_exp_ms": t_exp, "ms_l2_dirty": t_kd,
+                     "accurate_ms_l2_dirty": t_kad, "torch_exp_ms_l2_dirty": t_expd}
         else:
             t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
         entries.append({

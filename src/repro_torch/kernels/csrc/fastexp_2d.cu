@@ -20,11 +20,13 @@
 // float32 result once: (input bytes + 4) * n bytes, 0.16 ms for 2^26
 // float32 elements at the HBM rate.  "fast" does 5 operations an element,
 // far under that, so bytes bound it; the design moves each byte once, in
-// full 16-byte accesses (on an H100 at 2^26: 2.9 TB/s, as fast as
-// torch.exp).  "accurate" adds about 7 float operations and two float64
-// square roots and divisions, each a sequence of float64 instructions;
-// at 2^26 it takes 1.3x the time of "fast", so those, not the bytes, set
-// its time.
+// full 16-byte accesses (on an H100 at 2^26: 3.06 TB/s, as fast as
+// torch.exp).  "accurate" adds the clip and two reciprocal square roots
+// in float32 (rsqrt_f32, fastexp.cuh: an approximate rsqrt and about a
+// dozen float32 operations each; with float64 square roots and divisions
+// it took 1.24x longer): at 2^26 it takes 1.09x the time of "fast".  A grid of two waves with 4 vectors a thread in flight, or 2
+// vectors a thread, or evict-first (.cs) loads and stores, were no faster
+// on the card (PERF.md), so each thread takes one vector.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

@@ -1,10 +1,12 @@
-// Interlaced MT19937 on the card: one thread per generator column.
+// Interlaced MT19937 on the card.
 //
 // The state is (624, V) words, row-major, one generator per column
-// (core/mt19937.py); a thread that owns column c reads and writes words
-// c, c+V, c+2V, ..., so a warp's access to one state row is 32
-// neighbouring words.  Shared by every kernel that draws uniforms:
-// colored_multisweep.cu, metropolis_multisweep.cu and mt_next_block.cu.
+// (core/mt19937.py).  Every kernel here advances it with the split twist
+// (twist_block below): each warp, or group of threads, owns a run of
+// rows in each of MT19937's three dependence phases, 4 neighbouring
+// columns a thread in 16-byte words.  Shared by every kernel that draws
+// uniforms: colored_multisweep.cu (colored_sweep.cuh),
+// metropolis_multisweep.cu (a4_sweep.cuh) and mt_next_block.cu.
 
 #pragma once
 
@@ -15,7 +17,6 @@ namespace {
 
 constexpr int MT_N = 624;
 constexpr int MT_M = 397;
-constexpr int TWIST_AHEAD = 8;  // rows loaded before any is stored; < 227
 constexpr uint32_t MATRIX_A = 0x9908B0DFu;
 constexpr uint32_t UPPER_MASK = 0x80000000u;
 constexpr uint32_t LOWER_MASK = 0x7FFFFFFFu;
@@ -27,50 +28,12 @@ __device__ __forceinline__ uint32_t twist_word(uint32_t u, uint32_t v, uint32_t 
   return m ^ (y >> 1) ^ ((y & 1u) * MATRIX_A);
 }
 
-struct NoEmit {
-  __device__ void operator()(int, uint32_t) const {}
-};
-
-// One block advance of one generator column (row stride ld words).
-// dst == src is the textbook in-place loop.  dst != src reads the old
-// state from src and writes the new one to dst; the terms that the in-place
-// loop reads after they were rewritten (m for i >= 227, v for i = 623) are
-// read from dst.  Loads run TWIST_AHEAD rows ahead of stores: a row's new
-// value is read back no sooner than 227 rows later, so that is safe.
-// emit(i, word) sees each new word as it is stored, so a caller can write
-// it out (tempered) without reading the column back.
-template <class Emit = NoEmit>
-__device__ void twist_column(const uint32_t* src, uint32_t* dst, size_t ld,
-                             const Emit& emit = Emit()) {
-  for (int i0 = 0; i0 < MT_N; i0 += TWIST_AHEAD) {
-    uint32_t u[TWIST_AHEAD], v[TWIST_AHEAD], m[TWIST_AHEAD];
-#pragma unroll
-    for (int k = 0; k < TWIST_AHEAD; ++k) {
-      const int i = i0 + k;
-      u[k] = src[i * ld];
-      v[k] = (i + 1 < MT_N) ? src[(i + 1) * ld] : dst[0];
-      m[k] = (i + MT_M < MT_N) ? src[(i + MT_M) * ld] : dst[(i + MT_M - MT_N) * ld];
-    }
-#pragma unroll
-    for (int k = 0; k < TWIST_AHEAD; ++k) {
-      const uint32_t w = twist_word(u[k], v[k], m[k]);
-      dst[(i0 + k) * ld] = w;
-      emit(i0 + k, w);
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t temper(uint32_t y) {
   y ^= y >> 11;
   y ^= (y << 7) & TEMPER_B;
   y ^= (y << 15) & TEMPER_C;
   y ^= y >> 18;
   return y;
-}
-
-// Temper, keep the 24 high bits, scale to [0, 1).
-__device__ __forceinline__ float uniform24(uint32_t y) {
-  return (float)(temper(y) >> 8) * (1.0f / 16777216.0f);
 }
 
 // The split twist: one block advance of 128 columns spread over several
@@ -82,7 +45,9 @@ __device__ __forceinline__ float uniform24(uint32_t y) {
 // in the same phase: every run's first row past its end is loaded before a
 // barrier that precedes every store, and inside its own run a warp reads a
 // row before it rewrites it.  Used by the colored sweeps
-// (colored_sweep.cuh) and the a4 sweeps' generator warps (a4_sweep.cuh).
+// (colored_sweep.cuh), the a4 sweeps' generator warps (a4_sweep.cuh) and
+// the block kernel (mt_next_block.cu), which runs it on groups of threads
+// narrower than a warp.
 
 constexpr int MT_SPAN = MT_N - MT_M;  // 227: rows of a twist phase
 constexpr int TWIST4_AHEAD = 4;  // generator rows loaded before any is stored; < 227
@@ -135,8 +100,9 @@ __device__ void twist_rows(const uint4* src, uint4* dst, const uint4* mbase, int
   }
 }
 
-// One block advance of 128 generator columns by `warps` warps (this one
-// is `warp`), 4 columns a thread (src, dst: the thread's 16-byte column;
+// One block advance of a tile of generator columns (128 for the sweeps)
+// by `warps` warps, or groups of threads that span the tile (this one is
+// `warp`), 4 columns a thread (src, dst: the thread's 16-byte column;
 // dst == src is in place).  `bar` synchronizes those warps: the whole CTA
 // (CtaBarrier) or a named barrier of just them.  Ends with a barrier, so
 // every new word and every emitted uniform is visible to them.
@@ -161,11 +127,12 @@ __device__ void twist_block(const uint4* src, uint4* dst, unsigned ld4, int warp
   }
 }
 
-// uniform24 (mt19937.cuh) without its int->float conversion, which issues
-// at a quarter of the integer rate: the 24-bit k of the tempered word is
-// 2^23 + k (k < 2^23) or 2k (k >= 2^23) as the float 0x4b000000 + k, and
-// both scalings are exact.  Bit-equal to uniform24 for every word (all
-// 2^24 values of k, checked in tests/test_torch_colored_layout.py).
+// The 24-bit uniform of a word: its tempered 24 high bits k as
+// float(k) * 2^-24, without an int->float conversion, which issues at a
+// quarter of the integer rate: k is 2^23 + k (k < 2^23) or 2k (k >= 2^23)
+// as the float 0x4b000000 + k, and both scalings are exact.  Bit-equal to
+// the conversion for every word (all 2^24 values of k, checked in
+// tests/test_torch_colored_layout.py).
 __device__ __forceinline__ float uniform_of(uint32_t y) {
   const uint32_t k = temper(y) >> 8;
   const float f = __uint_as_float(k + 0x4b000000u);

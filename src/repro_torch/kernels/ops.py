@@ -650,30 +650,26 @@ def _mt_block(state: torch.Tensor, uniforms: bool):
     if dev.type == "cpu":
         return (ref.mt_uniforms_ref if uniforms else ref.mt_next_block_ref)(state)
     _need_cuda(name, dev)
-    if state.dim() != 2 or state.shape[1] < 1:
-        raise ValueError(f"state: want ({mt.N}, V) with V >= 1, got {tuple(state.shape)}")
+    if state.dim() != 2 or state.shape[1] < 1 or mt.N * state.shape[1] >= 2**31:
+        raise ValueError(f"state: want ({mt.N}, V) with 1 <= V < 2^31 / {mt.N}, "
+                         f"got {tuple(state.shape)}")
     V = state.shape[1]
     _check(state, "state", torch.int32, (mt.N, V))
-    pad = (-V) % LANES
-    if pad:  # dummy generators on the padding columns; their output is dropped
-        state = torch.cat([state, state.new_zeros((mt.N, pad))], dim=1)
     new = torch.empty_like(state)
     out = torch.empty(state.shape, dtype=torch.float32 if uniforms else torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _kernel("mt_next_block", _MT_ARGS)(
-            _ptr(state), _ptr(new), _ptr(out), V + pad, int(uniforms), _stream(dev)
+            _ptr(state), _ptr(new), _ptr(out), V, int(uniforms), _stream(dev)
         )
     _raise_if_failed(name, err)
     launches["mt_next_block"] += 1
-    if pad:
-        return new[:, :V].contiguous(), out[:, :V].contiguous()
     return new, out
 
 
 def mt_next_block(state: torch.Tensor):
     """Advance the (624, V) interlaced state by one block: ``(new_state,
     tempered words)``, int32 storage of uint32 bits.  One launch of
-    csrc/mt_next_block.cu (V padded to a multiple of 128); on CPU tensors
+    csrc/mt_next_block.cu (any V >= 1); on CPU tensors
     `ref.mt_next_block_ref`."""
     return _mt_block(state, uniforms=False)
 

@@ -277,8 +277,8 @@ def test_uniform_without_conversion_is_exact():
     """The colored kernels turn a tempered word's 24 high bits k into the
     uniform k * 2^-24 without an int->float conversion (colored_sweep.cuh:
     uniform_of): the float with bits 0x4b000000 + k is 2^23 + k for
-    k < 2^23 and 2k above.  Both branches equal uniform24's float(k) *
-    2^-24 bit for bit over all 2^24 values of k."""
+    k < 2^23 and 2k above.  Both branches equal the conversion's float(k)
+    * 2^-24 bit for bit over all 2^24 values of k."""
     k = np.arange(2**24, dtype=np.uint32)
     want = k.astype(np.float32) * np.float32(1.0 / 16777216.0)
     f = (k + np.uint32(0x4B000000)).view(np.float32)

@@ -92,17 +92,51 @@ def test_a4_sweep_kernel_bit_equals_plain(n, L, B):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("V", [128, 1024, 200])
+#: Generator columns #6 is checked at: a partial tile of 16 columns,
+#: odd counts (word-by-word stores), whole tiles, B=8 and B=115 lanes.
+MT_V = [1, 31, 32, 33, 128, 200, 1024, 14720]
+
+
+@pytest.mark.parametrize("V", MT_V)
 def test_mt_block_kernel_bit_equals_plain(V):
     _need_card()
     state = mt.mt_init(np.arange(V, dtype=np.uint32) * 2654435761 + 5, "cuda")
     for kernel, plain in ((ops.mt_next_block, ref.mt_next_block_ref),
                           (ops.mt_uniforms, ref.mt_uniforms_ref)):
         for a, b in zip(kernel(state), plain(state)):
-            assert torch.equal(a, b)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     s1, u1 = ops.mt_uniforms_count(state, 1300)
     s2, u2 = mt.mt_uniforms_count(state, 1300)
     assert torch.equal(s1, s2) and torch.equal(u1, u2)
+
+
+@pytest.mark.parametrize("V", MT_V)
+def test_mt_block_kernel_bit_equals_plain_after_chained_blocks(V):
+    """Five blocks chained through the kernel's own state, both flavours,
+    each block's state and output bit pattern for bit pattern."""
+    _need_card()
+    start = mt.mt_init(np.arange(V, dtype=np.uint32) * 2654435761 + 11, "cuda")
+    for kernel, plain in ((ops.mt_next_block, ref.mt_next_block_ref),
+                          (ops.mt_uniforms, ref.mt_uniforms_ref)):
+        got = want = start
+        for _ in range(5):
+            (got, got_out), (want, want_out) = kernel(got), plain(want)
+            assert torch.equal(got, want)
+            assert torch.equal(got_out.view(torch.int32), want_out.view(torch.int32))
+
+
+def test_mt_block_kernel_takes_a_state_off_a_16_byte_boundary():
+    """A state view that starts 4 bytes into its storage goes word by
+    word and gives the same bits."""
+    _need_card()
+    V = 128
+    base = mt.mt_init(np.arange(V + 1, dtype=np.uint32) * 2654435761 + 3, "cuda").reshape(-1)
+    state = base[1:1 + mt.N * V].view(mt.N, V)
+    assert state.data_ptr() % 16 == 4 and state.is_contiguous()
+    for kernel, plain in ((ops.mt_next_block, ref.mt_next_block_ref),
+                          (ops.mt_uniforms, ref.mt_uniforms_ref)):
+        for a, b in zip(kernel(state), plain(state)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("rung", ["cb", "a4"])
@@ -293,6 +327,22 @@ def test_fastexp_kernel_shapes_and_dtypes(shape, dtype):
     # A view that starts off a 16-byte boundary takes the element-wise path.
     xd = x.cuda().reshape(-1)[1:]
     assert torch.equal(ops.fastexp(xd).view(torch.int32), ref.fastexp_ref(xd).view(torch.int32))
+
+
+@pytest.mark.parametrize("flavor", ["fast", "accurate"])
+def test_fastexp_kernel_bit_equals_plain_on_every_float32(flavor):
+    """Kernel #7 against its plain version on the card over all 2^32
+    float32 bit patterns (NaNs unified): "accurate" rounds its fourth
+    root's two reciprocal square roots in float32 arithmetic, the plain
+    version in float64."""
+    _need_card()
+    nan = torch.tensor(0x7FC00000, dtype=torch.int32, device="cuda")
+    chunk = 2**28
+    for lo in range(-(2**31), 2**31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device="cuda").view(torch.float32)
+        got, want = ops.fastexp(x, flavor), ref.fastexp_ref(x, flavor)
+        g, w = (torch.where(t.isnan(), nan, t.view(torch.int32)) for t in (got, want))
+        assert torch.equal(g, w), f"from {lo:#x}: {int((g != w).sum())} differ"
 
 
 def test_sweep_kernels_refuse_other_flavours_on_the_card():
