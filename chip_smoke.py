@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device; ~3 minutes
+    python3 chip_smoke.py            # needs one CUDA device; ~6 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also trace the serving runs (torch.profiler)
 
@@ -14,6 +14,10 @@ The port's kernels (src/repro_torch/kernels/csrc/):
   metropolis_sweep             one a4 sweep on the caller's uniforms   (per-sweep path)
   mt_next_block                one MT19937 block, tempered or uniform  (per-sweep path)
   fastexp_2d                   the paper's bit-trick exp, "fast"/"accurate" (ops.fastexp)
+
+#1-#5 each take the exp flavour ("fast", "accurate", "exact") as a
+template parameter; sweep_exp_check.cu maps their exp over a buffer for
+the exhaustive check (no path launches it).
 
 Phases (any failure raises, so the script exits non-zero and never prints
 its final ok line; no phase catches an exception):
@@ -49,6 +53,14 @@ its final ok line; no phase catches an exception):
      shapes (7,), (1000,), (3, 5, 11), float16 and bfloat16 input; then
      the kernel against the plain version on the card over all 2^32
      float32 bit patterns, NaNs unified;
+     the flavours: #1-#5 on "accurate" and "exact" bit pattern for bit
+     pattern against their plain versions at every shape of
+     `FLAVOUR_CHECKS` (B = 1, 8, 115 at the main shape, three layer
+     blocks, rows=640; 8 sweeps), "accurate"'s plain versions on the card
+     against the CPU's; the sweep kernels' exp (`sweep_exp<F>`) for
+     "exact" and "accurate" against the plain exps over all 2^32 float32
+     inputs, and "exact" on the card within 2 ulp of the correctly rounded
+     exp (its distance from the CPU's printed);
   4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
      (constants and ramps, 64-256 sweeps) at the paper's per-model width
      (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
@@ -70,6 +82,16 @@ its final ok line; no phase catches an exception):
   6. the per-sweep path (per sweep: `ops.mt_uniforms_count`, then one a4
      sweep launch) at the main shape, counts zeroed just before and read
      just after; it must end in the fused kernel's carry, bit for bit;
+     parallel tempering at the paper's production shape (R=115 replicas,
+     betas geometric from 0.1 to 3.0, n=96 L=256): `run_parallel_tempering`
+     (32 rounds of 8 sweeps) on each rung with "fast" and "accurate",
+     backend "cuda" (one kernel launch a round, counts zeroed just before
+     and read just after) equal to backend "torch" on the card bit for
+     bit; the same ladder as a `PTJob` beside 8 anneal jobs on a 128-slot
+     server, policy fair, chunks of 3 (rounds split across chunks), equal
+     to the standalone run, each anneal job to its solo run; a `PTJob` on a
+     tenant of a multi-tenant server (#4, #2) equal to its solo run; the
+     CLI serving `--pt-replicas 115 --pt-rounds 8 --rung a4`;
   7. timings from CUDA events: each kernel and its plain version at B=8
      and B=115 (the multi-tenant kernels on B distinct tenants; the cb
      kernels also at 4 warp groups; #5 and #6 on the card alone), the
@@ -78,8 +100,10 @@ its final ok line; no phase catches an exception):
      walk and generator at each warp-group count, the a4 launch's split
      into fixed cost, row walk and generator, the launch-structure
      comparison (fused vs per-sweep, B = 1, 8, 115) and the sweep-order
-     comparison (a4 vs cb, B=8); the serving phases' sweeps/s and
-     spin-flips/s;
+     comparison (a4 vs cb, B=8); #1 and #3 on each exp flavour at B=8
+     and B=115; PT rounds/s and replica-sweeps/s on each rung and flavour,
+     the card's time of a round's sweep launch and swap phase and the
+     round's host syncs; the serving phases' sweeps/s and spin-flips/s;
   8. the exp path: `ops.fastexp` on one sweep's exps at the paper's shape
      (115 models x 24,576 spins = 2,826,240 elements), once per flavour
      (counts zeroed just before, read just after), its results bit-equal
@@ -158,6 +182,9 @@ KERNELS = {
     "mt_next_block": "src/repro/kernels/mt19937_kernel.py:55",
     "fastexp_2d": "src/repro/kernels/fastexp_kernel.py:54",
 }
+#: Check-only entries built beside the kernels: the sweep kernels' exp over
+#: a buffer (`check_sweep_exp_exhaustive`); no path launches them.
+CHECK_ENTRIES = ("sweep_exp_check",)
 #: The sweep and generator kernels, timed per batch of replicas.
 SWEEP_KERNELS = tuple(k for k in KERNELS if k != "fastexp_2d")
 #: Rung -> the kernel of its serving path, single-model and multi-tenant.
@@ -192,6 +219,26 @@ MT_CHECK_V = (1, 31, 33, 200, 1024, 115 * LANES)
 MT_CHAINED = 5
 #: Shapes where replica tiles > 1 fit: (n, L, B, sweeps); rows 32 and 64.
 A4_TILE_CHECKS = ((16, MAIN_L, MAIN_SLOTS, 5), (32, MAIN_L, MAIN_SLOTS, 3))
+#: The exp flavours #1-#5 are held at beside "fast" (`check_colored` and
+#: `check_a4` hold "fast"), and the shapes: (what, n, L, B, sweeps).
+OTHER_FLAVOURS = ("accurate", "exact")
+FLAVOUR_CHECKS = (
+    ("one replica", MAIN_N, MAIN_L, 1, 8),
+    ("the serving shape", MAIN_N, MAIN_L, MAIN_SLOTS, 8),
+    ("the paper's 115 models", MAIN_N, MAIN_L, 115, 8),
+    ("3 layer blocks", 6, 384, 3, 8),
+    ("rows=640", 320, 256, 4, 8),
+)
+#: Parallel tempering at the paper's production shape (configs/ising_qmc.py:
+#: 115 replicas, betas geometric from 0.1 to 3.0) on one model of the main
+#: width; rounds and sweeps a round of `run_parallel_tempering`; the served
+#: ladder's server: slots, anneal jobs beside it, a chunk that does not
+#: divide the sweeps of a round (rounds split across chunks).
+PT_R, PT_BETA_MIN, PT_BETA_MAX = 115, 0.1, 3.0
+PT_ROUNDS, PT_SWEEPS = 32, 8
+PT_SLOTS, PT_ANNEAL_JOBS, PT_CHUNK = 128, 8, 3
+#: Rounds of the multi-tenant ladder and of the CLI's.
+PT_MULTI_ROUNDS, PT_CLI_ROUNDS = 8, 8
 #: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
 #: each kernel reads (cb: h, J row, tau; a4: doubled J row and tau).
 TENANTS, MULTI_JOBS = 8, 16
@@ -397,8 +444,9 @@ def cuda_ms_cold(fn, reps: int, flush: torch.Tensor, clean: torch.Tensor | None 
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
-def colored_case(n: int, L: int, B: int, device, seed: int = 0):
-    """A model, its kernel entry, its plain entry and one batch of inputs."""
+def colored_case(n: int, L: int, B: int, device, seed: int = 0, exp_flavor: str = "fast"):
+    """A model, its kernel entry, its plain entry and one batch of inputs,
+    on the exp flavour ``exp_flavor``."""
     from repro_torch.core import engine, ising, metropolis
     from repro_torch.kernels import ops, ref
 
@@ -407,7 +455,8 @@ def colored_case(n: int, L: int, B: int, device, seed: int = 0):
     carry = eng.init_carry(seed=seed + 1)
     # Spread the betas so replicas differ in acceptance rate.
     betas = torch.linspace(0.3, 1.5, B, device=device, dtype=torch.float32)
-    kernel = ops.make_colored_multisweep(eng.classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=n)
+    kernel = ops.make_colored_multisweep(eng.classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=n,
+                                         exp_flavor=exp_flavor)
     classes = metropolis.classes_to(eng.classes, device)
     tabs = dict(
         h=torch.as_tensor(m.h, device=device),
@@ -418,15 +467,16 @@ def colored_case(n: int, L: int, B: int, device, seed: int = 0):
 
     def plain(spins, rng, beta, sweeps):
         return ref.colored_multisweep_ref(
-            spins, rng, beta, classes, **tabs, n=n, num_sweeps=sweeps
+            spins, rng, beta, classes, **tabs, n=n, num_sweeps=sweeps, exp_flavor=exp_flavor
         )
 
     return m, eng.rows, kernel, plain, (carry.spins, carry.rng, betas)
 
 
-def a4_case(n: int, L: int, B: int, device, seed: int = 0) -> types.SimpleNamespace:
+def a4_case(n: int, L: int, B: int, device, seed: int = 0,
+            exp_flavor: str = "fast") -> types.SimpleNamespace:
     """An a4 model and batch of inputs ``(spins, h_space, h_tau, rng)``
-    with spread betas, and its entries: ``fused``/``plain`` (multisweep
+    with spread betas, and its entries on the exp flavour ``exp_flavor``: ``fused``/``plain`` (multisweep
     kernel / plain version), ``sweep``/``sweep_plain`` (one sweep on given
     uniforms), ``per_sweep`` (per sweep, the MT19937 block kernel, then
     one sweep launch) and ``uniforms`` (one sweep's uniforms from the
@@ -445,6 +495,7 @@ def a4_case(n: int, L: int, B: int, device, seed: int = 0) -> types.SimpleNamesp
         tau_J2=torch.as_tensor(2.0 * m.tau_J, dtype=torch.float32, device=device),
         beta=torch.linspace(0.3, 1.5, B, device=device, dtype=torch.float32),
         n=n,
+        exp_flavor=exp_flavor,
     )
 
     def lanes(u):  # (rows, B*128) -> (B, rows, 128)
@@ -478,12 +529,13 @@ def tenants(base, count: int) -> list:
 
 
 def multi_case(rung: str, n: int, L: int, B: int, device, seed: int = 0,
-               copies: bool = False) -> types.SimpleNamespace:
+               copies: bool = False, exp_flavor: str = "fast") -> types.SimpleNamespace:
     """A multi-tenant batch on ``rung``: B distinct tenants of one lattice
     (or B copies of its model), the inputs of a multi-tenant engine's carry
     with spread betas, and the entries ``kernel`` (#2 / #4), ``plain``
     (their plain versions) and ``single`` (#1 / #3 on the first slot's
-    model's tables), each ``(inputs, sweeps) -> outputs``."""
+    model's tables), each ``(inputs, sweeps) -> outputs``, on the exp
+    flavour ``exp_flavor``."""
     from repro_torch.core import engine, ising, metropolis
     from repro_torch.kernels import ops, ref
 
@@ -496,25 +548,26 @@ def multi_case(rung: str, n: int, L: int, B: int, device, seed: int = 0,
     if rung == "cb":
         nbr = torch.as_tensor(m.space_nbr, dtype=torch.int64, device=device)
         classes = metropolis.classes_to(eng.classes, device)
-        multi_fn = ops.make_colored_multisweep_multi(eng.classes, m.space_nbr, n=n)
+        multi_fn = ops.make_colored_multisweep_multi(eng.classes, m.space_nbr, n=n,
+                                                     exp_flavor=exp_flavor)
         single_fn = ops.make_colored_multisweep(eng.classes, m.h, m.space_nbr, m.space_J,
-                                                m.tau_J, n=n)
+                                                m.tau_J, n=n, exp_flavor=exp_flavor)
         return types.SimpleNamespace(
             m=m, rows=eng.rows, inputs=(c.spins, c.rng, betas),
             kernel=lambda inp, S: multi_fn(*inp, t["h"], t["base_J"], t["tau_J"], S),
             plain=lambda inp, S: ref.colored_multisweep_multi_ref(
-                *inp, classes, t["h"], nbr, t["base_J"], t["tau_J"], n, S),
+                *inp, classes, t["h"], nbr, t["base_J"], t["tau_J"], n, S, exp_flavor),
             single=lambda inp, S: single_fn(*inp, S),
         )
     nbr = torch.as_tensor(m.space_nbr, dtype=torch.int32, device=device)
     return types.SimpleNamespace(
         m=m, rows=eng.rows, inputs=(c.spins, c.h_space, c.h_tau, c.rng),
         kernel=lambda inp, S, tile=None: ops.metropolis_multisweep_multi(
-            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S, replica_tile=tile),
+            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S, exp_flavor, replica_tile=tile),
         plain=lambda inp, S: ref.metropolis_multisweep_multi_ref(
-            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S),
+            *inp, nbr, t["base_J2"], t["tau_J2"], betas, n, S, exp_flavor),
         single=lambda inp, S: ops.metropolis_multisweep(
-            *inp, nbr, t["base_J2"][0], t["tau_J2"][0], betas, n, S),
+            *inp, nbr, t["base_J2"][0], t["tau_J2"][0], betas, n, S, exp_flavor),
     )
 
 
@@ -692,6 +745,419 @@ def check_colored(dev) -> tuple[float, float]:
                 "cb multi plain cuda vs cpu")
     print("[check cb] main shape: both plain versions on card == on CPU (bit-equal)")
     return err1, err2
+
+
+def check_flavours(dev) -> dict:
+    """#1-#5 on the exps "accurate" and "exact" against their plain versions
+    on the card, bit pattern for bit pattern, at every shape of
+    `FLAVOUR_CHECKS` (#2 and #4 on B distinct tenants; #5 one sweep on the
+    plain generator's uniforms); "accurate"'s plain versions on the card
+    against the CPU's at the serving shape ("exact" is `torch.exp`, whose
+    last bits differ between the card and the CPU).  Returns the max
+    |kernel - plain| of each kernel."""
+    names = ("colored_multisweep", "colored_multisweep_multi", "metropolis_multisweep",
+             "metropolis_multisweep_multi", "metropolis_sweep")
+    err = dict.fromkeys(names, 0.0)
+    for flavor in OTHER_FLAVOURS:
+        for what, n, L, B, S in FLAVOUR_CHECKS:
+            seed = n + B
+            _, rows, kernel, plain, inputs = colored_case(n, L, B, dev, seed, flavor)
+            err[names[0]] = max(err[names[0]], assert_same(
+                kernel(*inputs, S), plain(*inputs, S), f"cb {flavor} {what}", bits=True))
+            mc = multi_case("cb", n, L, B, dev, seed, exp_flavor=flavor)
+            err[names[1]] = max(err[names[1]], assert_same(
+                mc.kernel(mc.inputs, S), mc.plain(mc.inputs, S), f"cb multi {flavor} {what}",
+                bits=True))
+            case = a4_case(n, L, B, dev, seed, flavor)
+            err[names[2]] = max(err[names[2]], assert_same(
+                case.fused(case.inputs, S), case.plain(case.inputs, S), f"a4 {flavor} {what}",
+                bits=True))
+            mc = multi_case("a4", n, L, B, dev, seed, exp_flavor=flavor)
+            err[names[3]] = max(err[names[3]], assert_same(
+                mc.kernel(mc.inputs, S), mc.plain(mc.inputs, S), f"a4 multi {flavor} {what}",
+                bits=True))
+            err[names[4]] = max(err[names[4]], assert_same(
+                case.sweep(case.inputs, case.uniforms), case.sweep_plain(case.inputs, case.uniforms),
+                f"a4 one sweep {flavor} {what}", names=("spins", "h_space", "h_tau"), bits=True))
+            print(f"[check flavours] {flavor}: n={n} L={L} B={B} rows={rows} {S} sweeps ({what}): "
+                  f"colored_multisweep, colored_multisweep_multi on {B} tenants, "
+                  f"metropolis_multisweep, metropolis_multisweep_multi on {B} tenants, "
+                  f"metropolis_sweep == plain (bit patterns)")
+    for rung in ("cb", "a4"):
+        if rung == "cb":
+            _, _, _, plain, inputs = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev, 0, "accurate")
+            _, _, _, plain_cpu, _ = colored_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu", 0, "accurate")
+            got, want = plain(*inputs, 8), plain_cpu(*(t.cpu() for t in inputs), 8)
+        else:
+            case = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, dev, 0, "accurate")
+            cpu = a4_case(MAIN_N, MAIN_L, MAIN_SLOTS, "cpu", 0, "accurate")
+            got, want = case.plain(case.inputs, 8), cpu.plain(cpu.inputs, 8)
+        assert_same([t.cpu() for t in got], want, f"{rung} accurate plain cuda vs cpu", bits=True)
+    print("[check flavours] accurate, the serving shape: the plain cb and a4 multisweeps on the "
+          "card == on the CPU (bit patterns)")
+    return err
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in float32 ulps (the distance of their bit patterns on the
+    ordered integer line), 0 where both are NaN or equal infinities."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    return torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d)
+
+
+def check_sweep_exp_exhaustive(dev, chunk: int = 2**28) -> None:
+    """The sweep kernels' exp, ``sweep_exp<F>`` for F "exact" and
+    "accurate" (csrc/sweep_exp_check.cu, built as the sweep kernels are),
+    against the plain exps on the card (`exp_reference`: `torch.exp` with
+    the flush; `fastexp_accurate`) over all 2^32 float32 bit patterns,
+    bit for bit with NaNs unified; then "exact" on the card, on the exp
+    cases of `fastexp_cases`, within 2 ulp of the correctly rounded exp
+    (float64 exp rounded to float32, flushed), and its distance from the
+    CPU's `exp_reference` printed."""
+    from repro_torch.core import fastexp as fx
+    from repro_torch.kernels import ops
+
+    nan_bits = torch.tensor(0x7FC00000, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    bad = dict.fromkeys(("exact", "accurate"), 0)
+    first = {}
+    for lo in range(-(2**31), 2**31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device=dev).view(torch.float32)
+        for flavor in bad:
+            got, want = ops._sweep_exp_check(x, flavor), fx.EXP_FNS[flavor](x)
+            g, w = (torch.where(t.isnan(), nan_bits, t.view(torch.int32)) for t in (got, want))
+            diff = (g != w).nonzero()
+            if diff.numel():
+                bad[flavor] += diff.shape[0]
+                i = int(diff[0])
+                first.setdefault(flavor, f"x bits {lo + i:#010x}: {got[i].item()!r} vs "
+                                         f"{want[i].item()!r}")
+        del x, got, want, g, w
+    torch.cuda.synchronize()
+    if any(bad.values()):
+        raise AssertionError(f"sweep_exp vs the plain exps over all 2^32 float32 inputs: "
+                             f"differing inputs {bad}, first {first}")
+    print(f"[check sweep_exp] all 2^32 float32 bit patterns: sweep_exp<exact> == exp_reference "
+          f"(torch.exp, flushed) and sweep_exp<accurate> == fastexp_accurate on the card "
+          f"(bit-equal, NaNs unified) in {time.perf_counter() - t0:.1f} s")
+    # "exact" on the card is CUDA's expf, within 2 ulp of the correctly
+    # rounded exp (CUDA's documented bound); the CPU's torch.exp is another
+    # libm, so the two are compared for the record, not to each other.
+    worst = {"card vs correctly rounded": (0, None), "card vs CPU": (0, None)}
+    for what, x in fastexp_cases():
+        x = x.float().reshape(-1)
+        card = ops._sweep_exp_check(x.to(dev), "exact").cpu()
+        correct = fx.flush_subnormal(torch.exp(x.double()).float())
+        for key, d in (("card vs correctly rounded", ulps(card, correct)),
+                       ("card vs CPU", ulps(card, fx.exp_reference(x)))):
+            i = int(d.argmax())
+            if int(d[i]) > worst[key][0]:
+                worst[key] = (int(d[i]), float(x[i]))
+    print(f"[check sweep_exp] exact on the card, the exp cases: at most "
+          f"{worst['card vs correctly rounded'][0]} ulp from the correctly rounded exp (at x = "
+          f"{worst['card vs correctly rounded'][1]}), at most {worst['card vs CPU'][0]} ulp from "
+          f"exp_reference on the CPU (at x = {worst['card vs CPU'][1]})")
+    if worst["card vs correctly rounded"][0] > 2:
+        raise AssertionError(f"sweep_exp<exact> on the card: {worst}")
+
+
+def pt_model():
+    from repro_torch.core import ising
+
+    return ising.random_layered_model(n=MAIN_N, L=MAIN_L, seed=0, beta=1.2)
+
+
+def pt_betas() -> np.ndarray:
+    return np.geomspace(PT_BETA_MIN, PT_BETA_MAX, PT_R).astype(np.float32)
+
+
+def check_pt_state(what: str, state, energies, m, betas, rounds: int) -> None:
+    """What a finished ladder must show: +-1 spins of the lane shape, the
+    beta multiset kept, a proposal count of one per pair a round, an
+    accept count within it, finite energies equal to the spins' float64
+    energies rounded to float32."""
+    from repro_torch.core import engine, observables, reorder
+
+    R = len(betas)
+    if tuple(state.spins.shape) != (R, MAIN_N * MAIN_L // LANES, LANES):
+        raise AssertionError(f"{what}: spins of shape {tuple(state.spins.shape)}")
+    if not bool((state.spins.abs() == 1.0).all()):
+        raise AssertionError(f"{what}: spins not +-1")
+    if not np.array_equal(np.sort(state.betas.cpu().numpy()), np.sort(betas)):
+        raise AssertionError(f"{what}: the beta multiset changed")
+    want_prop = sum(len(range(r % 2, R - 1, 2)) for r in range(rounds))
+    acc, prop = int(state.swap_accept), int(state.swap_propose)
+    if prop != want_prop or not 0 <= acc <= prop:
+        raise AssertionError(f"{what}: {acc} accepted of {prop} proposed, want {want_prop}")
+    flat = np.stack([reorder.from_lane(s, m.n, m.L, LANES) for s in state.spins.cpu().numpy()])
+    if energies.shape != (R,) or not np.all(np.isfinite(energies)) or not np.array_equal(
+            energies, observables.energies(m, flat).astype(np.float32)):
+        raise AssertionError(f"{what}: energies are not the spins' energies")
+
+
+def same_pt_state(got, want, what: str) -> None:
+    """Raise unless two PT states are equal, float fields bit pattern for
+    bit pattern."""
+    from repro_torch.core import tempering
+
+    for f in tempering.PTState._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def pt_standalone(dev) -> dict:
+    """`run_parallel_tempering` at R=115, n=96 L=256, `PT_ROUNDS` rounds of
+    `PT_SWEEPS` sweeps, on each rung and with the "fast" and "accurate"
+    exps: backend "cuda" (one launch of the rung's kernel a round, counts
+    zeroed just before and read just after) equal to backend "torch" on the
+    card, bit for bit.  Returns {(rung, flavor): (state, energies,
+    launches)}."""
+    from repro_torch.core import tempering
+    from repro_torch.kernels import ops
+
+    m, betas = pt_model(), pt_betas()
+    out = {}
+    for rung in ("a4", "cb"):
+        for flavor in ("fast", "accurate"):
+            kw = dict(seed=11, sweeps_per_round=PT_SWEEPS, rung=rung, exp_flavor=flavor)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            state, energies = tempering.run_parallel_tempering(m, betas, PT_ROUNDS,
+                                                               backend="cuda", **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(ops.launches)
+            kernel = SERVE_KERNEL[rung]
+            if launches[kernel] != PT_ROUNDS or sum(launches.values()) != PT_ROUNDS:
+                raise AssertionError(f"PT {rung} {flavor}: launches {launches}, want "
+                                     f"{PT_ROUNDS} {kernel}")
+            t0 = time.perf_counter()
+            plain, plain_e = tempering.run_parallel_tempering(m, betas, PT_ROUNDS,
+                                                              backend="torch", V=LANES, **kw)
+            torch.cuda.synchronize()
+            dt_plain = time.perf_counter() - t0
+            same_pt_state(state, plain, f"PT {rung} {flavor}: cuda vs torch backend")
+            if not np.array_equal(energies, plain_e):
+                raise AssertionError(f"PT {rung} {flavor}: energies differ between backends")
+            check_pt_state(f"PT {rung} {flavor}", state, energies, m, betas, PT_ROUNDS)
+            out[rung, flavor] = (state, energies, launches)
+            print(f"[pt {rung}] {flavor}: R={PT_R} n={MAIN_N} L={MAIN_L}, {PT_ROUNDS} rounds of "
+                  f"{PT_SWEEPS} sweeps: {launches[kernel]} {kernel} launches, {dt:.3f} s; "
+                  f"backend torch on the card {dt_plain:.3f} s; spins, fields, betas, generator "
+                  f"state, swap generator and counts bit-equal ({int(state.swap_accept)} of "
+                  f"{int(state.swap_propose)} swaps accepted); energies finite, == the spins'")
+    return out
+
+
+def pt_served(standalone: dict) -> None:
+    """One PTJob (R=115, the standalone run's seed, betas and rounds) and
+    `PT_ANNEAL_JOBS` anneal jobs on a `PT_SLOTS`-slot server, policy
+    "fair", chunks of `PT_CHUNK` sweeps (rounds split across chunks), on
+    each rung: the ladder equals the standalone run bit for bit, every
+    anneal job its solo run, and the rung's kernel ran every launch."""
+    from repro_torch.core import engine, reorder
+    from repro_torch.kernels import ops
+    from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
+
+    m, betas = pt_model(), pt_betas()
+    rng = np.random.default_rng(5)
+    specs = [(2000 + i, int(rng.integers(32, 129)), float(rng.uniform(0.5, 1.5)))
+             for i in range(PT_ANNEAL_JOBS)]
+    for rung in ("a4", "cb"):
+        state, _, _ = standalone[rung, "fast"]
+        server = SampleServer(m, slots=PT_SLOTS, chunk_sweeps=PT_CHUNK, rung=rung,
+                              policy="fair")
+        for seed, sweeps, beta in specs:
+            server.submit(AnnealJob.constant(seed=seed, sweeps=sweeps, beta=beta))
+        pt = PTJob(seed=11, betas=betas, num_rounds=PT_ROUNDS, sweeps_per_round=PT_SWEEPS)
+        server.submit(pt)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        results = {r.jid: r for r in server.drain()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        kernel = SERVE_KERNEL[rung]
+        if launches[kernel] != server.launches or sum(launches.values()) != launches[kernel]:
+            raise AssertionError(f"PT served {rung}: launches {launches} vs {server.launches}")
+        r = results[pt.jid]
+        solo = np.stack([reorder.from_lane(s, m.n, m.L, LANES) for s in state.spins.cpu().numpy()])
+        if not (np.array_equal(r.spins, solo)
+                and np.array_equal(r.extras["betas"], state.betas.cpu().numpy())
+                and r.extras["swap_accept"] == int(state.swap_accept)
+                and r.extras["swap_propose"] == int(state.swap_propose)
+                and torch.equal(pt.swap_rng, state.swap_rng)):
+            raise AssertionError(f"PT served {rung}: the ladder != the standalone run")
+        if r.chunks <= PT_ROUNDS:
+            raise AssertionError(f"PT served {rung}: rounds were not split ({r.chunks} chunks)")
+        eng = engine.SweepEngine.create(m, rung=rung)
+        for jid, (seed, sweeps, beta) in enumerate(specs):
+            carry = eng.run(eng.init_slot_carry(seed=seed, beta=beta), sweeps)
+            if not np.array_equal(results[jid].spins, eng.spins_flat(carry)[0]):
+                raise AssertionError(f"PT served {rung}: anneal job {jid} != its solo run")
+        st = server.stats()
+        print(f"[pt served {rung}] PTJob R={PT_R} ({PT_ROUNDS} rounds of {PT_SWEEPS}) + "
+              f"{PT_ANNEAL_JOBS} anneal jobs on {PT_SLOTS} slots, policy fair, chunk {PT_CHUNK}: "
+              f"{st['launches']} launches == {launches[kernel]} {kernel} launches, the ladder in "
+              f"{r.chunks} chunks, {dt:.3f} s, {st['busy_slot_sweeps'] / dt:.0f} slot-sweeps/s; "
+              f"the ladder == the standalone run, every anneal job == its solo run (bit-equal)")
+
+
+def pt_multi_tenant() -> None:
+    """A PTJob on its own model (a tenant) beside anneal jobs on other
+    tenants, on a multi-tenant server of `PT_SLOTS` slots, on each rung
+    (#4, #2; counts zeroed just before, read just after): the ladder
+    equals `run_parallel_tempering` of its model, bit for bit."""
+    from repro_torch.core import reorder, tempering
+    from repro_torch.kernels import ops
+    from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
+
+    m, betas = pt_model(), pt_betas()
+    tenant_models = tenants(m, 3)
+    for rung in ("a4", "cb"):
+        state, energies = tempering.run_parallel_tempering(
+            tenant_models[0], betas, PT_MULTI_ROUNDS, seed=12, sweeps_per_round=PT_SWEEPS,
+            rung=rung)
+        server = SampleServer(m, slots=PT_SLOTS, chunk_sweeps=PT_CHUNK, rung=rung,
+                              multi_tenant=True)
+        for i, model in enumerate((tenant_models[1], tenant_models[2], None)):
+            server.submit(AnnealJob.constant(seed=3000 + i, sweeps=40 + 16 * i, beta=1.0,
+                                             model=model))
+        pt = PTJob(seed=12, betas=betas, num_rounds=PT_MULTI_ROUNDS, sweeps_per_round=PT_SWEEPS,
+                   model=tenant_models[0])
+        server.submit(pt)
+        ops.reset_launches()
+        r = {r.jid: r for r in server.drain()}[pt.jid]
+        launches = dict(ops.launches)
+        kernel = MULTI_KERNEL[rung]
+        if launches[kernel] != server.launches or sum(launches.values()) != launches[kernel]:
+            raise AssertionError(f"PT multi {rung}: launches {launches} vs {server.launches}")
+        solo = np.stack([reorder.from_lane(s, m.n, m.L, LANES) for s in state.spins.cpu().numpy()])
+        if not (np.array_equal(r.spins, solo)
+                and np.array_equal(r.extras["betas"], state.betas.cpu().numpy())
+                and r.extras["swap_accept"] == int(state.swap_accept)
+                and r.extras["swap_propose"] == int(state.swap_propose)
+                and np.array_equal(r.energy.astype(np.float32), energies)):
+            raise AssertionError(f"PT multi {rung}: the tenant's ladder != its solo run")
+        print(f"[pt multi {rung}] PTJob R={PT_R} on a tenant + 3 anneal jobs on {PT_SLOTS} "
+              f"slots: {server.launches} launches == {launches[kernel]} {kernel} launches; the "
+              f"ladder == run_parallel_tempering of its model (bit-equal)")
+
+
+def pt_cli() -> None:
+    """``anneal_serve --pt-replicas 115 --pt-rounds 8 --rung a4`` at n=96
+    L=256 on `PT_SLOTS` slots: every job served, the ladder's result
+    whole, every launch the a4 kernel's."""
+    from repro_torch.core import observables
+    from repro_torch.kernels import ops
+    from repro_torch.launch import anneal_serve
+
+    ops.reset_launches()
+    report = anneal_serve.main([
+        "--pt-replicas", str(PT_R), "--pt-rounds", str(PT_CLI_ROUNDS), "--rung", "a4",
+        "--n", str(MAIN_N), "--L", str(MAIN_L), "--slots", str(PT_SLOTS), "--jobs", "8",
+        "--chunk", str(MAIN_CHUNK), "--quiet"])
+    launches = dict(ops.launches)
+    if launches["metropolis_multisweep"] != report.server.launches or sum(
+            launches.values()) != launches["metropolis_multisweep"]:
+        raise AssertionError(f"PT CLI: launches {launches} vs {report.server.launches}")
+    pt = [r for r in report.results if r.spins.ndim == 2]
+    if len(report.results) != 9 or len(pt) != 1 or pt[0].spins.shape != (PT_R, MAIN_N * MAIN_L):
+        raise AssertionError(f"PT CLI: served {len(report.results)} jobs, {len(pt)} ladders")
+    r = pt[0]
+    if not np.array_equal(r.energy, observables.energies(report.model, r.spins)) or \
+            r.sweeps_done != PT_CLI_ROUNDS * (MAIN_CHUNK // 2):
+        raise AssertionError("PT CLI: the ladder's result is not whole")
+    print(f"[pt cli] anneal_serve --pt-replicas {PT_R} --pt-rounds {PT_CLI_ROUNDS} --rung a4 "
+          f"--slots {PT_SLOTS} --jobs 8 (n={MAIN_N} L={MAIN_L}): 9 jobs served in "
+          f"{report.seconds:.3f} s, {report.server.launches} metropolis_multisweep launches, "
+          f"the ladder {r.extras['swap_accept']} of {r.extras['swap_propose']} swaps accepted")
+
+
+def pt_host_syncs(eng, state) -> tuple[int, str]:
+    """Host syncs of one PT round: the warnings `torch.cuda`'s sync debug
+    mode raises for every synchronizing call while the round is enqueued,
+    and where in the port they were raised."""
+    import traceback
+    import warnings
+
+    from repro_torch.core import tempering
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            port = [f for f in traceback.extract_stack() if "repro_torch" in f.filename]
+            sites.append(f"{Path(port[-1].filename).name}:{port[-1].lineno}" if port else
+                         f"{Path(filename).name}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tempering.pt_round(eng, state, 0, PT_SWEEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return len(sites), ", ".join(sites) or "none"
+
+
+def time_pt(smi: str) -> dict:
+    """PT rounds at R=115, n=96 L=256, `PT_SWEEPS` sweeps a round, on each
+    rung and flavour: rounds/s and replica-sweeps/s over a steady window
+    (host clock, synchronized), the card's time of the sweep launch and
+    of the swap phase (`lane_energy` + decide) from CUDA events around
+    each, their shares of a round, and the round's host syncs, beside the
+    card's name and power limit (``smi``).  Returns
+    {(rung, flavor): (rounds/s, sweep ms, swap ms, round ms, syncs)}."""
+    from repro_torch.core import engine, tempering
+
+    m, betas = pt_model(), pt_betas()
+    rounds = 20
+    out = {}
+    for rung in ("a4", "cb"):
+        for flavor in ("fast", "accurate"):
+            eng = tempering.make_pt_engine(m, PT_R, rung=rung, exp_flavor=flavor)
+            state = tempering.init_pt(m, betas, seed=11, engine=eng)
+            for r in range(2):
+                state = tempering.pt_round(eng, state, r % 2, PT_SWEEPS)
+            syncs, sync_sites = pt_host_syncs(eng, state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in range(rounds):
+                state = tempering.pt_round(eng, state, r % 2, PT_SWEEPS)
+            torch.cuda.synchronize()
+            round_ms = (time.perf_counter() - t0) / rounds * 1e3
+            tables = tempering.energy_tables(eng)
+            marks = []
+            for r in range(rounds):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                ev[0].record()
+                carry = eng.run(engine.SweepCarry(*state[:5]), PT_SWEEPS)
+                ev[1].record()
+                state = tempering.swap_phase(state._replace(
+                    spins=carry.spins, h_space=carry.h_space, h_tau=carry.h_tau,
+                    rng=carry.rng), *tables, r % 2, m.n, flavor)
+                ev[2].record()
+                marks.append(ev)
+            torch.cuda.synchronize()
+            sweep_ms = sum(e[0].elapsed_time(e[1]) for e in marks) / rounds
+            swap_ms = sum(e[1].elapsed_time(e[2]) for e in marks) / rounds
+            out[rung, flavor] = (1e3 / round_ms, sweep_ms, swap_ms, round_ms, syncs)
+            print(f"[time pt {rung}] {flavor}: R={PT_R}, {PT_SWEEPS} sweeps a round: "
+                  f"{1e3 / round_ms:.1f} rounds/s, {PT_R * PT_SWEEPS * 1e3 / round_ms:,.0f} "
+                  f"replica-sweeps/s ({round_ms:.4f} ms a round, host clock); on the card: "
+                  f"sweep launch {sweep_ms:.4f} ms ({sweep_ms / round_ms:.3f} of the round), "
+                  f"swap phase {swap_ms:.4f} ms ({swap_ms / round_ms:.3f}); {syncs} host "
+                  f"syncs a round ({sync_sites}); {smi}")
+    return out
 
 
 def serve_checked(rung: str) -> tuple:
@@ -1134,10 +1600,10 @@ def main(argv: list[str]) -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
-    print(f"[build] {', '.join(f'{k}.cu' for k in KERNELS)} in {time.perf_counter() - t0:.1f} s "
-          f"(one nvcc each, in parallel)")
-    for name in KERNELS:
+    _build.build(list(KERNELS) + list(CHECK_ENTRIES))
+    print(f"[build] {', '.join(f'{k}.cu' for k in (*KERNELS, *CHECK_ENTRIES))} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for name in (*KERNELS, *CHECK_ENTRIES):
         print(f"[ptxas {name}] {ptxas_summary(_build.ptxas_report(name))}")
     for what, n in (("the serving shape", MAIN_N), ("two generator blocks a sweep", 320)):
         m = ising.random_layered_model(n=n, L=MAIN_L, seed=0, beta=1.1)
@@ -1165,10 +1631,14 @@ def main(argv: list[str]) -> int:
     err["mt_next_block"] = check_mt(dev)
     err["fastexp_2d"] = check_fastexp(dev)
     check_fastexp_exhaustive(dev)
+    end_phase("checks")
+    for name, e in check_flavours(dev).items():
+        err[name] = max(err[name], e)
+    check_sweep_exp_exhaustive(dev)
+    end_phase("flavour checks")
     if quick:
         print(f"quick checks passed in {time.perf_counter() - t_start:.1f} s")
         return 0
-    end_phase("checks")
 
     # -- 4. the serving paths, through the CLI entry point -----------------
     cb_report, cb_launches = serve_checked("cb")
@@ -1190,6 +1660,12 @@ def main(argv: list[str]) -> int:
           f"carry == the fused kernel's (bit-equal)")
 
     end_phase("serving, per-sweep path")
+    # -- 6b. parallel tempering: standalone, served, multi-tenant, the CLI ----
+    pt_runs = pt_standalone(dev)
+    pt_served(pt_runs)
+    pt_multi_tenant()
+    pt_cli()
+    end_phase("parallel tempering")
     # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
     times = {name: {} for name in SWEEP_KERNELS}  # name -> B -> (ms, plain ms, bound)
@@ -1321,6 +1797,23 @@ def main(argv: list[str]) -> int:
     us_cb = times["colored_multisweep"][MAIN_SLOTS][0] * 1e3 / 8
     print(f"[sweep order] B={MAIN_SLOTS} n={MAIN_N} L={MAIN_L}: a4 {us_a4:.2f} us/sweep, "
           f"cb {us_cb:.2f} us/sweep (cb/a4 speed {us_a4 / us_cb:.3f}x)")
+    # #1 and #3 on the other exps, 8-sweep launches (the same inputs' shapes
+    # as the "fast" times above).
+    flavour_ms = {}  # (flavor, B) -> (#1 ms, #3 ms)
+    for B in (MAIN_SLOTS, 115):
+        for flavor in OTHER_FLAVOURS:
+            _, _, kF, _, inF = colored_case(MAIN_N, MAIN_L, B, dev, B, flavor)
+            cF = a4_case(MAIN_N, MAIN_L, B, dev, B, flavor)
+            flavour_ms[flavor, B] = (cuda_ms(lambda: kF(*inF, 8), reps=20),
+                                     cuda_ms(lambda: cF.fused(cF.inputs, 8), reps=20))
+        t1, t3 = times["colored_multisweep"][B][0], times["metropolis_multisweep"][B][0]
+        print(f"[time flavours] B={B} n={MAIN_N} L={MAIN_L}, 8-sweep launches: "
+              f"colored_multisweep fast {t1:.4f} / "
+              + " / ".join(f"{f} {flavour_ms[f, B][0]:.4f}" for f in OTHER_FLAVOURS)
+              + f" ms; metropolis_multisweep fast {t3:.4f} / "
+              + " / ".join(f"{f} {flavour_ms[f, B][1]:.4f}" for f in OTHER_FLAVOURS)
+              + f" ms; {smi}")
+    time_pt(smi)
 
     end_phase("timings")
     # -- 8. the exp path and its timings -------------------------------------
@@ -1377,6 +1870,9 @@ def main(argv: list[str]) -> int:
                      "accurate_ms_l2_dirty": t_kad, "torch_exp_ms_l2_dirty": t_expd}
         else:
             t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
+        if name in ("colored_multisweep", "metropolis_multisweep"):
+            col = 0 if name == "colored_multisweep" else 1
+            extra = {f"{f}_ms": flavour_ms[f, MAIN_SLOTS][col] for f in OTHER_FLAVOURS}
         entries.append({
             "name": name,
             "route": "cuda",

@@ -31,8 +31,9 @@ Backends (`register_backend`):
     kernel (rung "a4": kernels/csrc/metropolis_multisweep.cu, rung "cb":
     kernels/csrc/colored_multisweep.cu; on multi-tenant engines their twins
     metropolis_multisweep_multi.cu and colored_multisweep_multi.cu).  V
-    must be 128, the device a CUDA device, the rung a4 or cb and the exp
-    flavour "fast": the kernels compute nothing else.
+    must be 128, the device a CUDA device and the rung a4 or cb; every exp
+    flavour ("fast", "accurate", "exact") is a template instantiation of
+    the kernels.
 
 Both evaluate the identical twist -> temper -> 24-bit-float pipeline on
 the identical per-replica generator columns and the identical row (a4)
@@ -361,7 +362,6 @@ class SweepEngine:
                     f"backend='cuda' implements the fully vectorized rungs {CUDA_RUNGS} only; "
                     f"got rung={rung!r} (use backend='torch')"
                 )
-            ops.check_sweep_flavour("backend='cuda'", exp_flavor, device)
             if V != ops.LANES:
                 raise ValueError(f"backend='cuda' requires V={ops.LANES}; got V={V}")
             if device.type != "cuda":
@@ -545,9 +545,14 @@ class SweepEngine:
 
     def set_slot_betas(self, carry: SweepCarry, slots, betas) -> SweepCarry:
         """Rewrite the betas of the given slots without touching spins,
-        fields or RNG; returns a new carry."""
-        idx = torch.as_tensor(np.asarray(slots, np.int64), device=carry.betas.device)
-        vals = torch.as_tensor(np.asarray(betas, np.float32), device=carry.betas.device)
+        fields or RNG; returns a new carry.  ``betas`` may be host values or
+        a float32 tensor (a device tensor stays on the device)."""
+        dev = carry.betas.device
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+        if isinstance(betas, torch.Tensor):
+            vals = betas.to(device=dev, dtype=torch.float32)
+        else:
+            vals = torch.as_tensor(np.asarray(betas, np.float32), device=dev)
         new = carry.betas.clone()
         new[idx] = vals
         return carry._replace(betas=new)

@@ -38,6 +38,7 @@ for bit, because the exp decides every Metropolis accept:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -72,8 +73,16 @@ def f32_bits(x: np.float32) -> int:
     return int(np.asarray(x, np.float32).view(np.uint32))
 
 
+@functools.lru_cache(maxsize=64)
+def _f32_const_on(value: float, device: str) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def _f32_const(c: np.float32, device) -> torch.Tensor:
-    return torch.tensor(float(c), dtype=torch.float32, device=device)
+    """The float32 constant ``c`` as a 0-d tensor on ``device``, made once a
+    device: later calls copy nothing from the host (on the card, no host
+    sync).  Read-only: callers use it as an operand."""
+    return _f32_const_on(float(c), str(device))
 
 
 def flush_subnormal(r: torch.Tensor) -> torch.Tensor:

@@ -53,7 +53,8 @@
 // a thread, two of 2, the twist before the walk) and of this design.
 //
 // Numerics, for each lane in the reference's order: x = ((-2 beta) s)
-// (hs + ht); S_mul = s * mask; each field add is cell + (-S_mul) * J2, a
+// (hs + ht); the accept test u < sweep_exp<F>(x) with the exp flavour F, a
+// template parameter ("fast", "accurate" or "exact", fastexp.cuh); S_mul = s * mask; each field add is cell + (-S_mul) * J2, a
 // product with -S_mul in {-1, -0, +0, +1} and one rounding of the sum.  At
 // two layer blocks both tau adds of a wrap row land in one cell: a
 // first-block row adds the rolled tc then its own, a last-block row its
@@ -128,7 +129,7 @@ struct A4Shape {
   int tile;       // replicas a CTA
   bool multi;     // per-slot j2/tau2
   bool generate;  // fused: MT19937 in the kernel; else one sweep on io.u
-  float scale, centre;
+  ExpConsts ec;   // the exp's constants (fastexp.cuh)
   int gen_warps;  // warps besides the walkers: the generator (fused) or helpers (one sweep)
 };
 
@@ -199,12 +200,13 @@ struct A4Exchange {
 // One row of the thread's lane: row offset o (bytes) in the thread's
 // columns hs, ht (fields) and sp (spins, o / 4), hb its layer block's first
 // row in hs.  first / last: the row is in the first / last layer block;
-// dn = n rows, dw = rows - n rows, in bytes.  `full`: sd == SDT.
-template <bool SMEM, int SDT>
+// dn = n rows, dw = rows - n rows, in bytes.  `full`: sd == SDT.  The
+// accept test takes the exp flavour F (fastexp.cuh: sweep_exp).
+template <bool SMEM, int SDT, int F>
 __device__ __forceinline__ void a4_row(char* hs, char* ht, char* hb, uint8_t* sp,
                                        const A4Row<SDT>& r, float uq, A4Exchange& xch, int o,
                                        bool first, bool last, int dn, int dw, bool full,
-                                       uint32_t m2b, float scale, float centre) {
+                                       uint32_t m2b, const ExpConsts& ec) {
   const int ta = first ? o + dw : o - dn;  // the first tau add's row
   const int tb = last ? o - dw : o + dn;   // the second's
   const bool same = ta == tb;              // two layer blocks
@@ -222,7 +224,7 @@ __device__ __forceinline__ void a4_row(char* hs, char* ht, char* hb, uint8_t* sp
 
   const uint32_t sg = a4_sign(sw, 0);
   const float x = __uint_as_float(m2b ^ sg) * (a + b);
-  const bool acc = uq < fastexp_fast(x, scale, centre);
+  const bool acc = uq < sweep_exp<F>(x, ec);
   const uint32_t nw = sw ^ (acc ? 0xFEu : 0u);  // +1 (0x01) <-> -1 (0xFF)
   if (nw != sw) *spq = (uint8_t)nw;
   // -(s * mask): -s when accepted, else the zero of sign -s.
@@ -270,11 +272,10 @@ __device__ __forceinline__ void a4_fetch_u(float* slot, const float* src) {
 // ring, its (A4_URING, 128) slots in shared memory: each thread copies and
 // reads back only its own lane, so no barrier is needed.  Unrolled by two,
 // so row q+1's table entries load into registers during row q.
-template <bool SMEM, int SDT>
+template <bool SMEM, int SDT, int F>
 __device__ __forceinline__ void a4_walk(float* hs, float* ht, uint8_t* sp, const int2* tab,
                                         const float* u, float* ring, A4Exchange& xch, int t,
-                                        int rows, int n, int sd, float m2b, float scale,
-                                        float centre) {
+                                        int rows, int n, int sd, float m2b, const ExpConsts& ec) {
   hs += t, ht += t, sp += t, u += t, ring += t;
   char* hsb = reinterpret_cast<char*>(hs);
   char* htb = reinterpret_cast<char*>(ht);
@@ -302,8 +303,8 @@ __device__ __forceinline__ void a4_walk(float* hs, float* ht, uint8_t* sp, const
     const bool wrap = i + 1 == n;
     const int2* tn = wrap ? tab : te + E;
     a4_row_tables(nxt, tn, sd);
-    a4_row<SMEM>(hsb, htb, hb, sp, cur, uq, xch, q * ROW, p == 0, p == lpv - 1, dn, dw, full,
-                 m2bits, scale, centre);
+    a4_row<SMEM, SDT, F>(hsb, htb, hb, sp, cur, uq, xch, q * ROW, p == 0, p == lpv - 1, dn, dw,
+                         full, m2bits, ec);
     cur = nxt;
     te = tn;
     if (wrap) hb += dn, i = 0, ++p;
@@ -442,8 +443,8 @@ __device__ void a4_twist_sweep(const A4Io& io, const A4Shape& sh, int b0, bool f
 // Warps 0 .. 4*tile-1 walk (replica r: warps 4r .. 4r+3), the other
 // gen_warps twist (generate) or only help with the fixed cost.  The
 // generator twists sweep s+1 into one buffer while the walkers walk sweep
-// s from the other.
-template <bool FIELDS_IN_SMEM, int SDT>
+// s from the other.  F is the exp flavour of the accept tests.
+template <bool FIELDS_IN_SMEM, int SDT, int F>
 __device__ void a4_cta(const A4Io& io, const A4Shape& sh) {
   const int b0 = blockIdx.x * sh.tile, rows = sh.rows, n = sh.n, sd = sh.sd;
   const int warp = threadIdx.x >> 5, walkers = sh.tile * A4_WALKER_WARPS;
@@ -474,8 +475,7 @@ __device__ void a4_cta(const A4Io& io, const A4Shape& sh) {
   const float m2b = walker ? -2.0f * io.beta[b0 + r] : 0.0f;
   A4Exchange xch{t, xbuf + r * 2 * LANES, A4_XCH_BAR + r, 0};
   auto walk = [&](const float* u) {
-    a4_walk<FIELDS_IN_SMEM, SDT>(hs, ht, spr, tabr, u, ring, xch, t, rows, n, sd, m2b, sh.scale,
-                                 sh.centre);
+    a4_walk<FIELDS_IN_SMEM, SDT, F>(hs, ht, spr, tabr, u, ring, xch, t, rows, n, sd, m2b, sh.ec);
   };
 
   if (!sh.generate) {
@@ -537,23 +537,36 @@ int a4_start(Kernel kernel, const A4Io& io, const A4Shape& sh, int threads, size
   return (int)cudaGetLastError();
 }
 
-// The instantiations of a kernel template K<FIELDS_IN_SMEM, SDT>, picked
-// by the plan: SDT is sd rounded up to even.
-#define A4_LAUNCH_SD(K, F, sdt, io, sh, threads, smem, stream)         \
-  (sdt == 2   ? a4_start(K<F, 2>, io, sh, threads, smem, stream)       \
-   : sdt == 4 ? a4_start(K<F, 4>, io, sh, threads, smem, stream)       \
-   : sdt == 6 ? a4_start(K<F, 6>, io, sh, threads, smem, stream)       \
-              : a4_start(K<F, 8>, io, sh, threads, smem, stream))
-#define A4_LAUNCH(K, io, sh, max_smem, stream)                                          \
-  [&]() -> int {                                                                        \
-    bool fields_;                                                                       \
-    size_t smem_;                                                                       \
-    int threads_;                                                                       \
-    const int err_ = a4_plan(io, sh, max_smem, &fields_, &smem_, &threads_);            \
-    if (err_) return err_;                                                              \
-    const int sdt_ = (sh.sd + 1) & ~1;                                                  \
-    return fields_ ? A4_LAUNCH_SD(K, true, sdt_, io, sh, threads_, smem_, stream)       \
-                   : A4_LAUNCH_SD(K, false, sdt_, io, sh, threads_, smem_, stream);     \
+// The instantiations of a kernel template K<FIELDS_IN_SMEM, SDT, F>,
+// picked by the plan and the caller's exp flavour code: SDT is sd rounded
+// up to even; 2 x 4 x 3 = 24 instantiations a library.
+#define A4_LAUNCH_SD(K, F, FL, sdt, io, sh, threads, smem, stream)  \
+  (sdt == 2   ? a4_start(K<F, 2, FL>, io, sh, threads, smem, stream) \
+   : sdt == 4 ? a4_start(K<F, 4, FL>, io, sh, threads, smem, stream) \
+   : sdt == 6 ? a4_start(K<F, 6, FL>, io, sh, threads, smem, stream) \
+              : a4_start(K<F, 8, FL>, io, sh, threads, smem, stream))
+#define A4_LAUNCH_FIELDS(K, FL, fields, sdt, io, sh, threads, smem, stream)    \
+  (fields ? A4_LAUNCH_SD(K, true, FL, sdt, io, sh, threads, smem, stream)      \
+          : A4_LAUNCH_SD(K, false, FL, sdt, io, sh, threads, smem, stream))
+#define A4_LAUNCH(K, io, sh, flavour, max_smem, stream)                                       \
+  [&]() -> int {                                                                              \
+    bool fields_;                                                                             \
+    size_t smem_;                                                                             \
+    int threads_;                                                                             \
+    const int err_ = a4_plan(io, sh, max_smem, &fields_, &smem_, &threads_);                  \
+    if (err_) return err_;                                                                    \
+    const int sdt_ = (sh.sd + 1) & ~1;                                                        \
+    switch (flavour) {                                                                        \
+      case EXP_FAST:                                                                          \
+        return A4_LAUNCH_FIELDS(K, EXP_FAST, fields_, sdt_, io, sh, threads_, smem_, stream); \
+      case EXP_ACCURATE:                                                                      \
+        return A4_LAUNCH_FIELDS(K, EXP_ACCURATE, fields_, sdt_, io, sh, threads_, smem_,      \
+                                stream);                                                      \
+      case EXP_EXACT:                                                                         \
+        return A4_LAUNCH_FIELDS(K, EXP_EXACT, fields_, sdt_, io, sh, threads_, smem_, stream); \
+      default:                                                                                \
+        return (int)cudaErrorInvalidValue;                                                    \
+    }                                                                                         \
   }()
 
 // The kernel parameters: every pointer its own, so the compiler knows they

@@ -6,7 +6,8 @@
 // which binds each slot's coupling slices onto the shared color classes with
 // metropolis.class_coupling_slices / bind_class_tables).  The plain PyTorch
 // version is src/repro_torch/kernels/ref.py:colored_multisweep_multi_ref;
-// the two agree bit for bit.
+// the two agree bit for bit for every exp flavour, as in
+// colored_multisweep.cu.
 //
 // Layout.  As colored_multisweep.cu: one CTA of 128 * W threads per slot,
 // the class walk, generator and dense refresh of colored_sweep.cuh.  The
@@ -31,51 +32,62 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cstring>
-
 #include "colored_sweep.cuh"
 
 namespace {
 
+template <int F>
 __global__ void __launch_bounds__(CB_LANES * CB_MAX_GROUPS) colored_multisweep_multi_kernel(
     const float* __restrict__ spins_in, const uint32_t* rng_in,
     const float* __restrict__ beta, float* __restrict__ spins_out,
     float* __restrict__ h_space, float* __restrict__ h_tau, uint32_t* rng_out,
     float* u_scratch, ColorTables cls, const int* __restrict__ cls_site,
     const float* __restrict__ h_b, const float* __restrict__ J_b,
-    const float* __restrict__ tau_b, int rows, int n, int sd, int num_sweeps,
-    float scale, float centre) {
+    const float* __restrict__ tau_b, int rows, int n, int sd, int num_sweeps, ExpConsts ec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t b = blockIdx.x;
-  colored_multisweep_cta(smem, spins_in, rng_in, beta[b], spins_out, h_space, h_tau, rng_out,
-                         u_scratch, cls, SiteCoef{cls_site}, h_b + b * n, J_b + b * n * sd,
-                         tau_b + b * n, rows, sd, num_sweeps, scale, centre);
+  colored_multisweep_cta<F>(smem, spins_in, rng_in, beta[b], spins_out, h_space, h_tau, rng_out,
+                            u_scratch, cls, SiteCoef{cls_site}, h_b + b * n, J_b + b * n * sd,
+                            tau_b + b * n, rows, sd, num_sweeps, ec);
+}
+
+template <int F>
+int launch(const float* spins_in, const uint32_t* rng_in, const float* beta, float* spins_out,
+           float* h_space, float* h_tau, uint32_t* rng_out, float* u_scratch,
+           const ColorTables& cls, const int* cls_site, const float* h_b, const float* J_b,
+           const float* tau_b, int B, int rows, int n, int sd, int num_sweeps, int warp_groups,
+           const ExpConsts& ec, cudaStream_t stream) {
+  const size_t smem = cb_smem_bytes(rows, sd, cls.C, cb_u_in_smem(u_scratch, num_sweeps));
+  const int attr = colored_smem_attr(colored_multisweep_multi_kernel<F>, smem);
+  if (attr != 0) return attr;
+  colored_multisweep_multi_kernel<F><<<B, CB_LANES * warp_groups, smem, stream>>>(
+      spins_in, rng_in, beta, spins_out, h_space, h_tau, rng_out, u_scratch, cls, cls_site, h_b,
+      J_b, tau_b, rows, n, sd, num_sweeps, ec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches one CTA of 128 * warp_groups threads per slot on `stream`;
-// u_scratch as in colored_multisweep.  Returns cudaGetLastError() (or the
-// first check's error).
+// u_scratch, flavour and the exp's constants as in colored_multisweep.
+// Returns cudaGetLastError() (or the first check's error).
 extern "C" int colored_multisweep_multi(
     const float* spins_in, const uint32_t* rng_in, const float* beta, float* spins_out,
     float* h_space, float* h_tau, uint32_t* rng_out, float* u_scratch, const int* cls_off,
     const int* cls_row, const int* cls_site, const int* cls_tgt, const int* cls_down,
     const int* cls_up, const int* cls_roll, const float* h_b, const float* J_b,
     const float* tau_b, int B, int rows, int n, int sd, int C, int num_sweeps, int warp_groups,
-    uint32_t scale_bits, uint32_t centre_bits, void* stream) {
+    int flavour, uint32_t scale_bits, uint32_t centre_bits, uint32_t scale4_bits,
+    uint32_t lo_bits, uint32_t clip_hi_bits, void* stream) {
   const int bad =
       cb_check(warp_groups, spins_in, rng_in, spins_out, h_space, h_tau, rng_out, u_scratch);
   if (bad != 0) return bad;
-  const size_t smem = cb_smem_bytes(rows, sd, C, cb_u_in_smem(u_scratch, num_sweeps));
-  const int attr = colored_smem_attr(colored_multisweep_multi_kernel, smem);
-  if (attr != 0) return attr;
-  float scale, centre;
-  memcpy(&scale, &scale_bits, sizeof scale);
-  memcpy(&centre, &centre_bits, sizeof centre);
   const ColorTables cls{cls_off, cls_row, cls_tgt, cls_down, cls_up, cls_roll, C};
-  colored_multisweep_multi_kernel<<<B, CB_LANES * warp_groups, smem, (cudaStream_t)stream>>>(
-      spins_in, rng_in, beta, spins_out, h_space, h_tau, rng_out, u_scratch, cls, cls_site, h_b,
-      J_b, tau_b, rows, n, sd, num_sweeps, scale, centre);
-  return (int)cudaGetLastError();
+  const ExpConsts ec = exp_consts(scale_bits, centre_bits, scale4_bits, lo_bits, clip_hi_bits);
+#define CB_CALL(F)                                                                            \
+  launch<F>(spins_in, rng_in, beta, spins_out, h_space, h_tau, rng_out, u_scratch, cls,       \
+            cls_site, h_b, J_b, tau_b, B, rows, n, sd, num_sweeps, warp_groups, ec,           \
+            (cudaStream_t)stream)
+  return SWEEP_EXP_DISPATCH(flavour, CB_CALL);
+#undef CB_CALL
 }

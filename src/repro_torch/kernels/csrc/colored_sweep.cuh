@@ -55,7 +55,8 @@
 // sign flip (times_spin); spins become floats by bit operations (spin_of),
 // since int->float conversions issue at a quarter of the integer rate.
 // The other products multiply by a spin sum in {-2, 0, 2} or are the one
-// rounding of ((-2 beta) s) * h_eff and of x * 2^23 log2(e); the build
+// rounding of ((-2 beta) s) * h_eff and of the exp's own expression
+// (sweep_exp<F>: "fast", "accurate" or "exact", fastexp.cuh); the build
 // passes --fmad=false so the compiled code is the written expression, in
 // the reference's order, for each lane.
 
@@ -201,11 +202,12 @@ struct ScratchUniforms {  // the replica's columns of the (rows, B*128) scratch
   }
 };
 
-// The class walk of class c: its rows dealt to the warps.  The caller
-// puts a barrier after it (the next class reads this one's rows).
-template <class Uniforms>
+// The class walk of class c: its rows dealt to the warps, each spin's
+// accept test on the exp flavour F.  The caller puts a barrier after it
+// (the next class reads this one's rows).
+template <int F, class Uniforms>
 __device__ void walk_class(const CbShared& s, const Uniforms& uni, int c, int sd, int warp,
-                           int warps, int l, float m2b, float scale, float centre) {
+                           int warps, int l, float m2b, const ExpConsts& ec) {
   uint32_t* spw = reinterpret_cast<uint32_t*>(s.sp);
   for (int k = s.off[c] + warp; k < s.off[c + 1]; k += warps) {
     float hs[4], ht[4];
@@ -216,26 +218,26 @@ __device__ void walk_class(const CbShared& s, const Uniforms& uni, int c, int sd
     uint32_t nw = sw;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float p = fastexp_fast(times_spin(m2b, sw, q) * (hs[q] + ht[q]), scale, centre);
+      const float p = sweep_exp<F>(times_spin(m2b, sw, q) * (hs[q] + ht[q]), ec);
       if (u[q] < p) nw ^= 0xFEu << (8 * q);  // +1 (0x01) <-> -1 (0xFF)
     }
     if (nw != sw) spw[(ro >> 2) + l] = nw;
   }
 }
 
-// Replica blockIdx.x: num_sweeps colored sweeps, then the dense field
-// refresh.  ch/cJ/ctau are the class coefficients, read at coef(k) when
-// staged.  u_scratch (rows, B*128) holds the uniforms when they do not
+// Replica blockIdx.x: num_sweeps colored sweeps on the exp flavour F, then
+// the dense field refresh.  ch/cJ/ctau are the class coefficients, read at
+// coef(k) when staged.  u_scratch (rows, B*128) holds the uniforms when they do not
 // fit in shared memory, else it is nullptr; with num_sweeps == 0 there are
 // no uniforms.  Every pointer the kernel reads or writes in 16-byte words
 // is 16-byte aligned (the C entries check it).
-template <class Coef>
+template <int F, class Coef>
 __device__ void colored_multisweep_cta(
     unsigned char* smem, const float* __restrict__ spins_in, const uint32_t* rng_in, float beta,
     float* __restrict__ spins_out, float* __restrict__ h_space, float* __restrict__ h_tau,
     uint32_t* rng_out, float* u_scratch, ColorTables cls, const Coef& coef,
     const float* __restrict__ ch, const float* __restrict__ cJ, const float* __restrict__ ctau,
-    int rows, int sd, int num_sweeps, float scale, float centre) {
+    int rows, int sd, int num_sweeps, const ExpConsts& ec) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, l = tid & 31, warps = nt >> 5;
@@ -302,9 +304,9 @@ __device__ void colored_multisweep_cta(
                   EmitUniform{ub4, ustride4, blk * MT_N, rows});
     for (int c = 0; c < C; ++c) {
       if (s.u)
-        walk_class(s, SharedUniforms{s.u}, c, sd, warp, warps, l, m2b, scale, centre);
+        walk_class<F>(s, SharedUniforms{s.u}, c, sd, warp, warps, l, m2b, ec);
       else
-        walk_class(s, ScratchUniforms{ub, ld}, c, sd, warp, warps, l, m2b, scale, centre);
+        walk_class<F>(s, ScratchUniforms{ub, ld}, c, sd, warp, warps, l, m2b, ec);
       __syncthreads();  // the next class reads this one's rows
     }
   }

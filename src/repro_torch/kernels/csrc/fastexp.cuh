@@ -1,5 +1,6 @@
-// The bit-trick exps (core/fastexp.py: fastexp_fast, fastexp_accurate)
-// on the card.
+// The exps of core/fastexp.py on the card: the bit tricks fastexp_fast and
+// fastexp_accurate, and fastexp_exact (exp_reference), each a flavour of
+// sweep_exp<F>, the exp the sweep kernels decide with.
 //
 // x * 2^23 log2(e) is one float32 rounding; __float2int_rz truncates,
 // saturates and maps NaN to 0, like the reference's float->int32; the
@@ -13,12 +14,18 @@
 // float64 (a sqrt, a division) and rounds it to float32; here it is
 // float32 arithmetic with the same bits (rsqrt_f32), with which
 // "accurate" over 2^26 elements runs 1.24x faster than with rsqrt_f64
-// (PERF.md).  The float constants arrive from the host as bit patterns.
+// (PERF.md).  "exact" is expf with the same flush: not __expf and not
+// --use_fast_math, so it is the exp that torch.exp computes on the card
+// (chip_smoke.py holds sweep_exp<EXACT> to it on all 2^32 float32 inputs).
+// The float constants arrive from the host as bit patterns.
 
 #pragma once
 
-#include <cfloat>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cfloat>
+#include <cstring>
 
 namespace {
 
@@ -108,5 +115,46 @@ __device__ __forceinline__ float fastexp_accurate(float x, float scale4, float c
   if (x > 0.0f && r < 1.0f) r = 1.0f;
   return r;
 }
+
+__device__ __forceinline__ float fastexp_exact(float x) { return flush_subnormal(expf(x)); }
+
+// The float constants of the bit tricks, in the order the C entries take
+// their bit patterns (kernels/ops.py: _EXP_CONSTS).
+struct ExpConsts {
+  float scale, centre, scale4, lo, clip_hi;
+};
+
+inline float exp_const(uint32_t bits) {
+  float f;
+  memcpy(&f, &bits, sizeof f);
+  return f;
+}
+
+inline ExpConsts exp_consts(uint32_t scale, uint32_t centre, uint32_t scale4, uint32_t lo,
+                            uint32_t clip_hi) {
+  return ExpConsts{exp_const(scale), exp_const(centre), exp_const(scale4), exp_const(lo),
+                   exp_const(clip_hi)};
+}
+
+// The exp flavours a sweep kernel is instantiated for, with the codes the C
+// entries take (kernels/ops.py: SWEEP_FLAVOURS).
+constexpr int EXP_FAST = 0, EXP_ACCURATE = 1, EXP_EXACT = 2;
+
+template <int F>
+__device__ __forceinline__ float sweep_exp(float x, const ExpConsts& c) {
+  static_assert(F == EXP_FAST || F == EXP_ACCURATE || F == EXP_EXACT, "unknown exp flavour");
+  if constexpr (F == EXP_FAST) return fastexp_fast(x, c.scale, c.centre);
+  else if constexpr (F == EXP_ACCURATE)
+    return fastexp_accurate(x, c.scale4, c.centre, c.lo, c.clip_hi);
+  else return fastexp_exact(x);
+}
+
+// Instantiates K<..., F> for the flavour code `flavour` and returns what the
+// call returns; an unknown code is cudaErrorInvalidValue.
+#define SWEEP_EXP_DISPATCH(flavour, CALL)                   \
+  ((flavour) == EXP_FAST       ? CALL(EXP_FAST)             \
+   : (flavour) == EXP_ACCURATE ? CALL(EXP_ACCURATE)         \
+   : (flavour) == EXP_EXACT    ? CALL(EXP_EXACT)            \
+                               : (int)cudaErrorInvalidValue)
 
 }  // namespace

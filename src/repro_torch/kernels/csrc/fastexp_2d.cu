@@ -33,17 +33,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cstring>
-
 #include "fastexp.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-
-struct ExpConsts {
-  float scale, centre, scale4, lo, clip_hi;
-};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
@@ -96,12 +90,6 @@ int launch_flavour(const void* x, float* out, long long n, bool accurate, const 
   return accurate ? launch<T, true>(x, out, n, c, stream) : launch<T, false>(x, out, n, c, stream);
 }
 
-float from_bits(uint32_t bits) {
-  float f;
-  memcpy(&f, &bits, sizeof f);
-  return f;
-}
-
 }  // namespace
 
 // Launches on `stream` over n >= 1 contiguous elements of type `dtype`
@@ -111,8 +99,7 @@ extern "C" int fastexp_2d(const void* x, float* out, long long n, int dtype, int
                           uint32_t scale_bits, uint32_t centre_bits, uint32_t scale4_bits,
                           uint32_t lo_bits, uint32_t clip_hi_bits, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const ExpConsts c{from_bits(scale_bits), from_bits(centre_bits), from_bits(scale4_bits),
-                    from_bits(lo_bits), from_bits(clip_hi_bits)};
+  const ExpConsts c = exp_consts(scale_bits, centre_bits, scale4_bits, lo_bits, clip_hi_bits);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0: return launch_flavour<float>(x, out, n, accurate != 0, c, s);

@@ -6,7 +6,7 @@
 // multi=True, whose j2/tau2 operands are per-slot blocks of (B, rows, .)
 // tables tiled from (B, n, .)).  The plain PyTorch version is
 // src/repro_torch/kernels/ref.py:metropolis_multisweep_multi_ref; the two
-// agree bit for bit.
+// agree bit for bit for every exp flavour.
 //
 // Layout.  metropolis_multisweep.cu with per-slot tables, through the same
 // body (a4_sweep.cuh: a4_cta with multi set): a CTA stages each of its
@@ -23,16 +23,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cstring>
-
 #include "a4_sweep.cuh"
 
 namespace {
 
-template <bool FIELDS_IN_SMEM, int SDT>
+template <bool FIELDS_IN_SMEM, int SDT, int F>
 __global__ void __launch_bounds__(A4_MAX_THREADS)
     metropolis_multisweep_multi_kernel(A4_KERNEL_PARAMS) {
-  a4_cta<FIELDS_IN_SMEM, SDT>(A4_KERNEL_IO, sh);
+  a4_cta<FIELDS_IN_SMEM, SDT, F>(A4_KERNEL_IO, sh);
 }
 
 }  // namespace
@@ -42,12 +40,12 @@ extern "C" int metropolis_multisweep_multi(
     const float* spins_in, const float* hs_in, const float* ht_in, const uint32_t* rng_in,
     const int* nbr, const float* j2_b, const float* tau2_b, const float* beta, float* spins_out,
     float* hs_out, float* ht_out, uint32_t* rng_out, float* u_scratch, int B, int rows, int n,
-    int sd, int num_sweeps, int max_smem, int tile, uint32_t scale_bits, uint32_t centre_bits,
+    int sd, int num_sweeps, int max_smem, int tile, int flavour, uint32_t scale_bits,
+    uint32_t centre_bits, uint32_t scale4_bits, uint32_t lo_bits, uint32_t clip_hi_bits,
     void* stream) {
   const A4Io io{spins_in, hs_in, ht_in, rng_in, nbr, j2_b, tau2_b, beta,
                 spins_out, hs_out, ht_out, rng_out, u_scratch};
   A4Shape sh{B, rows, n, sd, num_sweeps, tile, true, true};
-  memcpy(&sh.scale, &scale_bits, sizeof sh.scale);
-  memcpy(&sh.centre, &centre_bits, sizeof sh.centre);
-  return A4_LAUNCH(metropolis_multisweep_multi_kernel, io, sh, max_smem, stream);
+  sh.ec = exp_consts(scale_bits, centre_bits, scale4_bits, lo_bits, clip_hi_bits);
+  return A4_LAUNCH(metropolis_multisweep_multi_kernel, io, sh, flavour, max_smem, stream);
 }

@@ -50,12 +50,13 @@ def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _kernel(name: str, argtypes: list):
-    """The C entry ``name`` of library ``name`` (built on first use)."""
+def _kernel(name: str):
+    """The C entry ``name`` of library ``name`` (built on first use), with
+    its `ENTRY_ARGS` signature."""
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+        fn.argtypes = ENTRY_ARGS[name]
     return fn
 
 
@@ -80,27 +81,39 @@ def _need_cuda(name: str, dev: torch.device) -> None:
         raise ValueError(f"{name} runs on cuda (or cpu) tensors, got {dev}")
 
 
-def check_sweep_flavour(name: str, exp_flavor: str, dev: torch.device) -> None:
-    """Raise for an unknown exp flavour, and for any flavour but "fast"
-    off the CPU: the sweep kernels compute the "fast" exp only, the plain
-    versions every flavour."""
-    fx.exp_fn(exp_flavor)
-    if dev.type != "cpu" and exp_flavor != "fast":
-        raise ValueError(
-            f"{name}: the kernel computes the 'fast' exp only; exp_flavor={exp_flavor!r} "
-            "runs on the plain version (CPU tensors, or the engine's backend='torch')"
-        )
+#: The exp flavours the sweep kernels (#1-#5) take, with their codes in
+#: csrc/fastexp.cuh (EXP_FAST, EXP_ACCURATE, EXP_EXACT): every flavour of
+#: `core.fastexp.EXP_FNS`, each a template instantiation of the kernels.
+SWEEP_FLAVOURS = {"fast": 0, "accurate": 1, "exact": 2}
 
+
+def _flavour_code(exp_flavor: str) -> int:
+    """The kernels' code of ``exp_flavor``; ValueError for unknown ones."""
+    fx.exp_fn(exp_flavor)
+    return SWEEP_FLAVOURS[exp_flavor]
+
+
+#: The exps' float constants as bit patterns, in the order every C entry
+#: takes them (csrc/fastexp.cuh: ExpConsts).
+_EXP_CONSTS = tuple(fx.f32_bits(c) for c in (
+    fx.SCALE_F32, fx.CENTRE_F32, fx.SCALE4_F32, fx.ACCURATE_LO_F32, fx.ACCURATE_CLIP_HI_F32))
 
 _VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-#: ctypes signatures of the C entries (pointers, ints, float bit patterns,
-#: stream), in the order of their definitions in csrc/.
-_COLORED_ARGS = [_VP] * 17 + [_INT] * 6 + [_U32, _U32, _VP]
-_COLORED_MULTI_ARGS = [_VP] * 18 + [_INT] * 7 + [_U32, _U32, _VP]
-_MULTISWEEP_ARGS = [_VP] * 13 + [_INT] * 7 + [_U32, _U32, _VP]
-_SWEEP_ARGS = [_VP] * 11 + [_INT] * 5 + [_U32, _U32, _VP]
-_MT_ARGS = [_VP] * 3 + [_INT] * 2 + [_VP]
-_FASTEXP_ARGS = [_VP, _VP, ctypes.c_longlong, _INT, _INT] + [_U32] * 5 + [_VP]
+#: The exp arguments of a sweep entry: its flavour code and the constants.
+_EXP_ARGS = [_INT] + [_U32] * len(_EXP_CONSTS)
+#: ctypes signatures of the C entries (pointers, ints, the exp's flavour
+#: and constants, stream), as csrc/<name>.cu defines them; each entry lives
+#: in the library of its name.
+ENTRY_ARGS = {
+    "colored_multisweep": [_VP] * 17 + [_INT] * 6 + _EXP_ARGS + [_VP],
+    "colored_multisweep_multi": [_VP] * 18 + [_INT] * 7 + _EXP_ARGS + [_VP],
+    "metropolis_multisweep": [_VP] * 13 + [_INT] * 7 + _EXP_ARGS + [_VP],
+    "metropolis_multisweep_multi": [_VP] * 13 + [_INT] * 7 + _EXP_ARGS + [_VP],
+    "metropolis_sweep": [_VP] * 11 + [_INT] * 5 + _EXP_ARGS + [_VP],
+    "mt_next_block": [_VP] * 3 + [_INT] * 2 + [_VP],
+    "fastexp_2d": [_VP, _VP, ctypes.c_longlong, _INT, _INT] + [_U32] * 5 + [_VP],
+    "sweep_exp_check": [_VP, _VP, ctypes.c_longlong] + _EXP_ARGS + [_VP],
+}
 
 
 def _same_device(dev: torch.device, **tensors) -> None:
@@ -258,7 +271,7 @@ def make_colored_multisweep(
     threads per replica); on CPU tensors it runs
     `ref.colored_multisweep_ref`.
     """
-    fx.exp_fn(exp_flavor)  # raises for unknown flavours
+    flavour = _flavour_code(exp_flavor)  # raises for unknown flavours
     classes = tuple(classes)
     host = {
         "h": np.asarray(h, np.float32),
@@ -295,7 +308,6 @@ def make_colored_multisweep(
                 spins, rng, beta, t["classes"], **t["plain"], n=n,
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
-        check_sweep_flavour("colored_multisweep", exp_flavor, dev)
         spins, rng, B, rows, *out, scratch = _colored_io(
             "colored_multisweep", spins, rng, beta, n, sd, len(classes), len(packed["row"]),
             num_sweeps,
@@ -303,13 +315,12 @@ def make_colored_multisweep(
         t = tables(dev)
         k = t["kernel"]
         with torch.cuda.device(dev):
-            err = _kernel("colored_multisweep", _COLORED_ARGS)(
+            err = _kernel("colored_multisweep")(
                 _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
                 _ptr(k["off"]), _ptr(k["row"]), _ptr(k["h"]), _ptr(k["J"]), _ptr(k["tgt"]),
                 _ptr(k["tau"]), _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]),
-                B, rows, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS,
-                fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32),
-                _stream(dev),
+                B, rows, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS, flavour,
+                *_EXP_CONSTS, _stream(dev),
             )
         _raise_if_failed("colored_multisweep", err)
         launches["colored_multisweep"] += 1
@@ -335,7 +346,7 @@ def make_colored_multisweep_multi(
     (one CTA of 128 * `COLORED_WARP_GROUPS` threads per slot); on CPU
     tensors it runs `ref.colored_multisweep_multi_ref`.
     """
-    fx.exp_fn(exp_flavor)  # raises for unknown flavours
+    flavour = _flavour_code(exp_flavor)  # raises for unknown flavours
     classes = tuple(classes)
     base_nbr = np.asarray(base_nbr, np.int32)
     sd = base_nbr.shape[1]
@@ -355,7 +366,6 @@ def make_colored_multisweep_multi(
                 spins, rng, beta, t["classes"], h_b, t["base_nbr"], base_J_b, tau_J_b, n=n,
                 num_sweeps=num_sweeps, exp_flavor=exp_flavor,
             )
-        check_sweep_flavour("colored_multisweep_multi", exp_flavor, dev)
         spins, rng, B, rows, *out, scratch = _colored_io(
             "colored_multisweep_multi", spins, rng, beta, n, sd, len(classes),
             len(packed["row"]), num_sweeps,
@@ -366,14 +376,13 @@ def make_colored_multisweep_multi(
         _same_device(dev, h_b=h_b, base_J_b=base_J_b, tau_J_b=tau_J_b)
         k = tables(dev)["kernel"]
         with torch.cuda.device(dev):
-            err = _kernel("colored_multisweep_multi", _COLORED_MULTI_ARGS)(
+            err = _kernel("colored_multisweep_multi")(
                 _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
                 _ptr(k["off"]), _ptr(k["row"]), _ptr(k["site"]), _ptr(k["tgt"]),
                 _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]), _ptr(h_b), _ptr(base_J_b),
                 _ptr(tau_J_b),
-                B, rows, n, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS,
-                fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32),
-                _stream(dev),
+                B, rows, n, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS, flavour,
+                *_EXP_CONSTS, _stream(dev),
             )
         _raise_if_failed("colored_multisweep_multi", err)
         launches["colored_multisweep_multi"] += 1
@@ -510,7 +519,7 @@ def _a4_inputs(name, spins, h_space, h_tau, base_nbr, base_J2, tau_J2, beta, n: 
 
 
 def _a4_fused(name, per_slot, spins, h_space, h_tau, rng, base_nbr, base_J2, tau_J2, beta,
-              n: int, num_sweeps: int, replica_tile):
+              n: int, num_sweeps: int, flavour: int, replica_tile):
     """Launch a fused a4 kernel (#3, or #4 with ``per_slot`` tables) with,
     when there are sweeps to run, a scratch of each replica's uniforms of
     two sweeps, (B, 2, rows, 128); returns ``(spins, h_space, h_tau,
@@ -526,10 +535,11 @@ def _a4_fused(name, per_slot, spins, h_space, h_tau, rng, base_nbr, base_J2, tau
     scratch = (torch.empty((B, 2, rows, LANES), dtype=torch.float32, device=spins.device)
                if num_sweeps > 0 else None)
     with torch.cuda.device(spins.device):
-        err = _kernel(name, _MULTISWEEP_ARGS)(
+        err = _kernel(name)(
             _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
             _ptr(base_J2), _ptr(tau_J2), _ptr(beta), *(_ptr(t) for t in out), _ptr(scratch),
-            B, rows, n, sd, num_sweeps, MAX_SMEM, tile, fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32), _stream(spins.device),
+            B, rows, n, sd, num_sweeps, MAX_SMEM, tile, flavour, *_EXP_CONSTS,
+            _stream(spins.device),
         )
     _raise_if_failed(name, err)
     launches[name] += 1
@@ -558,15 +568,15 @@ def metropolis_multisweep(
     tensors this runs `ref.metropolis_multisweep_ref` (any tile: the
     results do not depend on it)."""
     num_sweeps = _sweeps(num_sweeps)
+    flavour = _flavour_code(exp_flavor)
     dev = spins.device
-    check_sweep_flavour("metropolis_multisweep", exp_flavor, dev)
     if dev.type == "cpu":
         return ref.metropolis_multisweep_ref(
             spins, h_space, h_tau, rng, base_nbr, base_J2, tau_J2, beta, n, num_sweeps,
             exp_flavor,
         )
     return _a4_fused("metropolis_multisweep", False, spins, h_space, h_tau, rng, base_nbr,
-                     base_J2, tau_J2, beta, n, num_sweeps, replica_tile)
+                     base_J2, tau_J2, beta, n, num_sweeps, flavour, replica_tile)
 
 
 def metropolis_multisweep_multi(
@@ -588,15 +598,15 @@ def metropolis_multisweep_multi(
     Returns ``(spins, h_space, h_tau, rng)``; the inputs are not modified.
     On CPU tensors this runs `ref.metropolis_multisweep_multi_ref`."""
     num_sweeps = _sweeps(num_sweeps)
+    flavour = _flavour_code(exp_flavor)
     dev = spins.device
-    check_sweep_flavour("metropolis_multisweep_multi", exp_flavor, dev)
     if dev.type == "cpu":
         return ref.metropolis_multisweep_multi_ref(
             spins, h_space, h_tau, rng, base_nbr, base_J2_b, tau_J2_b, beta, n, num_sweeps,
             exp_flavor,
         )
     return _a4_fused("metropolis_multisweep_multi", True, spins, h_space, h_tau, rng, base_nbr,
-                     base_J2_b, tau_J2_b, beta, n, num_sweeps, replica_tile)
+                     base_J2_b, tau_J2_b, beta, n, num_sweeps, flavour, replica_tile)
 
 
 def metropolis_sweep(
@@ -615,8 +625,8 @@ def metropolis_sweep(
     (csrc/metropolis_sweep.cu, one launch per sweep).  Returns ``(spins,
     h_space, h_tau)``; the inputs are not modified.  On CPU tensors this
     runs `ref.metropolis_sweep_ref`."""
+    flavour = _flavour_code(exp_flavor)
     dev = spins.device
-    check_sweep_flavour("metropolis_sweep", exp_flavor, dev)
     if dev.type == "cpu":
         return ref.metropolis_sweep_ref(
             spins, h_space, h_tau, u, base_nbr, base_J2, tau_J2, beta, n, exp_flavor
@@ -629,10 +639,10 @@ def metropolis_sweep(
     spins, h_space, h_tau, u = (_aligned(t) for t in (spins, h_space, h_tau, u))
     out = [torch.empty_like(spins), torch.empty_like(h_space), torch.empty_like(h_tau)]
     with torch.cuda.device(dev):
-        err = _kernel("metropolis_sweep", _SWEEP_ARGS)(
+        err = _kernel("metropolis_sweep")(
             _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(u), _ptr(base_nbr), _ptr(base_J2),
             _ptr(tau_J2), _ptr(beta), *(_ptr(t) for t in out), B, rows, n, sd, MAX_SMEM,
-            fx.f32_bits(fx.SCALE_F32), fx.f32_bits(fx.CENTRE_F32), _stream(dev),
+            flavour, *_EXP_CONSTS, _stream(dev),
         )
     _raise_if_failed("metropolis_sweep", err)
     launches["metropolis_sweep"] += 1
@@ -658,7 +668,7 @@ def _mt_block(state: torch.Tensor, uniforms: bool):
     new = torch.empty_like(state)
     out = torch.empty(state.shape, dtype=torch.float32 if uniforms else torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _kernel("mt_next_block", _MT_ARGS)(
+        err = _kernel("mt_next_block")(
             _ptr(state), _ptr(new), _ptr(out), V, int(uniforms), _stream(dev)
         )
     _raise_if_failed(name, err)
@@ -706,9 +716,6 @@ def mt_uniforms_count(state: torch.Tensor, count: int):
 
 #: Input dtypes of `fastexp` and their codes in csrc/fastexp_2d.cu.
 _FASTEXP_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-#: The kernel's float constants as bit patterns, in its argument order.
-_FASTEXP_CONSTS = tuple(fx.f32_bits(c) for c in (
-    fx.SCALE_F32, fx.CENTRE_F32, fx.SCALE4_F32, fx.ACCURATE_LO_F32, fx.ACCURATE_CLIP_HI_F32))
 
 
 def fastexp(x: torch.Tensor, flavor: str = "fast") -> torch.Tensor:
@@ -733,10 +740,26 @@ def fastexp(x: torch.Tensor, flavor: str = "fast") -> torch.Tensor:
     if x.numel() == 0:
         return out
     with torch.cuda.device(dev):
-        err = _kernel("fastexp_2d", _FASTEXP_ARGS)(
+        err = _kernel("fastexp_2d")(
             _ptr(x), _ptr(out), x.numel(), _FASTEXP_DTYPES[x.dtype], int(flavor == "accurate"),
-            *_FASTEXP_CONSTS, _stream(dev),
+            *_EXP_CONSTS, _stream(dev),
         )
     _raise_if_failed("fastexp_2d", err)
     launches["fastexp_2d"] += 1
+    return out
+
+
+def _sweep_exp_check(x: torch.Tensor, exp_flavor: str) -> torch.Tensor:
+    """The sweep kernels' exp ``sweep_exp<exp_flavor>`` of every element of
+    the contiguous float32 CUDA tensor ``x`` (csrc/sweep_exp_check.cu): a
+    check of the exp that #1-#5 decide with, run on the card over all
+    float32 inputs.  Not a kernel of any path, and not counted."""
+    flavour = _flavour_code(exp_flavor)
+    _need_cuda("sweep_exp_check", x.device)
+    _check(x, "x", torch.float32, x.shape)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _kernel("sweep_exp_check")(
+            _ptr(x), _ptr(out), x.numel(), flavour, *_EXP_CONSTS, _stream(x.device))
+    _raise_if_failed("sweep_exp_check", err)
     return out

@@ -1,6 +1,7 @@
 """Annealing-as-a-service CLI: a job mix through one resident SampleServer.
 
-Packs annealing jobs (seed + beta schedule + sweep budget) into the
+Packs annealing jobs (seed + beta schedule + sweep budget) and, with
+``--pt-replicas R``, one parallel-tempering job of R slots into the
 replica batch of ONE resident `SweepEngine`, advancing everyone by fused
 chunks — one launch of a multisweep CUDA kernel per chunk: the colored
 kernel for ``--rung cb`` (the default), the paper's sequential a4 kernel
@@ -15,6 +16,8 @@ device it must be asked for).
       --device cpu --jobs 8 --slots 4 --chunk 4 --n 8 --L 16 --V 4 [--rung a4]
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
       --rung a2 --device cpu --jobs 4 --slots 2 --n 8 --L 16
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve \\
+      --device cpu --jobs 4 --slots 4 --n 8 --L 16 --V 4 --pt-replicas 3 --pt-rounds 3
 
 ``--device cpu`` serves with the plain PyTorch version (``--backend``
 defaults to ``cuda`` on a CUDA device and to ``torch`` elsewhere).
@@ -23,10 +26,14 @@ Admission defaults to the weighted-fair priority scheduler
 ``--trace PATH`` writes the run's Chrome-trace-event JSON; ``--metrics``
 prints the Prometheus text exposition of the server's registry.
 
-The job mix is anneal-only: parallel tempering (``--pt-replicas``,
-``--pt-rounds``, and ``--smoke``, whose mix has a PT job), device meshes
-(``--devices``) and snapshots (``--snapshot-dir``, ``--snapshot-every``,
-``--resume``) are not ported yet and raise ValueError naming the flag.
+``--pt-replicas R`` adds one `PTJob` to the mix: betas
+``linspace(0.4, --beta, R)``, seed ``--seed + 77``, ``--pt-rounds`` rounds
+(default 4) of ``max(1, --chunk // 2)`` sweeps, priority 1, user
+"ladder"; the server needs at least R slots.  The report marks it
+``[pt]``.  ``--smoke`` (the reference's snapshot -> kill -> restore
+cycle) waits for server snapshots; it, device meshes (``--devices``) and
+snapshots (``--snapshot-dir``, ``--snapshot-every``, ``--resume``) are
+not ported yet and raise ValueError naming the flag.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.core import ising
-from repro_torch.serve_mc import AnnealJob, SampleServer
+from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
 
 
 class ServeReport(NamedTuple):
@@ -52,9 +59,9 @@ class ServeReport(NamedTuple):
 
 
 def build_job_mix(args) -> list:
-    """A deterministic anneal workload: constant-beta jobs with scattered
-    budgets, every 4th job a linear beta ramp, three users, every 5th job
-    expedited (priority 1)."""
+    """A deterministic workload: constant-beta jobs with scattered budgets,
+    every 4th job a linear beta ramp, three users, every 5th job expedited
+    (priority 1), plus one PT job when ``--pt-replicas`` > 0."""
     rng = np.random.default_rng(args.seed)
     jobs = []
     for i in range(args.jobs):
@@ -84,13 +91,23 @@ def build_job_mix(args) -> list:
                     priority=priority,
                 )
             )
+    if args.pt_replicas > 0:
+        betas = np.linspace(0.4, args.beta, args.pt_replicas).astype(np.float32)
+        jobs.append(
+            PTJob(
+                seed=args.seed + 77,
+                betas=betas,
+                num_rounds=args.pt_rounds,
+                sweeps_per_round=max(1, args.chunk // 2),
+                user="ladder",
+                priority=1,  # the wide job: exercises preemption/backfill
+            )
+        )
     return jobs
 
 
 _UNPORTED_FLAGS = {
     "smoke": "--smoke",
-    "pt_replicas": "--pt-replicas",
-    "pt_rounds": "--pt-rounds",
     "devices": "--devices",
     "snapshot_dir": "--snapshot-dir",
     "snapshot_every": "--snapshot-every",
@@ -125,10 +142,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--metrics", action="store_true",
                     help="print the Prometheus text exposition after the drain")
     ap.add_argument("--quiet", action="store_true", help="print nothing")
+    ap.add_argument("--pt-replicas", type=int, default=0,
+                    help="add one parallel-tempering job of this many replicas (slots)")
+    ap.add_argument("--pt-rounds", type=int, default=4,
+                    help="rounds of the PT job (each max(1, --chunk // 2) sweeps)")
     # Not ported yet: accepted so that using them fails with a clear error.
-    ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--pt-replicas", type=int, default=0)
-    ap.add_argument("--pt-rounds", type=int, default=None)
+    ap.add_argument("--smoke", action="store_true",
+                    help="not ported: the reference's snapshot -> kill -> restore cycle "
+                         "waits for server snapshots")
     ap.add_argument("--devices", type=int, default=0)
     ap.add_argument("--snapshot-dir", default=None)
     ap.add_argument("--snapshot-every", type=int, default=0)
@@ -136,7 +157,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     for attr, flag in _UNPORTED_FLAGS.items():
         if getattr(args, attr) != ap.get_default(attr):
-            raise ValueError(f"{flag} is not ported to repro_torch yet")
+            why = " (it waits for server snapshots)" if attr == "smoke" else ""
+            raise ValueError(f"{flag} is not ported to repro_torch yet{why}")
     if args.backend is None:
         args.backend = "cuda" if args.device.startswith("cuda") else "torch"
     if args.rung in ("a1", "a2", "a3") and args.backend != "torch":
@@ -179,10 +201,13 @@ def main(argv=None) -> ServeReport:
     if len(results) != len(jobs):
         raise RuntimeError(f"served {len(results)} of {len(jobs)} jobs")
 
-    for r in sorted(results, key=lambda r: r.jid)[:8]:
+    shown = sorted(results, key=lambda r: r.jid)
+    for r in shown[:8] + [r for r in shown[8:] if r.spins.ndim == 2]:
+        e = r.energy if np.ndim(r.energy) == 0 else float(np.min(r.energy))
+        kind = "pt" if r.spins.ndim == 2 else "anneal"
         say(
-            f"  job {r.jid:3d} {r.sweeps_done:4d} sweeps in {r.chunks:3d} chunks  "
-            f"E={r.energy:9.2f}  m={r.magnetization:+.3f}"
+            f"  job {r.jid:3d} [{kind}] {r.sweeps_done:4d} sweeps in {r.chunks:3d} chunks  "
+            f"E={e:9.2f}  m={np.mean(r.magnetization):+.3f}"
         )
     st = server.stats()
     say(

@@ -8,7 +8,9 @@ Jobs pack into replica slots of ONE resident engine; every chunk of
 sweeps is a single launch of the rung's multisweep kernel for all of
 them.  ``SampleServer(model, multi_tenant=True)`` serves jobs that carry
 their own model (``AnnealJob.constant(..., model=tenant)``) side by side
-in that one launch.
+in that one launch.  A parallel-tempering ladder is one job of R slots
+(``PTJob(seed, betas, num_rounds, sweeps_per_round)``) whose rounds ride
+the same launches.
 """
 
 from repro_torch.serve_mc.jobs import AnnealJob, JobResult, PTJob

@@ -15,8 +15,17 @@ always stops exactly at segment boundaries, where the job's
     which slot it lands in or what runs beside it.  On a multi-tenant
     server a job may carry its own model (``model=``); it then equals the
     solo run of that model.
+  * `PTJob` — R slots; every segment is one parallel-tempering round.
+    The hook is `tempering.swap_phase` over the job's own slots (gathered
+    out of the shared carry), so a tempering round is "one scheduled chunk
+    + swap" and shares launches with whatever else is resident.  It equals
+    `tempering.run_parallel_tempering` with the same seed, betas and rounds
+    bit for bit, wherever its slots land (a job's own model, on a
+    multi-tenant server, included).
 
-Parallel-tempering jobs (`PTJob`) are not ported yet.
+A job's snapshot (`PTJob.snapshot_state` / `from_snapshot`) comes with
+server snapshots, which are not ported yet: both raise ValueError naming
+themselves.
 """
 
 from __future__ import annotations
@@ -25,17 +34,19 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 
+import torch
+
 from repro_torch.core import engine as sweep_engine
-from repro_torch.core import ising, observables
+from repro_torch.core import ising, mt19937, observables, tempering
 
 
 class JobResult(NamedTuple):
     """What a retired job hands back to the submitter."""
 
     jid: int
-    spins: np.ndarray  # (N,) flat layer-major
-    energy: float
-    magnetization: float
+    spins: np.ndarray  # (N,) flat layer-major; (R, N) for multi-slot jobs
+    energy: float | np.ndarray
+    magnetization: float | np.ndarray
     sweeps_done: int
     chunks: int  # fused launches this job rode in
     extras: dict
@@ -230,8 +241,132 @@ class AnnealJob(_ScheduledJob):
         )
 
 
-class PTJob:
-    """Parallel-tempering jobs are not ported to repro_torch yet."""
+class PTJob(_ScheduledJob):
+    """A whole parallel-tempering workload as ONE multi-slot job.
 
-    def __init__(self, *args, **kwargs):
-        raise ValueError("PTJob (parallel tempering) is not ported to repro_torch yet")
+    Occupies R slots (one per replica).  Every segment is one PT round of
+    ``sweeps_per_round`` sweeps; at each boundary the job gathers its slots
+    into a `tempering.PTState` and runs the same `tempering.swap_phase` the
+    standalone run makes, then writes the swapped betas back into the
+    shared carry.  Seeding reproduces `tempering.init_pt` exactly (replica
+    b gets RNG lane seeds ``lane_seeds(R, V, seed)[b*V:(b+1)*V]`` and spins
+    ``init_spins(m, seed*1000 + b)``), so the result is bit-identical to
+    `tempering.run_parallel_tempering` wherever the slots land.  The swap
+    generator and counters live on the server's device.
+    """
+
+    kind = "pt"
+
+    def __init__(
+        self,
+        seed: int,
+        betas: np.ndarray,
+        num_rounds: int,
+        sweeps_per_round: int = 1,
+        model: ising.LayeredModel | None = None,
+        priority: int = 0,
+        user: str | None = None,
+    ):
+        if num_rounds < 1:
+            raise ValueError(f"num_rounds must be >= 1, got {num_rounds}")
+        super().__init__(
+            [int(sweeps_per_round)] * int(num_rounds), model=model,
+            priority=priority, user=user,
+        )
+        self.seed = int(seed)
+        self.betas = np.asarray(betas, np.float32)
+        self.num_slots = len(self.betas)
+        # The swap generator and counters, as `tempering.init_pt` makes
+        # them; moved to the server's device at first admission.
+        self.swap_rng = mt19937.mt_init(self.seed + 17, "cpu")
+        self.swap_accept = torch.zeros((), dtype=torch.int32)
+        self.swap_propose = torch.zeros((), dtype=torch.int32)
+        self._energy_tables = None  # built on first swap for a private model
+
+    def snapshot_state(self):
+        raise ValueError("PTJob.snapshot_state: job snapshots are not ported to repro_torch yet")
+
+    @classmethod
+    def from_snapshot(cls, *args, **kwargs):
+        raise ValueError("PTJob.from_snapshot: job snapshots are not ported to repro_torch yet")
+
+    # -- scheduler interface --------------------------------------------------
+
+    def init_carries(self, server) -> list[sweep_engine.SweepCarry]:
+        eng, m = server.engine, self.model_on(server)
+        lanes = eng._slot_lanes()
+        seeds = sweep_engine.lane_seeds(self.num_slots, lanes, self.seed)
+        dev = eng.device
+        self.swap_rng, self.swap_accept, self.swap_propose = (
+            t.to(dev) for t in (self.swap_rng, self.swap_accept, self.swap_propose))
+        return [
+            eng.init_slot_carry(
+                seed=self.seed,
+                spins=ising.init_spins(m, seed=self.seed * 1000 + b),
+                beta=float(self.betas[b]),
+                rng_seeds=seeds[b * lanes : (b + 1) * lanes],
+                model=self.model,
+            )
+            for b in range(self.num_slots)
+        ]
+
+    def _gather_state(self, eng, carry, slots) -> tempering.PTState:
+        """The ladder's replicas, in replica order, out of the shared carry."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=carry.spins.device)
+        lanes = eng._slot_lanes()
+        cols = (idx[:, None] * lanes + torch.arange(lanes, device=idx.device)).reshape(-1)
+        return tempering.PTState(
+            carry.spins[idx],
+            carry.h_space[idx],
+            carry.h_tau[idx],
+            carry.betas[idx],
+            carry.rng[:, cols],
+            swap_rng=self.swap_rng,
+            swap_accept=self.swap_accept,
+            swap_propose=self.swap_propose,
+        )
+
+    def _swap_energy_tables(self, eng):
+        """Energy tables of the job's model: the engine's when the job has
+        none, else built once per job from the private model."""
+        if self.model is None:
+            return tempering.energy_tables(eng)
+        if self._energy_tables is None:
+            self._energy_tables = tempering.model_energy_tables(self.model, eng.device)
+        return self._energy_tables
+
+    def on_segment(self, server, carry, slots):
+        eng = server.engine
+        parity = (self._seg - 1) % 2  # the round just completed: the standalone r % 2
+        state = tempering.swap_phase(
+            self._gather_state(eng, carry, slots),
+            *self._swap_energy_tables(eng),
+            parity,
+            eng.model.n,
+            eng.exp_flavor,
+        )
+        self.swap_rng = state.swap_rng
+        self.swap_accept = state.swap_accept
+        self.swap_propose = state.swap_propose
+        return eng.set_slot_betas(carry, slots, state.betas)
+
+    def finalize(self, server, slots) -> JobResult:
+        eng, m = server.engine, self.model_on(server)
+        spins = np.stack(
+            [eng.spins_flat(eng.extract_slot(server.carry, b))[0] for b in slots]
+        )
+        betas = server.carry.betas[list(slots)].cpu().numpy()
+        return JobResult(
+            jid=self.jid,
+            spins=spins,
+            energy=observables.energies(m, spins),
+            magnetization=observables.magnetization(spins),
+            sweeps_done=self.sweeps_done,
+            chunks=self.chunks,
+            extras={
+                "betas": betas,
+                "swap_accept": int(self.swap_accept),
+                "swap_propose": int(self.swap_propose),
+                "preemptions": self.preemptions,
+            },
+        )

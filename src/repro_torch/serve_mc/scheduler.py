@@ -51,10 +51,11 @@ its slot to the server's model, so a retired tenant's tables never leak.
 
 The port serves on one device, on every rung: "a4" and "cb" on both
 backends, the paper's slower rungs a1-a3 (one model) on
-``backend="torch"`` only, where any exp flavour ("fast", "accurate",
-"exact") is accepted; ``backend="cuda"`` runs the "fast" exp.  Not ported
-yet, each raising ValueError naming itself: ``replica_tile``,
-``mesh``/``capacities``, ``stream``, `arm_profiler`, snapshots
+``backend="torch"`` only; every exp flavour ("fast", "accurate",
+"exact") on every backend.  Anneal jobs and parallel-tempering jobs
+(`PTJob`, R slots each) share the launches.  Not ported yet, each raising
+ValueError naming itself: ``mesh``/``capacities``, ``stream``,
+`arm_profiler`, snapshots
 (``snapshot_manager``, ``snapshot_every_sweeps``, ``preemption``,
 `snapshot`, `restore`).
 """

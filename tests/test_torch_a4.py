@@ -196,9 +196,13 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         ops.metropolis_multisweep(*st, rng, nbr, j2, tau2, beta, n=n, num_sweeps=1)
     with pytest.raises(ValueError, match="num_sweeps"):
         ops.metropolis_multisweep(*st, rng, nbr, j2, tau2, beta, n=n, num_sweeps=-1)
-    with pytest.raises(ValueError, match="accurate"):
+    for flavor in ("accurate", "exact"):  # every flavour reaches the device check
+        with pytest.raises(ValueError, match="cuda"):
+            ops.metropolis_multisweep(*st, rng, nbr, j2, tau2, beta, n=n, num_sweeps=1,
+                                      exp_flavor=flavor)
+    with pytest.raises(ValueError, match="unknown exp flavour 'zz'"):
         ops.metropolis_multisweep(*st, rng, nbr, j2, tau2, beta, n=n, num_sweeps=1,
-                                  exp_flavor="accurate")
+                                  exp_flavor="zz")
     with pytest.raises(ValueError, match="cuda"):
         ops.metropolis_sweep(*st, st[0], nbr, j2, tau2, beta, n=n)
     for fn in (ops.mt_next_block, ops.mt_uniforms):

@@ -231,7 +231,7 @@ def _model():
         (dict(rung="a1", backend="torch", exp_flavor="zz"), "unknown exp flavour 'zz'"),
         (dict(rung="zz", backend="torch"), "unknown rung"),
         (dict(backend="jnp"), "unknown backend"),
-        (dict(backend="cuda", exp_flavor="accurate", V=128, device="cuda"), "'accurate'"),
+        (dict(backend="cuda", exp_flavor="zz", V=128, device="cuda"), "unknown exp flavour 'zz'"),
         (dict(backend="torch", replica_tile=1), "replica_tile"),
         (dict(backend="torch", mesh=object()), "mesh"),
         (dict(backend="torch", capacities=[1]), "mesh"),
@@ -244,9 +244,9 @@ def _model():
 )
 def test_engine_rejects_unported_modes(kwargs, match):
     """Modes the port does not run raise ValueError naming themselves: the
-    "cuda" backend refuses the rungs and exp flavours its kernels do not
-    compute (ids "a3", "exp"), an unknown flavour is refused on any rung
-    (id "a1")."""
+    "cuda" backend refuses the rungs its kernels do not compute (id "a3");
+    an unknown exp flavour is refused on any rung and backend (ids "a1",
+    "exp": the kernels take every known flavour)."""
     kw = dict(V=4, device="cpu")
     kw.update(kwargs)
     with pytest.raises(ValueError, match=match):
@@ -280,8 +280,8 @@ def test_engine_rejects_model_lists_slots_and_slot_models():
 
 def test_unported_serving_features_raise():
     m = _model()
-    with pytest.raises(ValueError, match="PTJob"):
-        PTJob(seed=1, betas=[1.0, 2.0], num_rounds=2)
+    with pytest.raises(ValueError, match="PTJob.snapshot_state"):  # PTJob itself serves
+        PTJob(seed=1, betas=[1.0, 2.0], num_rounds=2).snapshot_state()
     for field, value in [
         ("mesh", object()), ("capacities", (4,)),
         ("replica_tile", 1), ("stream", object()), ("snapshot_manager", "dir"),

@@ -345,13 +345,85 @@ def test_fastexp_kernel_bit_equals_plain_on_every_float32(flavor):
         assert torch.equal(g, w), f"from {lo:#x}: {int((g != w).sum())} differ"
 
 
-def test_sweep_kernels_refuse_other_flavours_on_the_card():
+@pytest.mark.parametrize("B", [1, 8, 115])
+@pytest.mark.parametrize("flavor", ["fast", "accurate", "exact"])
+def test_sweep_kernels_run_every_flavour_bit_equal_to_plain(flavor, B):
+    """#1-#5 on each exp flavour (a template instantiation of each kernel)
+    against their plain versions on the card, bit pattern for bit pattern
+    (#2 and #4 on B distinct tenants, #5 one sweep on given uniforms)."""
     _need_card()
     dev = torch.device("cuda")
-    c, tabs = _a4_case(6, 256, 1, dev)
-    with pytest.raises(ValueError, match="'accurate'"):
-        ops.metropolis_multisweep(c.spins, c.h_space, c.h_tau, c.rng, **tabs, beta=c.betas, n=6,
-                                  num_sweeps=1, exp_flavor="accurate")
+    n, L, S = 96, 256, 4
+    m = ising.random_layered_model(n=n, L=L, seed=B, beta=1.0)
+    tenants = [ising.reseed_couplings(m, seed=100 + k) for k in range(B)]
+    betas = torch.linspace(0.2, 2.0, B, device=dev)
+    for rung in ("cb", "a4"):
+        for models in (m, tenants):
+            kw = dict(rung=rung, V=128, device=dev, exp_flavor=flavor)
+            if models is m:
+                kw["batch"] = B
+            kern = engine.SweepEngine.create(models, backend="cuda", **kw)
+            plain = engine.SweepEngine.create(models, backend="torch", **kw)
+            carry = plain.init_carry(seed=3)._replace(betas=betas)
+            _bits_equal(kern.run(carry, S), plain.run(carry, S))
+    c, tabs = _a4_case(n, L, B, dev)
+    rows = c.spins.shape[1]
+    u = mt.mt_uniforms_count(c.rng, rows)[1].reshape(rows, B, 128).permute(1, 0, 2).contiguous()
+    args = (c.spins, c.h_space, c.h_tau, u)
+    _bits_equal(ops.metropolis_sweep(*args, **tabs, beta=c.betas, n=n, exp_flavor=flavor),
+                ref.metropolis_sweep_ref(*args, **tabs, beta=c.betas, n=n, exp_flavor=flavor))
+
+
+@pytest.mark.parametrize("flavor", ["exact", "accurate"])
+def test_sweep_exp_bit_equals_plain_on_every_float32(flavor):
+    """The sweep kernels' exp (csrc/sweep_exp_check.cu) against the plain
+    exp on the card over all 2^32 float32 bit patterns, NaNs unified:
+    "exact" is `torch.exp` with the flush, "accurate" `fastexp_accurate`."""
+    _need_card()
+    from repro_torch.core import fastexp
+
+    nan = torch.tensor(0x7FC00000, dtype=torch.int32, device="cuda")
+    chunk = 2**28
+    for lo in range(-(2**31), 2**31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device="cuda").view(torch.float32)
+        got, want = ops._sweep_exp_check(x, flavor), fastexp.EXP_FNS[flavor](x)
+        g, w = (torch.where(t.isnan(), nan, t.view(torch.int32)) for t in (got, want))
+        assert torch.equal(g, w), f"from {lo:#x}: {int((g != w).sum())} differ"
+
+
+@pytest.mark.parametrize("flavor", ["fast", "accurate"])
+@pytest.mark.parametrize("rung", ["a4", "cb"])
+def test_parallel_tempering_on_the_card_equals_the_plain_backend(rung, flavor):
+    """`run_parallel_tempering` with backend "cuda" (one kernel launch a
+    round) equals backend "torch" on the card bit for bit, and a served
+    PTJob (rounds split across chunks) equals the standalone run."""
+    _need_card()
+    from repro_torch.core import tempering
+    from repro_torch.serve_mc import PTJob
+
+    m = ising.random_layered_model(n=8, L=256, seed=4, beta=1.0)
+    betas = np.geomspace(0.1, 3.0, 8).astype(np.float32)
+    kw = dict(seed=3, sweeps_per_round=3, rung=rung, exp_flavor=flavor)
+    got, e_got = tempering.run_parallel_tempering(m, betas, 6, backend="cuda", **kw)
+    want, e_want = tempering.run_parallel_tempering(m, betas, 6, backend="torch", V=128, **kw)
+    for f in tempering.PTState._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), f
+    np.testing.assert_array_equal(e_got, e_want)
+    server = SampleServer(m, slots=12, chunk_sweeps=2, rung=rung, backend="cuda",
+                          exp_flavor=flavor)
+    server.submit(AnnealJob.constant(seed=1, sweeps=7, beta=0.9))
+    job = PTJob(seed=3, betas=betas, num_rounds=6, sweeps_per_round=3)
+    server.submit(job)
+    r = {r.jid: r for r in server.drain()}[job.jid]
+    np.testing.assert_array_equal(r.extras["betas"], got.betas.cpu().numpy())
+    assert r.extras["swap_accept"] == int(got.swap_accept)
+    assert r.extras["swap_propose"] == int(got.swap_propose)
+    eng = tempering.make_pt_engine(m, len(betas), rung=rung)
+    spins = eng.spins_flat(engine.SweepCarry(got.spins, got.h_space, got.h_tau, got.betas,
+                                             got.rng))
+    np.testing.assert_array_equal(r.spins, spins)
 
 
 # -- the a4 kernels (#3, #4, #5), bit pattern for bit pattern -------------------

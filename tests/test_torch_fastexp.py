@@ -218,16 +218,21 @@ def test_ops_fastexp_refusals():
 
 
 def test_sweep_wrappers_refuse_other_flavours_off_the_cpu():
-    """The sweep kernels compute the "fast" exp only: on a non-CPU tensor
-    every other flavour is refused by name, before any device check."""
+    """The sweep kernels take every flavour of `fastexp.EXP_FNS`: on a
+    tensor of another device "accurate" and "exact" reach the device check
+    as "fast" does, and only an unknown flavour is refused by name, before
+    it (the colored entries refuse it when they are built)."""
     meta = torch.empty((1, 8, 128), device="meta")
     kw = dict(n=4, num_sweeps=1)
-    for flavor in ("accurate", "exact"):
+    for flavor in ("fast", "accurate", "exact"):
         for fn in (ops.metropolis_multisweep, ops.metropolis_multisweep_multi):
-            with pytest.raises(ValueError, match=repr(flavor)):
+            with pytest.raises(ValueError, match="cuda"):
                 fn(*[meta] * 8, **kw, exp_flavor=flavor)
-        with pytest.raises(ValueError, match=repr(flavor)):
+        with pytest.raises(ValueError, match="cuda"):
             ops.metropolis_sweep(*[meta] * 8, n=4, exp_flavor=flavor)
+    for fn in (ops.metropolis_multisweep, ops.metropolis_multisweep_multi):
+        with pytest.raises(ValueError, match="'zz'"):
+            fn(*[meta] * 8, **kw, exp_flavor="zz")
     with pytest.raises(ValueError, match="'zz'"):
         ops.metropolis_sweep(*[meta] * 8, n=4, exp_flavor="zz")
     m = ising.random_layered_model(n=4, L=256, seed=0)
@@ -235,7 +240,12 @@ def test_sweep_wrappers_refuse_other_flavours_off_the_cpu():
     single = ops.make_colored_multisweep(classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=4,
                                          exp_flavor="accurate")
     multi = ops.make_colored_multisweep_multi(classes, m.space_nbr, n=4, exp_flavor="exact")
-    with pytest.raises(ValueError, match="'accurate'"):
+    with pytest.raises(ValueError, match="cuda"):
         single(meta, meta, meta, 1)
-    with pytest.raises(ValueError, match="'exact'"):
+    with pytest.raises(ValueError, match="cuda"):
         multi(meta, meta, meta, meta, meta, meta, 1)
+    with pytest.raises(ValueError, match="'zz'"):
+        ops.make_colored_multisweep(classes, m.h, m.space_nbr, m.space_J, m.tau_J, n=4,
+                                    exp_flavor="zz")
+    with pytest.raises(ValueError, match="'zz'"):
+        ops.make_colored_multisweep_multi(classes, m.space_nbr, n=4, exp_flavor="zz")

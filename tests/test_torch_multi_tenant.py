@@ -341,7 +341,7 @@ def test_multi_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda"):
         ops.metropolis_multisweep_multi(meta, meta, meta, meta, meta, meta, meta, meta, n=4,
                                         num_sweeps=1)
-    with pytest.raises(ValueError, match="accurate"):
+    with pytest.raises(ValueError, match="cuda"):
         ops.metropolis_multisweep_multi(meta, meta, meta, meta, meta, meta, meta, meta, n=4,
                                         num_sweeps=1, exp_flavor="accurate")
 

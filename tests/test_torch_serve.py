@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from repro.core import ising as jis
+from repro.launch import anneal_serve as jas
 from repro.serve_mc import AnnealJob as JAnneal
 from repro.serve_mc import SampleServer as JServer
 from repro.serve_mc.scheduler import SlotPool as JSlotPool
@@ -181,10 +182,33 @@ def test_cli_serves_on_cpu(tmp_path, capsys, rung):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--pt-replicas", "3"], ["--devices", "4"], ["--snapshot-dir", "x"],
-             ["--snapshot-every", "8"], ["--resume"], ["--smoke"], ["--pt-rounds", "2"]],
-    ids=["pt", "devices", "snapshot-dir", "snapshot-every", "resume", "smoke", "pt-rounds"],
+    "flag", [["--devices", "4"], ["--snapshot-dir", "x"], ["--snapshot-every", "8"],
+             ["--resume"], ["--smoke"]],
+    ids=["devices", "snapshot-dir", "snapshot-every", "resume", "smoke"],
 )
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(ValueError, match=f"{flag[0]} is not ported"):
         anneal_serve.main(["--device", "cpu", "--V", "4", "--L", "16"] + flag)
+
+
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_cli_serves_a_pt_job_as_the_reference_does(capsys, rung):
+    """``--pt-replicas 3 --pt-rounds 3`` adds the reference's PT job to the
+    mix (`build_job_mix`); every job's result equals the JAX CLI's."""
+    argv = ["--jobs", "5", "--slots", "4", "--chunk", "4", "--n", "5", "--L", "16", "--V", "4",
+            "--pt-replicas", "3", "--pt-rounds", "3", "--rung", rung, "--seed", "1"]
+    want = {r.jid: r for r in jas.main(argv + ["--backend", "jnp"])}
+    report = anneal_serve.main(argv + ["--device", "cpu"])
+    got = {r.jid: r for r in report.results}
+    assert sorted(got) == sorted(want) == list(range(6))
+    pt = [jid for jid, r in got.items() if r.spins.ndim == 2]
+    assert pt == [5] and got[5].spins.shape == (3, 5 * 16)
+    for jid, a in want.items():
+        b = got[jid]
+        np.testing.assert_array_equal(a.spins, b.spins, err_msg=f"job {jid}")
+        np.testing.assert_array_equal(a.energy, b.energy, err_msg=f"job {jid}")
+        assert (a.sweeps_done, a.chunks) == (b.sweeps_done, b.chunks), jid
+    for key in ("swap_accept", "swap_propose", "preemptions"):
+        assert want[5].extras[key] == got[5].extras[key], key
+    np.testing.assert_array_equal(want[5].extras["betas"], got[5].extras["betas"])
+    assert "[pt]" in capsys.readouterr().out
