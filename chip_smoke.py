@@ -5,6 +5,9 @@
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also trace the serving runs (torch.profiler)
 
+(``--kill-worker DIR`` is the SIGKILL child of phase 6c: the script runs
+itself with it; it serves, snapshots into DIR and kills itself.)
+
 The port's kernels (src/repro_torch/kernels/csrc/):
 
   colored_multisweep           fused cb multisweep, MT19937 inside     (serving, --rung cb)
@@ -92,6 +95,27 @@ its final ok line; no phase catches an exception):
      to the standalone run, each anneal job to its solo run; a `PTJob` on a
      tenant of a multi-tenant server (#4, #2) equal to its solo run; the
      CLI serving `--pt-replicas 115 --pt-rounds 8 --rung a4`;
+     6c. recovery and the stream, at n=96 L=256: on rungs cb and a4, single-
+     model (#1, #3) and multi-tenant (#2, #4), 10 anneal jobs and a PT
+     ladder of R=4 on 8 slots, chunks of 8, snapshots every 16 sweeps; the
+     server is abandoned after the first snapshot has landed and a job has
+     retired, `SampleServer.restore` rebuilds it on the card and drains
+     (counts zeroed just before the restore, read just after: the rung's
+     kernel once a chunk, nothing else); every result, the retirement
+     order and the final pool (rng included) equal the uninterrupted run
+     bit for bit.  The same from a child process (this script with
+     ``--kill-worker``) that dies by SIGKILL; a graceful drain (a
+     `PreemptionHandler` triggered with the ladder parked by checkpoint-
+     preemption, policy backfill); a CPU snapshot (backend "torch", 4
+     slots) restored with backend "cuda"; the CLI's ``--smoke`` on the
+     card (its ``smoke: resumed`` line required); the CLI's cb mix drained
+     with an `ObservableStream` equal to the untapped drain, every sample's
+     energies equal to `observables.energies` of `spins_flat` at its
+     boundary; an `arm_profiler` window of 4 chunks whose trace names the
+     served kernel, with no ``profiler.error`` event; timings (host clock):
+     the snapshot's synchronous part, its background write and the restore
+     at 8 and 128 slots, the pool's bytes, slot-sweeps/s with the stream
+     off and on;
   7. timings from CUDA events: each kernel and its plain version at B=8
      and B=115 (the multi-tenant kernels on B distinct tenants; the cb
      kernels also at 4 warp groups; #5 and #6 on the card alone), the
@@ -120,16 +144,24 @@ its final ok line; no phase catches an exception):
      card == a2 on the CPU); their times are those of eager plain loops.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
-line ``{"kernels": [...]}`` and the final ``{"ok": true, "device": ...}``.
+line ``{"kernels": [...]}`` (#1-#4 also carry ``recovery_launches``, their
+launches in phase 6c's restored drains and nothing else; #1 also carries
+``stream_launches``, those of the streamed drain, and ``smoke_launches``,
+those of the whole ``anneal_serve --smoke`` run, before and after its
+restore) and the final ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -242,6 +274,13 @@ PT_MULTI_ROUNDS, PT_CLI_ROUNDS = 8, 8
 #: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
 #: each kernel reads (cb: h, J row, tau; a4: doubled J row and tau).
 TENANTS, MULTI_JOBS = 8, 16
+#: Recovery (phase 6c): slots, chunk, the periodic snapshot cadence in
+#: sweeps; the anneal jobs and their budgets; the PT ladder's replicas,
+#: rounds and sweeps a round; the CPU -> card restore's slots.
+REC_SLOTS, REC_CHUNK, REC_EVERY = 8, 8, 16
+REC_JOBS, REC_BUDGETS = 10, (16, 65)
+REC_PT_R, REC_PT_ROUNDS, REC_PT_SWEEPS = 4, 6, 4
+REC_CPU_SLOTS = 4
 
 
 # -- what each kernel must move and compute (bytes, int32 ops, float32 ops) --
@@ -1362,6 +1401,455 @@ def profile_serve(rung: str, multi: bool = False) -> None:
         print(f"[profile {what}]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:5d}  {e.key[:70]}")
 
 
+# -- recovery and the stream (phase 6c) ----------------------------------------
+
+
+def recovery_jobs(base, multi: bool) -> list:
+    """The recovery mix: `REC_JOBS` anneal jobs (constants and 4-step ramps
+    of `REC_BUDGETS` sweeps, three users) and one PT ladder of `REC_PT_R`
+    replicas; multi-tenant: every other anneal job and the ladder on one of
+    4 tenants of ``base``."""
+    from repro_torch.serve_mc import AnnealJob, PTJob
+
+    rng = np.random.default_rng(7)
+    models = tenants(base, 4) if multi else [None]
+    jobs = []
+    for i in range(REC_JOBS):
+        budget = int(rng.integers(*REC_BUDGETS))
+        kw = dict(model=models[i % len(models)] if i % 2 else None, user=f"u{i % 3}")
+        if i % 4 == 3:
+            jobs.append(AnnealJob.ramp(seed=500 + i, beta_start=0.4, beta_end=1.4, steps=4,
+                                       sweeps_per_step=budget // 4, **kw))
+        else:
+            jobs.append(AnnealJob.constant(seed=500 + i, sweeps=budget,
+                                           beta=float(rng.uniform(0.5, 1.5)), **kw))
+    jobs.insert(2, PTJob(seed=77, betas=np.linspace(0.4, 1.4, REC_PT_R).astype(np.float32),
+                         num_rounds=REC_PT_ROUNDS, sweeps_per_round=REC_PT_SWEEPS,
+                         model=models[-1], user="ladder"))
+    return jobs
+
+
+def rec_server(rung: str, multi: bool, slots: int = REC_SLOTS, **kw):
+    """(model, a `SampleServer` at the paper's width on the card unless
+    ``kw`` says otherwise), chunks of `REC_CHUNK`."""
+    from repro_torch.core import ising
+    from repro_torch.serve_mc import SampleServer
+
+    base = ising.random_layered_model(n=MAIN_N, L=MAIN_L, seed=3, beta=1.1)
+    return base, SampleServer(base, slots=slots, chunk_sweeps=REC_CHUNK, rung=rung,
+                              multi_tenant=multi, **kw)
+
+
+def uninterrupted(server, jobs, pre=()) -> tuple:
+    """Submit ``jobs`` and drain: (results by jid, retirement order, the
+    final pool on the host)."""
+    for j in jobs:
+        server.submit(j)
+    results = {r.jid: r for r in list(pre) + server.drain()}
+    return results, list(server._retired), server.engine.extract_pool(server.carry)
+
+
+def serve_until_snapshot(server) -> list:
+    """Step until a periodic snapshot has landed and a job has retired, with
+    work left; returns the results retired so far."""
+    pre = []
+    while len(server.policy) or server._active:
+        pre.extend(server.step())
+        server.wait_snapshots()
+        if server.snapshot_manager.latest_step() is not None and pre and (
+                len(server.policy) or server._active):
+            return pre
+    raise AssertionError("the drain ended before a snapshot landed and a job retired")
+
+
+def host_bits(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a)).view(np.uint8)
+
+
+def same_run(got: dict, server, want: tuple, what: str, done: frozenset = frozenset()) -> None:
+    """Raise unless the results ``got`` (plus the jids ``done`` before a
+    snapshot) cover the uninterrupted run ``want`` with every result, the
+    retirement order and the final pool (rng included) equal bit for bit."""
+    want_results, want_order, want_pool = want
+    if set(got) | done != set(want_results):
+        raise AssertionError(f"{what}: served {sorted(got)} + {sorted(done)}, want "
+                             f"{sorted(want_results)}")
+    for jid, r in got.items():
+        w = want_results[jid]
+        same = (np.array_equal(host_bits(r.spins), host_bits(w.spins))
+                and np.array_equal(host_bits(r.energy), host_bits(w.energy))
+                and r.sweeps_done == w.sweeps_done
+                and all(np.array_equal(host_bits(r.extras[k]), host_bits(w.extras[k]))
+                        for k in ("betas", "swap_accept", "swap_propose", "final_beta")
+                        if k in w.extras))
+        if not same:
+            raise AssertionError(f"{what}: job {jid} differs from the uninterrupted run")
+    if list(server._retired) != want_order:
+        raise AssertionError(f"{what}: retirement order {list(server._retired)} != {want_order}")
+    pool = server.engine.extract_pool(server.carry)
+    for name, a, b in zip(want_pool.carry._fields, pool.carry, want_pool.carry):
+        if not np.array_equal(host_bits(a), host_bits(b)):
+            raise AssertionError(f"{what}: the final pool's {name} differs")
+
+
+def restore_and_drain(source, kernel: str, what: str, **overrides) -> tuple:
+    """`SampleServer.restore` on the card and drain, counts zeroed just
+    before and read just after; the restored path must launch ``kernel``
+    once a chunk and nothing else.  Returns (server, results by jid,
+    launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve_mc import SampleServer
+
+    ops.reset_launches()
+    server = SampleServer.restore(source, **overrides)
+    before = server.launches
+    results = {r.jid: r for r in server.drain()}
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    if server.engine.device.type != "cuda" or server.engine.backend != "cuda":
+        raise AssertionError(f"{what}: restored on {server.engine.device} / {server.engine.backend}")
+    if launches[kernel] == 0 or launches[kernel] != server.launches - before or sum(
+            launches.values()) != launches[kernel]:
+        raise AssertionError(f"{what}: launches {launches}, server {server.launches - before}")
+    return server, results, launches
+
+
+def recovery_in_process(rung: str, multi: bool, tmp: str) -> tuple:
+    """Kill and restore inside one process: serve the recovery mix with
+    periodic snapshots, abandon the server after the first snapshot has
+    landed and a job has retired, restore on the card and drain; equal to
+    the uninterrupted run.  Returns (launches of the restored drain, the
+    uninterrupted run)."""
+    kernel = (MULTI_KERNEL if multi else SERVE_KERNEL)[rung]
+    what = f"recovery {rung}{' multi-tenant' if multi else ''}"
+    base, ref = rec_server(rung, multi)
+    want = uninterrupted(ref, recovery_jobs(base, multi))
+    base, srv = rec_server(rung, multi, snapshot_manager=tmp, snapshot_every_sweeps=REC_EVERY)
+    for j in recovery_jobs(base, multi):
+        srv.submit(j)
+    pre = serve_until_snapshot(srv)
+    crash, step = srv.sweeps_elapsed, srv.snapshot_manager.latest_step()
+    del srv  # the "kill": in-flight state is gone
+    server, post, launches = restore_and_drain(tmp, kernel, what)
+    got = {r.jid: r for r in pre}
+    got.update(post)  # jobs retired after the snapshot ran again, bit-equal
+    same_run(got, server, want, what)
+    print(f"[{what}] {len(want[0])} jobs (a PT ladder of {REC_PT_R}) on {REC_SLOTS} slots, "
+          f"n={MAIN_N} L={MAIN_L}, snapshots every {REC_EVERY} sweeps: abandoned at sweep "
+          f"{crash} (snapshot at {step}, {len(pre)} retired), restored on the card: "
+          f"{launches[kernel]} {kernel} launches, {len(post)} jobs finished; every result, "
+          f"the retirement order and the final pool rng == the uninterrupted run")
+    return launches, want
+
+
+def kill_worker(snap_dir: str) -> int:
+    """The SIGKILL child: serve the cb recovery mix on the card with periodic
+    snapshots and kill this process with SIGKILL at the first boundary
+    where a snapshot has landed and a job has retired (no goodbye
+    snapshot).  It never prints the ok line."""
+    if not torch.cuda.is_available():
+        return 2
+    base, server = rec_server("cb", False, snapshot_manager=snap_dir,
+                              snapshot_every_sweeps=REC_EVERY)
+    for j in recovery_jobs(base, False):
+        server.submit(j)
+    serve_until_snapshot(server)
+    os.kill(os.getpid(), signal.SIGKILL)
+    return 3
+
+
+def recovery_sigkill(want: tuple, tmp: str) -> dict:
+    """Re-execute this script as a worker (`kill_worker`), require it to die
+    by SIGKILL, restore its last periodic snapshot on the card and finish:
+    equal to the uninterrupted cb run ``want``."""
+    snap = os.path.join(tmp, "killed")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--kill-worker", snap],
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -signal.SIGKILL or '"ok"' in proc.stdout:
+        raise AssertionError(f"kill worker exited {proc.returncode}, wanted -SIGKILL:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    from repro_torch.ckpt.manager import CheckpointManager
+
+    step = CheckpointManager(snap).latest_step()
+    server, post, launches = restore_and_drain(snap, "colored_multisweep", "sigkill")
+    done = frozenset(server._retired) - frozenset(post)
+    same_run(post, server, want, "sigkill", done=done)
+    print(f"[recovery sigkill] a worker process serving cb on the card died by SIGKILL "
+          f"(returncode {proc.returncode}, {child_s:.1f} s); restored from its snapshot at sweep "
+          f"{step}: {launches['colored_multisweep']} colored_multisweep launches, "
+          f"{len(post)} jobs finished, {len(done)} retired before the snapshot; == the "
+          f"uninterrupted run")
+    return launches
+
+
+def preempt_sequence(server) -> list:
+    """A wide low-priority PT ladder and a filler, one chunk, then three
+    priority-3 jobs that checkpoint-preempt the ladder (it parks)."""
+    from repro_torch.serve_mc import AnnealJob, PTJob
+
+    server.submit(PTJob(seed=3, betas=np.array([0.5, 0.8, 1.2], np.float32), num_rounds=6,
+                        sweeps_per_round=2, user="ladder"))
+    server.submit(AnnealJob.constant(seed=4, sweeps=30, beta=1.0, user="u0"))
+    out = list(server.step())
+    for i in range(3):
+        server.submit(AnnealJob.constant(seed=20 + i, sweeps=6, beta=1.1, priority=3, user="vip"))
+    out.extend(server.step())
+    return out
+
+
+def recovery_graceful(tmp: str) -> dict:
+    """Graceful drain: SIGTERM's handler (`trigger()`) mid-drain under
+    policy backfill with the ladder parked; `drain` returns with
+    ``preempted`` set after a blocking snapshot, and the restore finishes
+    equal to the uninterrupted run."""
+    from repro_torch.runtime.ft import PreemptionHandler
+
+    kw = dict(slots=4, policy="backfill")
+    _, ref = rec_server("cb", False, **kw)
+    pre_ref = preempt_sequence(ref)
+    want = uninterrupted(ref, [], pre_ref)
+    handler = PreemptionHandler(install=False)
+    _, srv = rec_server("cb", False, snapshot_manager=tmp, preemption=handler, **kw)
+    pre = preempt_sequence(srv)
+    if not srv.preemptions or not any(j.parked for j in srv.policy.jobs()):
+        raise AssertionError("graceful drain: the ladder was not parked")
+    handler.trigger()
+    pre.extend(srv.drain())
+    if not srv.preempted or srv.snapshot_manager.latest_step() is None:
+        raise AssertionError("graceful drain: drain() did not stop with a snapshot")
+    step = srv.snapshot_manager.latest_step()
+    server, post, launches = restore_and_drain(tmp, "colored_multisweep", "graceful drain")
+    if server.preempted:
+        raise AssertionError("graceful drain: the restored server is preempted")
+    got = {r.jid: r for r in pre}
+    got.update(post)
+    same_run(got, server, want, "graceful drain")
+    print(f"[recovery graceful] policy backfill, the ladder parked: drain() stopped at sweep "
+          f"{step} with a blocking snapshot ({len(pre)} retired); restored: "
+          f"{launches['colored_multisweep']} colored_multisweep launches, {len(post)} jobs "
+          f"finished; == the uninterrupted run")
+    return launches
+
+
+def recovery_cpu_to_card(tmp: str) -> dict:
+    """A plain-backend snapshot on the CPU (cb, "fast", `REC_CPU_SLOTS`
+    slots, n=96 L=256, at least `REC_EVERY` sweeps in), restored with
+    backend "cuda" on the card: equal to the CPU's uninterrupted run."""
+    from repro_torch.serve_mc import AnnealJob
+
+    def jobs():
+        return [AnnealJob.constant(seed=900 + i, sweeps=24 + 8 * i, beta=0.6 + 0.15 * i)
+                for i in range(6)]
+
+    kw = dict(slots=REC_CPU_SLOTS, backend="torch", device="cpu")
+    _, ref = rec_server("cb", False, **kw)
+    t0 = time.perf_counter()
+    want = uninterrupted(ref, jobs())
+    cpu_s = time.perf_counter() - t0
+    _, srv = rec_server("cb", False, snapshot_manager=tmp, snapshot_every_sweeps=REC_EVERY, **kw)
+    for j in jobs():
+        srv.submit(j)
+    pre = serve_until_snapshot(srv)
+    step = srv.snapshot_manager.latest_step()
+    if step < REC_EVERY:
+        raise AssertionError(f"CPU -> card: snapshot at sweep {step}")
+    server, post, launches = restore_and_drain(tmp, "colored_multisweep", "CPU -> card",
+                                                  backend="cuda")
+    got = {r.jid: r for r in pre}
+    got.update(post)
+    same_run(got, server, want, "CPU -> card")
+    print(f"[recovery cpu->card] plain backend on the CPU (cb, fast, {REC_CPU_SLOTS} slots, "
+          f"n={MAIN_N} L={MAIN_L}; uninterrupted {cpu_s:.1f} s), snapshot at sweep {step}, "
+          f"restored with backend cuda: {launches['colored_multisweep']} colored_multisweep "
+          f"launches; every result and the final pool == the CPU's uninterrupted run")
+    return launches
+
+
+def recovery_cli(tmp: str) -> dict:
+    """``anneal_serve --smoke`` on the card: serve -> snapshot -> abandon ->
+    restore -> finish on backend cuda; its ``smoke: resumed`` line is
+    required and every result whole."""
+    from repro_torch.core import observables
+    from repro_torch.kernels import ops
+    from repro_torch.launch import anneal_serve
+
+    out = io.StringIO()
+    ops.reset_launches()
+    with contextlib.redirect_stdout(out):
+        report = anneal_serve.main(["--smoke", "--trace", os.path.join(tmp, "smoke_trace.json")])
+    launches = dict(ops.launches)
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith(("serving", "smoke:", "served"))]
+    if not any(ln.startswith("smoke: resumed") for ln in lines):
+        raise AssertionError(f"--smoke printed no 'smoke: resumed' line:\n{out.getvalue()[-2000:]}")
+    if report.server.engine.backend != "cuda" or launches["colored_multisweep"] == 0 or sum(
+            launches.values()) != launches["colored_multisweep"]:
+        raise AssertionError(f"--smoke: backend {report.server.engine.backend}, launches {launches}")
+    if len(report.results) != 8 or any(
+            not np.array_equal(r.energy, observables.energies(report.model, r.spins))
+            for r in report.results):
+        raise AssertionError("--smoke: results not whole")
+    for ln in lines:
+        print(f"[recovery cli] {ln}")
+    return launches
+
+
+def stream_and_profiler(tmp: str, smi: str) -> dict:
+    """The stream: the CLI's cb mix (`SERVE_ARGS`) drained with
+    ``stream=ObservableStream()`` equals the drain without it bit for bit,
+    and every sample's energies equal `observables.energies` of
+    `spins_flat` at that boundary.  Then slot-sweeps/s with the stream off
+    and on, in turns.  The profiler: a window of 4 chunks writes a trace
+    that names the served kernel, with no ``profiler.error`` event."""
+    from repro_torch.core import ising, observables
+    from repro_torch.kernels import ops
+    from repro_torch.launch import anneal_serve
+    from repro_torch.obs import ObservableStream
+    from repro_torch.serve_mc import SampleServer
+
+    args = anneal_serve.parse_args(SERVE_ARGS + ["--rung", "cb"])
+    model = ising.random_layered_model(n=args.n, L=args.L, seed=args.seed, beta=args.beta)
+    live = []  # the server being drained, for the stream's subscriber
+
+    def drain(stream=None, profile_dir=None):
+        server = SampleServer(model, slots=args.slots, chunk_sweeps=args.chunk, rung="cb",
+                              stream=stream)
+        live[:] = [server]
+        for j in anneal_serve.build_job_mix(args):
+            server.submit(j)
+        if profile_dir is not None:
+            server.arm_profiler(profile_dir, num_chunks=4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = {r.jid: r for r in server.drain()}
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0, server
+
+    checked = []
+
+    def check(sample):
+        (server,) = live
+        job, slots = server._active[sample.jid]
+        spins = server.engine.spins_flat(server.carry)[list(slots)]
+        want = np.atleast_1d(observables.energies(job.model_on(server), spins))
+        if not np.array_equal(host_bits(sample.energy), host_bits(want)):
+            raise AssertionError(f"stream: job {sample.jid} energies != observables at sweep "
+                                 f"{sample.sweeps_elapsed}")
+        checked.append(sample.jid)
+
+    off, _, _ = drain()
+    stream = ObservableStream()
+    stream.subscribe(check)
+    ops.reset_launches()
+    on, _, server = drain(stream)
+    launches = dict(ops.launches)
+    if launches["colored_multisweep"] != server.launches or sum(launches.values()) != server.launches:
+        raise AssertionError(f"stream: launches {launches} vs {server.launches}")
+    for jid, r in off.items():
+        if not (np.array_equal(host_bits(r.spins), host_bits(on[jid].spins))
+                and np.array_equal(host_bits(r.energy), host_bits(on[jid].energy))):
+            raise AssertionError(f"stream: job {jid} differs from the untapped drain")
+    if not checked or stream.samples_taken != len(checked):
+        raise AssertionError("stream: no samples checked")
+    rates = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        _, seconds, srv = drain(ObservableStream() if which == "on" else None)
+        rates[which].append(srv.busy_slot_sweeps / seconds)
+    print(f"[stream] cb drain, {len(off)} jobs, n={MAIN_N} L={MAIN_L}, {MAIN_SLOTS} slots: "
+          f"{stream.samples_taken} samples, each == observables.energies of spins_flat at its "
+          f"boundary; results == the untapped drain bit for bit; slot-sweeps/s off "
+          f"{' / '.join(f'{x:.0f}' for x in rates['off'])}, on "
+          f"{' / '.join(f'{x:.0f}' for x in rates['on'])} (turns off, on, on, off); {smi}")
+
+    logdir = os.path.join(tmp, "profile")
+    _, _, srv = drain(profile_dir=logdir)
+    names = [e["name"] for e in srv.telemetry.events()]
+    if "profiler.error" in names or "profiler.stop" not in names:
+        raise AssertionError(f"profiler: events {[n for n in names if n.startswith('profiler')]}")
+    i0, i1 = names.index("profiler.start"), names.index("profiler.stop")
+    window = sum(1 for n in names[i0:i1] if n == "engine.launch")
+    trace = open(os.path.join(logdir, "trace.json")).read()
+    kernels = {e.get("name", "") for e in json.loads(trace)["traceEvents"]
+               if e.get("cat") == "kernel"}
+    if window != 4 or not any("colored_multisweep_kernel" in k for k in kernels):
+        raise AssertionError(f"profiler: {window} launches in the window, kernels {sorted(kernels)[:8]}")
+    print(f"[profiler] arm_profiler(num_chunks=4) on the cb drain: {window} launches in the "
+          f"window, trace {len(trace):,} B names {sorted(k for k in kernels if 'colored' in k)[0][:60]}; "
+          f"no profiler.error")
+    return launches
+
+
+def time_snapshots(tmp: str, smi: str) -> None:
+    """The snapshot's costs at `REC_SLOTS` and 128 slots (cb, n=96 L=256):
+    the synchronous part of a periodic snapshot (the pool's copy to the
+    host and the manifest build), the background write (npy shards,
+    sha256, fsync, rename), `SampleServer.restore` (read, verify, build
+    the server, the pool to the card), in ms (host clock, 3 each), and the
+    pool's bytes."""
+    from repro_torch.serve_mc import SampleServer, snapshot_state
+
+    for slots in (REC_SLOTS, 128):
+        d = os.path.join(tmp, f"timed-{slots}")
+        base, srv = rec_server("cb", False, slots=slots, snapshot_manager=d)
+        for j in recovery_jobs(base, False):
+            srv.submit(j)
+        for _ in range(3):
+            srv.step()
+        torch.cuda.synchronize()
+        arrays, _ = snapshot_state(srv)
+        pool_bytes = sum(arrays[f"carry/{f}"].nbytes for f in srv.carry._fields)
+        total = sum(a.nbytes for a in arrays.values())
+        sync, write, restore = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            srv.snapshot(blocking=False)
+            t1 = time.perf_counter()
+            srv.wait_snapshots()
+            t2 = time.perf_counter()
+            SampleServer.restore(d, snapshot_every_sweeps=0)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            sync.append((t1 - t0) * 1e3)
+            write.append((t2 - t1) * 1e3)
+            restore.append((t3 - t2) * 1e3)
+            srv.step()
+        print(f"[time snapshot] cb, {slots} slots, n={MAIN_N} L={MAIN_L}: pool {pool_bytes:,} B "
+              f"({pool_bytes / slots:,.0f} B a slot), snapshot {total:,} B; save sync part "
+              f"{' / '.join(f'{x:.2f}' for x in sync)} ms, background write "
+              f"{' / '.join(f'{x:.2f}' for x in write)} ms, restore "
+              f"{' / '.join(f'{x:.2f}' for x in restore)} ms; {smi}")
+
+
+def recovery_and_stream(smi: str) -> dict:
+    """Phase 6c.  Returns {"recovery": {kernel: launches of the restored
+    drains (`restore_and_drain`) alone}, "smoke": {kernel: launches of the
+    whole CLI ``--smoke`` run}, "stream": {kernel: launches of the streamed
+    drain}}."""
+    restored = dict.fromkeys(KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            restored[k] += v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recovery_") as tmp:
+        want_cb = None
+        for rung in ("cb", "a4"):
+            for multi in (False, True):
+                d = os.path.join(tmp, f"{rung}-{int(multi)}")
+                launches, want = recovery_in_process(rung, multi, d)
+                add(launches)
+                if (rung, multi) == ("cb", False):
+                    want_cb = want
+        add(recovery_sigkill(want_cb, tmp))
+        add(recovery_graceful(os.path.join(tmp, "graceful")))
+        add(recovery_cpu_to_card(os.path.join(tmp, "cpu")))
+        smoke = recovery_cli(tmp)
+        stream = stream_and_profiler(tmp, smi)
+        time_snapshots(tmp, smi)
+    return {"recovery": restored, "smoke": smoke, "stream": stream}
+
+
 def same_bits(got: torch.Tensor, want: torch.Tensor, what: str, any_nan: bool = False) -> float:
     """Raise unless two float32 tensors are equal bit for bit (signed
     zeros included; NaN payloads too, unless ``any_nan``: a NaN made by
@@ -1578,6 +2066,8 @@ def ladder(dev) -> None:
 
 
 def main(argv: list[str]) -> int:
+    if "--kill-worker" in argv:
+        return kill_worker(argv[argv.index("--kill-worker") + 1])
     quick = "--quick" in argv
     profile = "--profile" in argv
     if not torch.cuda.is_available():
@@ -1666,6 +2156,9 @@ def main(argv: list[str]) -> int:
     pt_multi_tenant()
     pt_cli()
     end_phase("parallel tempering")
+    # -- 6c. recovery and the stream -----------------------------------------
+    rec_launches = recovery_and_stream(smi)
+    end_phase("recovery and stream")
     # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
     times = {name: {} for name in SWEEP_KERNELS}  # name -> B -> (ms, plain ms, bound)
@@ -1888,6 +2381,9 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             **extra,
         })
+        for key, counts in rec_launches.items():
+            if counts[name]:
+                entries[-1][f"{key}_launches"] = counts[name]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -46,9 +46,14 @@ def model_from_arrays(d: dict) -> ising.LayeredModel:
     )
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` (never a view of a CPU tensor's storage)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def carry_to_numpy(carry: SweepCarry) -> dict:
-    """The five `SweepCarry` leaves as host numpy; rng as uint32."""
-    out = {f: getattr(carry, f).detach().cpu().numpy() for f in SweepCarry._fields}
+    """The five `SweepCarry` leaves as host numpy copies; rng as uint32."""
+    out = {f: host_copy(getattr(carry, f)) for f in SweepCarry._fields}
     out["rng"] = out["rng"].view(np.uint32)
     return out
 
@@ -71,10 +76,10 @@ SLOT_TABLE_KEYS = ("h", "base_J", "tau_J", "base_J2", "tau_J2")
 
 def slot_tables_to_numpy(engine) -> dict:
     """A multi-tenant engine's `slot_tables` (``[B, ...]`` float32 per key
-    of `SLOT_TABLE_KEYS`) as host numpy."""
+    of `SLOT_TABLE_KEYS`) as host numpy copies."""
     if not engine.multi:
         raise ValueError("slot tables belong to multi-tenant engines")
-    return {k: engine.slot_tables[k].detach().cpu().numpy() for k in SLOT_TABLE_KEYS}
+    return {k: host_copy(engine.slot_tables[k]) for k in SLOT_TABLE_KEYS}
 
 
 def slot_tables_from_numpy(d: dict, device="cuda") -> dict:

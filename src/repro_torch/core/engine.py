@@ -113,6 +113,21 @@ class SweepCarry(NamedTuple):
     rng: torch.Tensor  # (624, B) | (624, B*V) int32 holding uint32 bits
 
 
+class PoolState(NamedTuple):
+    """A whole slot pool's resumable state on the HOST (`extract_pool`).
+
+    The server-snapshot analogue of `ParkedSlot`: every slot row of the
+    batched carry — idle slots' stale state included, whose resweeps are
+    part of the pool's deterministic trajectory — plus, on multi-tenant
+    engines, the batched coupling tables (keys `convert.SLOT_TABLE_KEYS`).
+    The leaves are numpy copies in the JAX reference's layout (``rng`` as
+    uint32), so a pool crosses between the two packages and between the
+    card and the CPU unchanged."""
+
+    carry: SweepCarry  # numpy leaves, batch layout, rng uint32
+    tables: dict | None  # numpy batched coupling tables (multi only)
+
+
 class ParkedSlot(NamedTuple):
     """A preempted slot's complete resumable state (`SlotHandle.park`).
 
@@ -542,6 +557,52 @@ class SweepEngine:
         """Handle bundling every per-slot operation on slot ``b``."""
         self._check_slot(b)
         return SlotHandle(self, b)
+
+    def extract_pool(self, carry: SweepCarry) -> PoolState:
+        """The WHOLE pool's resumable state as host numpy copies (one copy
+        per leaf, never a view of the carry or the tables: a snapshot
+        written in the background while the server steps on must hold
+        this boundary's state).  Pure read."""
+        from repro_torch.core import convert
+
+        host = SweepCarry(**convert.carry_to_numpy(carry))
+        tables = convert.slot_tables_to_numpy(self) if self.multi else None
+        return PoolState(host, tables)
+
+    def splice_pool(self, pool: PoolState) -> SweepCarry:
+        """Install a `PoolState` as this engine's pool (the exact inverse of
+        `extract_pool`; also takes the JAX reference's).  The carry goes to
+        the engine's device with ``rng`` back in int32 storage; on
+        multi-tenant engines the coupling tables are installed too and every
+        slot's model provenance resets to None (a raw splice: a later
+        `set_slot_model` re-records it).  Returns the new carry."""
+        from repro_torch.core import convert
+
+        spins = np.asarray(pool.carry.spins)
+        want = (
+            (self.batch, self.rows, self.V)
+            if self.rung in LANE_RUNGS
+            else (self.batch, self.model.num_spins)
+        )
+        if tuple(spins.shape) != want:
+            raise ValueError(
+                f"pool spins shape {spins.shape} does not fit this engine "
+                f"(want {want}: batch={self.batch}, rung={self.rung!r})"
+            )
+        rng = np.asarray(pool.carry.rng)
+        if rng.shape != (mt.N, self.batch * self._slot_lanes()):
+            raise ValueError(
+                f"pool rng shape {rng.shape}; this engine needs "
+                f"{(mt.N, self.batch * self._slot_lanes())}"
+            )
+        if self.multi:
+            if pool.tables is None:
+                raise ValueError("multi-tenant engines need the pool's coupling tables")
+            self.slot_tables = convert.slot_tables_from_numpy(pool.tables, self.device)
+            self.models = (None,) * self.batch
+        elif pool.tables is not None:
+            raise ValueError("pool carries coupling tables but this engine is single-model")
+        return convert.carry_from_numpy(pool.carry._asdict(), self.device)
 
     def set_slot_betas(self, carry: SweepCarry, slots, betas) -> SweepCarry:
         """Rewrite the betas of the given slots without touching spins,

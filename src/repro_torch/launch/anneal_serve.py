@@ -30,21 +30,42 @@ prints the Prometheus text exposition of the server's registry.
 ``linspace(0.4, --beta, R)``, seed ``--seed + 77``, ``--pt-rounds`` rounds
 (default 4) of ``max(1, --chunk // 2)`` sweeps, priority 1, user
 "ladder"; the server needs at least R slots.  The report marks it
-``[pt]``.  ``--smoke`` (the reference's snapshot -> kill -> restore
-cycle) waits for server snapshots; it, device meshes (``--devices``) and
-snapshots (``--snapshot-dir``, ``--snapshot-every``, ``--resume``) are
-not ported yet and raise ValueError naming the flag.
+``[pt]``.
+
+CRASH SAFETY: ``--snapshot-dir DIR`` arms whole-server snapshots —
+``--snapshot-every K`` writes one every K sweeps off the serving path, and
+SIGTERM triggers a graceful drain (finish the in-flight chunk, snapshot,
+return).  ``--resume`` restores the newest valid snapshot from DIR (the
+JAX reference CLI's included) and finishes its recorded jobs instead of
+submitting a fresh mix; results are bit-identical to the uninterrupted
+run.  ``--smoke`` runs the reference's smoke workload through the whole
+cycle: 7 anneal jobs and a 3-replica PT job on 4 slots, chunks of 4,
+budgets 4-24, a snapshot every 16 sweeps, trace and metrics on; it serves
+until one snapshot has landed and one job has retired, abandons the
+server (a kill: no goodbye snapshot), restores from the snapshot and
+finishes, printing ``smoke:`` lines.  With ``--device cpu`` it serves the
+reference's shape (n=8, L=16, V=4, backend torch), so its results equal
+``python -m repro.launch.anneal_serve --smoke`` job for job; on the card
+it serves n=8, L=256, V=128 on backend cuda.  Device meshes
+(``--devices``) are not ported yet and raise ValueError naming the flag.
+
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve --smoke             # on the card
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve \
+      --snapshot-dir snaps --snapshot-every 16 [--resume]
 """
 
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 from typing import NamedTuple
 
 import numpy as np
 
 from repro_torch.core import ising
+from repro_torch.runtime.ft import PreemptionHandler
 from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
 
 
@@ -106,15 +127,6 @@ def build_job_mix(args) -> list:
     return jobs
 
 
-_UNPORTED_FLAGS = {
-    "smoke": "--smoke",
-    "devices": "--devices",
-    "snapshot_dir": "--snapshot-dir",
-    "snapshot_every": "--snapshot-every",
-    "resume": "--resume",
-}
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--jobs", type=int, default=16)
@@ -146,21 +158,40 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="add one parallel-tempering job of this many replicas (slots)")
     ap.add_argument("--pt-rounds", type=int, default=4,
                     help="rounds of the PT job (each max(1, --chunk // 2) sweeps)")
-    # Not ported yet: accepted so that using them fails with a clear error.
     ap.add_argument("--smoke", action="store_true",
-                    help="not ported: the reference's snapshot -> kill -> restore cycle "
-                         "waits for server snapshots")
+                    help="the smoke workload through serve -> snapshot -> kill -> restore")
+    ap.add_argument("--snapshot-dir", metavar="DIR", default=None,
+                    help="arm crash safety: periodic snapshots land here and SIGTERM "
+                         "drains gracefully (finish the chunk, snapshot, return)")
+    ap.add_argument("--snapshot-every", type=int, default=0, metavar="K",
+                    help="write a background snapshot every K sweeps (0 = only on "
+                         "SIGTERM; needs --snapshot-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid snapshot from --snapshot-dir and "
+                         "finish its recorded jobs instead of submitting a fresh mix")
+    # Not ported yet: accepted so that using it fails with a clear error.
     ap.add_argument("--devices", type=int, default=0)
-    ap.add_argument("--snapshot-dir", default=None)
-    ap.add_argument("--snapshot-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
-    for attr, flag in _UNPORTED_FLAGS.items():
-        if getattr(args, attr) != ap.get_default(attr):
-            why = " (it waits for server snapshots)" if attr == "smoke" else ""
-            raise ValueError(f"{flag} is not ported to repro_torch yet{why}")
+    if args.devices != ap.get_default("devices"):
+        raise ValueError("--devices is not ported to repro_torch yet")
+    on_card = args.device.startswith("cuda")
     if args.backend is None:
-        args.backend = "cuda" if args.device.startswith("cuda") else "torch"
+        args.backend = "cuda" if on_card else "torch"
+    if args.smoke:
+        # 7 anneal jobs + 1 three-replica PT job = 8 jobs on 4 slots.
+        args.jobs, args.slots, args.chunk = 7, 4, 4
+        args.n, args.L, args.V = (8, 256, 128) if on_card else (8, 16, 4)
+        args.budget_min, args.budget_max = 4, 24
+        args.pt_replicas, args.pt_rounds = 3, 3
+        if args.trace is None:
+            args.trace = "serve_smoke_trace.json"
+        args.metrics = True
+        if args.snapshot_every == 0:
+            args.snapshot_every = 16  # at least one periodic snapshot before the "crash"
+    if args.resume and args.snapshot_dir is None:
+        ap.error("--resume needs --snapshot-dir")
+    if args.snapshot_every and args.snapshot_dir is None and not args.smoke:
+        ap.error("--snapshot-every needs --snapshot-dir")
     if args.rung in ("a1", "a2", "a3") and args.backend != "torch":
         raise ValueError(
             f"--rung {args.rung} has no kernel: it serves with the plain version only; "
@@ -171,34 +202,112 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> ServeReport:
     args = parse_args(argv)
-    say = (lambda *a: None) if args.quiet else print
-    model = ising.random_layered_model(n=args.n, L=args.L, seed=args.seed, beta=args.beta)
-    server = SampleServer(
-        model,
-        slots=args.slots,
-        chunk_sweeps=args.chunk,
-        rung=args.rung,
-        backend=args.backend,
-        V=args.V,
-        device=args.device,
-        policy=args.policy,
-    )
-    jobs = build_job_mix(args)
-    for job in jobs:
-        server.submit(job)
+    snap_tmp = None
+    snap_dir = args.snapshot_dir
+    if args.smoke and snap_dir is None:
+        snap_tmp = tempfile.TemporaryDirectory(prefix="serve_smoke_snap_")
+        snap_dir = snap_tmp.name
+    # SIGTERM -> graceful drain, while this call serves.
+    preemption = PreemptionHandler() if snap_dir is not None else None
+    try:
+        return _serve(args, snap_dir, preemption)
+    finally:
+        if preemption is not None:
+            preemption.uninstall()
+        if snap_tmp is not None:
+            snap_tmp.cleanup()
+
+
+def _smoke_cycle(server, say, restore):
+    """Serve until a periodic snapshot has landed and a job has retired,
+    abandon the server (a stand-in for SIGKILL: no goodbye snapshot),
+    restore from the snapshot and finish.  Returns (results, server)."""
+    pre = []
+    while len(server.policy) or server._active:
+        pre.extend(server.step())
+        server.wait_snapshots()
+        if server.snapshot_manager.latest_step() is not None and pre:
+            break
+    if not (len(server.policy) or server._active):
+        return pre, server
     say(
-        f"serving {len(jobs)} jobs on {args.slots} slots (chunk={args.chunk} "
-        f"sweeps, backend={args.backend}, device={args.device}, "
-        f"policy={args.policy}, model n={args.n} L={args.L} V={args.V})"
+        f"smoke: simulated crash at {server.sweeps_elapsed} sweeps ({len(pre)} jobs "
+        f"already retired, last snapshot at sweep {server.snapshot_manager.latest_step()})"
     )
+    del server  # the "kill": in-flight state is gone
+    server = restore()
+    post = server.drain()
+    # Jobs retired between the snapshot and the crash are re-run by the
+    # restored server; their results are bit-identical, keep one per jid.
+    by_jid = {r.jid: r for r in pre}
+    by_jid.update({r.jid: r for r in post})
+    say(f"smoke: resumed from snapshot, {len(post)} jobs finished after restore")
+    return [by_jid[j] for j in sorted(by_jid)], server
+
+
+def _serve(args, snap_dir, preemption) -> ServeReport:
+    say = (lambda *a, **k: None) if args.quiet else print
+
+    def restore():
+        return SampleServer.restore(
+            snap_dir,
+            backend=args.backend,
+            device=args.device,
+            snapshot_every_sweeps=args.snapshot_every or None,
+            preemption=preemption,
+        )
+
+    if args.resume:
+        server = restore()
+        model = server.engine.model
+        jobs = []  # the snapshot's recorded jobs are the workload
+        say(
+            f"resumed from {snap_dir} at {server.sweeps_elapsed} sweeps "
+            f"({len(server.policy)} queued, {len(server._active)} active, "
+            f"{len(server._retired)} already retired; backend={args.backend}, "
+            f"device={args.device})"
+        )
+    else:
+        model = ising.random_layered_model(n=args.n, L=args.L, seed=args.seed, beta=args.beta)
+        server = SampleServer(
+            model,
+            slots=args.slots,
+            chunk_sweeps=args.chunk,
+            rung=args.rung,
+            backend=args.backend,
+            V=args.V,
+            device=args.device,
+            policy=args.policy,
+            snapshot_manager=snap_dir,
+            snapshot_every_sweeps=args.snapshot_every if snap_dir else 0,
+            preemption=preemption,
+        )
+        jobs = build_job_mix(args)
+        for job in jobs:
+            server.submit(job)
+        snp = f", snapshots every {args.snapshot_every} sweeps -> {snap_dir}" if snap_dir else ""
+        say(
+            f"serving {len(jobs)} jobs on {args.slots} slots (chunk={args.chunk} "
+            f"sweeps, backend={args.backend}, device={args.device}, "
+            f"policy={args.policy}, model n={args.n} L={args.L} V={args.V}{snp})"
+        )
     t0 = time.perf_counter()
-    results = server.drain()
+    if args.smoke and not args.resume:
+        results, server = _smoke_cycle(server, say, restore)
+    else:
+        results = server.drain()
     if server.engine.device.type == "cuda":
         import torch
 
         torch.cuda.synchronize(server.engine.device)
     dt = time.perf_counter() - t0
-    if len(results) != len(jobs):
+    if server.preempted:
+        say(
+            f"preempted: drained gracefully after {len(results)} jobs, snapshot at step "
+            f"{server.snapshot_manager.latest_step()} in {snap_dir} (resume with --resume)"
+        )
+        return ServeReport(results, server, model, dt)
+    if jobs and len(results) != len(jobs):
         raise RuntimeError(f"served {len(results)} of {len(jobs)} jobs")
 
     shown = sorted(results, key=lambda r: r.jid)

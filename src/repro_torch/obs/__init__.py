@@ -6,12 +6,24 @@
                async spans for job lifecycles.
     trace      Chrome-trace-event JSON exporter (+ the schema validator).
     metrics    JSON snapshot + Prometheus text exposition of the registry.
+    stream     opt-in per-chunk observable tap (energy / magnetization /
+               best-so-far per active job).
 
 Hard contract: observation never touches carries — telemetry-on runs are
 bit-identical to telemetry-off.
 """
 
+from repro_torch.obs.stream import BestState, ChunkSample, ObservableStream
 from repro_torch.obs.telemetry import Counter, Gauge, Histogram, Telemetry
 from repro_torch.obs.trace import validate_events
 
-__all__ = ["Counter", "Gauge", "Histogram", "Telemetry", "validate_events"]
+__all__ = [
+    "BestState",
+    "ChunkSample",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "ObservableStream",
+    "Telemetry",
+    "validate_events",
+]

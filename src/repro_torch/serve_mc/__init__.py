@@ -10,7 +10,9 @@ them.  ``SampleServer(model, multi_tenant=True)`` serves jobs that carry
 their own model (``AnnealJob.constant(..., model=tenant)``) side by side
 in that one launch.  A parallel-tempering ladder is one job of R slots
 (``PTJob(seed, betas, num_rounds, sweeps_per_round)``) whose rounds ride
-the same launches.
+the same launches.  A server snapshots itself (``snapshot_manager=``,
+`SampleServer.snapshot`) and `SampleServer.restore` continues it bit for
+bit, also one written by the JAX reference's server.
 """
 
 from repro_torch.serve_mc.jobs import AnnealJob, JobResult, PTJob
@@ -24,6 +26,7 @@ from repro_torch.serve_mc.scheduler import (
     SlotPool,
     make_policy,
 )
+from repro_torch.serve_mc.snapshot import restore_server, save_snapshot, snapshot_state
 
 __all__ = [
     "AdaptiveChunker",
@@ -37,4 +40,7 @@ __all__ = [
     "ServeConfig",
     "SlotPool",
     "make_policy",
+    "restore_server",
+    "save_snapshot",
+    "snapshot_state",
 ]

@@ -23,19 +23,22 @@ always stops exactly at segment boundaries, where the job's
     bit for bit, wherever its slots land (a job's own model, on a
     multi-tenant server, included).
 
-A job's snapshot (`PTJob.snapshot_state` / `from_snapshot`) comes with
-server snapshots, which are not ported yet: both raise ValueError naming
-themselves.
+Every job serializes to a JSON-safe ``meta`` dict plus named numpy
+arrays (`snapshot_state`) and back (`from_snapshot`), with the JAX
+reference's meta keys and array names: a job snapshotted by either
+package continues in the other (`serve_mc.snapshot`).
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Sequence
 
 import numpy as np
 
 import torch
 
+from repro_torch.core import convert
 from repro_torch.core import engine as sweep_engine
 from repro_torch.core import ising, mt19937, observables, tempering
 
@@ -141,6 +144,94 @@ class _ScheduledJob:
             return True
         return False
 
+    # -- snapshot/restore (serve_mc.snapshot) ---------------------------------
+    #
+    # ``meta`` carries everything the segment bookkeeping and the admission
+    # policy need to continue exactly where an uninterrupted run would be
+    # (progress counters, priority/user, submission seq, sweep-clock
+    # stamps); the arrays carry parked-slot state and the subclass's own
+    # tensors, as host numpy COPIES: a background writer may read them
+    # while the server steps on.  The job's private model (if any) is
+    # serialized by `serve_mc.snapshot` alongside, not here.
+
+    def _snapshot_base(self) -> tuple[dict, dict]:
+        meta = {
+            "kind": self.kind,
+            "jid": self.jid,
+            "segments": list(self._segments),
+            "seg": self._seg,
+            "in_seg": self._in_seg,
+            "sweeps_done": self.sweeps_done,
+            "chunks": self.chunks,
+            "priority": self.priority,
+            "user": self.user,
+            "preemptions": self.preemptions,
+            "seq": self._seq,
+            "submit_sweep": self._submit_sweep,
+            "admit_sweep": self._admit_sweep,
+            # Wall-clock wait ACCRUED so far by a still-queued job; restore
+            # re-anchors `_submit_time` to ``now - waited_s``, so the time a
+            # process spent dead between save and restore never shows up
+            # as queue latency.
+            "waited_s": (
+                time.perf_counter() - self._submit_time
+                if self._submit_time is not None and self._admit_sweep is None
+                else None
+            ),
+        }
+        arrays: dict = {}
+        if self.parked is not None:
+            meta["num_parked"] = len(self.parked)
+            meta["parked_tables"] = any(p.tables is not None for p in self.parked)
+            for i, p in enumerate(self.parked):
+                for name, v in convert.carry_to_numpy(p.carry).items():
+                    arrays[f"parked/{i}/carry/{name}"] = v
+                if p.tables is not None:
+                    for k in sorted(p.tables):  # the reference's (pytree) order
+                        arrays[f"parked/{i}/tables/{k}"] = convert.host_copy(p.tables[k])
+        return meta, arrays
+
+    def _restore_base(self, meta: dict, arrays: dict) -> None:
+        self.jid = meta["jid"]
+        self._seg = int(meta["seg"])
+        self._in_seg = int(meta["in_seg"])
+        self.sweeps_done = int(meta["sweeps_done"])
+        self.chunks = int(meta["chunks"])
+        self.preemptions = int(meta["preemptions"])
+        self._seq = meta["seq"]
+        self._submit_sweep = meta["submit_sweep"]
+        self._admit_sweep = meta["admit_sweep"]
+        now = time.perf_counter()
+        waited = meta.get("waited_s")
+        self._submit_time = now - float(waited) if waited is not None else now
+        self._admit_time = self._submit_time if self._admit_sweep is not None else None
+        if meta.get("num_parked"):
+            # Parked state stays on the host until re-admission splices it
+            # into the server's carry (on whatever device that lives).
+            parked = []
+            for i in range(meta["num_parked"]):
+                carry = convert.carry_from_numpy(
+                    {f: arrays[f"parked/{i}/carry/{f}"] for f in sweep_engine.SweepCarry._fields},
+                    "cpu",
+                )
+                prefix = f"parked/{i}/tables/"
+                tabs = {
+                    k[len(prefix):]: torch.from_numpy(np.array(v, np.float32))
+                    for k, v in arrays.items()
+                    if k.startswith(prefix)
+                }
+                parked.append(sweep_engine.ParkedSlot(carry, tabs or None))
+            self.parked = parked
+
+    def snapshot_state(self) -> tuple[dict, dict]:
+        """(JSON-safe meta, {name: ndarray}) capturing this job exactly."""
+        raise NotImplementedError
+
+    @classmethod
+    def from_snapshot(cls, meta: dict, arrays: dict, model=None):
+        """Rebuild a job from `snapshot_state` output (inverse, bit-exact)."""
+        raise NotImplementedError
+
 
 class AnnealJob(_ScheduledJob):
     """One slot, one seed, a piecewise-constant beta schedule.
@@ -198,6 +289,27 @@ class AnnealJob(_ScheduledJob):
             seed, [(sweeps_per_step, float(b)) for b in betas], model=model,
             priority=priority, user=user,
         )
+
+    def snapshot_state(self) -> tuple[dict, dict]:
+        meta, arrays = self._snapshot_base()
+        meta["seed"] = self.seed
+        meta["betas"] = list(self._betas)  # None entries survive as JSON null
+        if self._init_spins is not None:
+            arrays["init_spins"] = self._init_spins
+        return meta, arrays
+
+    @classmethod
+    def from_snapshot(cls, meta: dict, arrays: dict, model=None):
+        job = cls(
+            meta["seed"],
+            list(zip(meta["segments"], meta["betas"])),
+            spins=arrays.get("init_spins"),
+            model=model,
+            priority=meta["priority"],
+            user=meta["user"],
+        )
+        job._restore_base(meta, arrays)
+        return job
 
     def _beta(self, server, seg: int) -> float:
         b = self._betas[seg]
@@ -283,22 +395,51 @@ class PTJob(_ScheduledJob):
         self.swap_propose = torch.zeros((), dtype=torch.int32)
         self._energy_tables = None  # built on first swap for a private model
 
-    def snapshot_state(self):
-        raise ValueError("PTJob.snapshot_state: job snapshots are not ported to repro_torch yet")
+    def snapshot_state(self) -> tuple[dict, dict]:
+        """The reference's layout: the swap generator's state as uint32 at
+        its exact position and the accept/propose tallies (read back from
+        the device here, and only here).  `_energy_tables` is a pure cache,
+        rebuilt from the model after a restore."""
+        meta, arrays = self._snapshot_base()
+        meta["seed"] = self.seed
+        meta["sweeps_per_round"] = self._segments[0]
+        meta["swap_accept"] = int(self.swap_accept)
+        meta["swap_propose"] = int(self.swap_propose)
+        arrays["betas"] = self.betas
+        arrays["swap_rng"] = convert.host_copy(self.swap_rng).view(np.uint32)
+        return meta, arrays
 
     @classmethod
-    def from_snapshot(cls, *args, **kwargs):
-        raise ValueError("PTJob.from_snapshot: job snapshots are not ported to repro_torch yet")
+    def from_snapshot(cls, meta: dict, arrays: dict, model=None):
+        job = cls(
+            meta["seed"],
+            arrays["betas"],
+            num_rounds=len(meta["segments"]),
+            sweeps_per_round=meta["sweeps_per_round"],
+            model=model,
+            priority=meta["priority"],
+            user=meta["user"],
+        )
+        job._restore_base(meta, arrays)
+        rng = np.ascontiguousarray(arrays["swap_rng"], np.uint32).view(np.int32)
+        job.swap_rng = torch.from_numpy(rng.copy())
+        job.swap_accept = torch.tensor(int(meta["swap_accept"]), dtype=torch.int32)
+        job.swap_propose = torch.tensor(int(meta["swap_propose"]), dtype=torch.int32)
+        return job
 
     # -- scheduler interface --------------------------------------------------
+
+    def _to_device(self, dev) -> None:
+        """Keep the swap generator and counters on the server's device (a
+        no-op once they are there; a restored job arrives on the host)."""
+        self.swap_rng, self.swap_accept, self.swap_propose = (
+            t.to(dev) for t in (self.swap_rng, self.swap_accept, self.swap_propose))
 
     def init_carries(self, server) -> list[sweep_engine.SweepCarry]:
         eng, m = server.engine, self.model_on(server)
         lanes = eng._slot_lanes()
         seeds = sweep_engine.lane_seeds(self.num_slots, lanes, self.seed)
-        dev = eng.device
-        self.swap_rng, self.swap_accept, self.swap_propose = (
-            t.to(dev) for t in (self.swap_rng, self.swap_accept, self.swap_propose))
+        self._to_device(eng.device)
         return [
             eng.init_slot_carry(
                 seed=self.seed,
@@ -338,6 +479,7 @@ class PTJob(_ScheduledJob):
     def on_segment(self, server, carry, slots):
         eng = server.engine
         parity = (self._seg - 1) % 2  # the round just completed: the standalone r % 2
+        self._to_device(eng.device)
         state = tempering.swap_phase(
             self._gather_state(eng, carry, slots),
             *self._swap_energy_tables(eng),

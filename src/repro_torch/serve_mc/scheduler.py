@@ -53,17 +53,35 @@ The port serves on one device, on every rung: "a4" and "cb" on both
 backends, the paper's slower rungs a1-a3 (one model) on
 ``backend="torch"`` only; every exp flavour ("fast", "accurate",
 "exact") on every backend.  Anneal jobs and parallel-tempering jobs
-(`PTJob`, R slots each) share the launches.  Not ported yet, each raising
-ValueError naming itself: ``mesh``/``capacities``, ``stream``,
-`arm_profiler`, snapshots
-(``snapshot_manager``, ``snapshot_every_sweeps``, ``preemption``,
-`snapshot`, `restore`).
+(`PTJob`, R slots each) share the launches.  Device meshes
+(``mesh``/``capacities``) are not ported yet and raise ValueError naming
+themselves.
+
+OBSERVATION: ``stream=`` attaches an `obs.ObservableStream`, an opt-in
+per-chunk energy/magnetization/best-so-far tap over the active jobs (one
+host copy of the pool's spins a chunk).  `arm_profiler` opens a
+`torch.profiler` window (CPU + CUDA activities) around the next N
+launches and writes its Chrome trace under a directory; a profiler that
+fails to start, stop or export records a ``profiler.error`` event and
+never stops serving.
+
+RECOVERY (`serve_mc.snapshot`): ``snapshot_manager=`` (a
+`ckpt.manager.CheckpointManager` or a directory) arms whole-server
+snapshots — `snapshot()` on demand, ``snapshot_every_sweeps=K`` every K
+sweeps at the step boundary through the manager's background writer —
+and ``preemption=`` (a `runtime.ft.PreemptionHandler`) a graceful drain:
+once triggered, `drain()` stops at the next chunk boundary, takes a
+blocking snapshot and returns with ``preempted`` set.
+`SampleServer.restore` continues a snapshot bit-exactly, the JAX
+reference server's included.  With none of them armed, `step` runs
+nothing more than before.
 """
 
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import os
 import time
 from collections import Counter, defaultdict, deque
 from typing import List
@@ -71,6 +89,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import ising
 from repro_torch.core.engine import SweepEngine
 from repro_torch.obs import Telemetry
@@ -111,6 +130,15 @@ class SlotPool:
     @property
     def total_free(self) -> int:
         return len(self._free)
+
+    def flat_free(self) -> list[int]:
+        """The free slots as one sorted list (the snapshot format)."""
+        return list(self._free)
+
+    def restore_free(self, flat) -> None:
+        """Reset the free list from a snapshot's (guarded like `release`)."""
+        self._free = []
+        self.release_all(int(b) for b in flat)
 
     def clone(self) -> "SlotPool":
         out = SlotPool.__new__(SlotPool)
@@ -585,17 +613,9 @@ class AdaptiveChunker:
             self.per_sweep_ewma += self.alpha * (per_sweep - self.per_sweep_ewma)
 
 
-
 #: ServeConfig fields naming features that are not ported yet, with the
 #: value that means "off".
-_UNPORTED = {
-    "mesh": None,
-    "capacities": None,
-    "stream": None,
-    "snapshot_manager": None,
-    "snapshot_every_sweeps": 0,
-    "preemption": None,
-}
+_UNPORTED = {"mesh": None, "capacities": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -611,8 +631,10 @@ class ServeConfig:
     carry their own model.  ``replica_tile`` goes to the engine
     (`SweepEngine.create`; backend "cuda" only).  ``placement`` is the
     reference's slot-placement mode, "affine" or "flat": on the one device
-    this port serves on, both place alike.  The fields after ``placement``
+    this port serves on, both place alike.  ``mesh`` and ``capacities``
     name features that are not ported yet; setting one raises ValueError.
+    ``stream``, ``snapshot_manager``, ``snapshot_every_sweeps`` and
+    ``preemption`` arm observation and recovery (module docstring).
     """
 
     slots: int = 8
@@ -731,8 +753,24 @@ class SampleServer:
             raise ValueError(f"wait_window must be >= 1, got {cfg.wait_window}")
         self._wait_recent: deque = deque(maxlen=int(cfg.wait_window))
         # Retirement log (jids in retirement order), bounded like the wait
-        # ring.
+        # ring; snapshots persist it.
         self._retired: deque = deque(maxlen=100_000)
+        self.stream = cfg.stream
+        self._profiler: dict | None = None
+        snapshot_manager = cfg.snapshot_manager
+        if isinstance(snapshot_manager, (str, os.PathLike)):
+            snapshot_manager = CheckpointManager(str(snapshot_manager))
+        self.snapshot_manager = snapshot_manager
+        if cfg.snapshot_every_sweeps < 0:
+            raise ValueError(
+                f"snapshot_every_sweeps must be >= 0, got {cfg.snapshot_every_sweeps}"
+            )
+        if cfg.snapshot_every_sweeps and snapshot_manager is None:
+            raise ValueError("snapshot_every_sweeps needs a snapshot_manager (or directory)")
+        self.snapshot_every_sweeps = int(cfg.snapshot_every_sweeps)
+        self.preemption = cfg.preemption
+        self.preempted = False
+        self._last_snapshot_sweep = 0
 
     # -- submission -----------------------------------------------------------
 
@@ -896,7 +934,45 @@ class SampleServer:
         self._active[job.jid] = (job, taken)
 
     def arm_profiler(self, logdir: str, num_chunks: int = 4) -> None:
-        raise ValueError("arm_profiler is not ported to repro_torch yet")
+        """Arm a `torch.profiler` window (CPU + CUDA activities) around the
+        next ``num_chunks`` engine launches: the kernels' device timeline,
+        which the scheduler's own trace cannot see.  The window opens right
+        before the next launch and closes after the Nth, writing
+        ``<logdir>/trace.json`` (Chrome trace, Perfetto-loadable).  A
+        failure to start, stop or export becomes a ``profiler.error``
+        event, never an exception: profiling must not kill a resident
+        server."""
+        if num_chunks < 1:
+            raise ValueError(f"num_chunks must be >= 1, got {num_chunks}")
+        self._profiler = {"logdir": str(logdir), "remaining": int(num_chunks), "prof": None}
+
+    def _start_profiler(self) -> None:
+        p, tel = self._profiler, self.telemetry
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.engine.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+        except Exception as e:  # the profiler's own failure; serving goes on
+            tel.instant("profiler.error", error=str(e))
+            self._profiler = None
+            return
+        p["prof"] = prof
+        tel.instant("profiler.start", logdir=p["logdir"])
+
+    def _stop_profiler(self) -> None:
+        p, tel = self._profiler, self.telemetry
+        self._profiler = None
+        path = os.path.join(p["logdir"], "trace.json")
+        try:
+            p["prof"].stop()
+            os.makedirs(p["logdir"], exist_ok=True)
+            p["prof"].export_chrome_trace(path)
+        except Exception as e:  # the profiler's own failure; serving goes on
+            tel.instant("profiler.error", error=str(e))
+            return
+        tel.instant("profiler.stop", path=path)
 
     def _launch(self, chunk: int):
         """Enqueue one engine launch; returns ``(t0, warm)`` when the launch
@@ -904,6 +980,8 @@ class SampleServer:
         The step's Python bookkeeping then runs while the card computes;
         `_settle_launch` synchronizes and records."""
         tel = self.telemetry
+        if self._profiler is not None and self._profiler["prof"] is None:
+            self._start_profiler()
         timed = self._chunker is not None or tel.enabled
         pending = (time.perf_counter(), chunk in self._warm_chunks) if timed else None
         self.carry = self.engine.run(self.carry, chunk)
@@ -914,9 +992,16 @@ class SampleServer:
         return pending
 
     def _settle_launch(self, chunk: int, pending) -> None:
-        """Wait for the launch to finish and record its wall time."""
-        if pending is None:
-            return
+        """Wait for the launch to finish and record its wall time; close an
+        armed profiler window after its last launch."""
+        if pending is not None:
+            self._record_launch(chunk, pending)
+        if self._profiler is not None and self._profiler["prof"] is not None:
+            self._profiler["remaining"] -= 1
+            if self._profiler["remaining"] <= 0:
+                self._stop_profiler()
+
+    def _record_launch(self, chunk: int, pending) -> None:
         t0, warm = pending
         if self.engine.device.type == "cuda":
             torch.cuda.synchronize(self.engine.device)
@@ -962,6 +1047,11 @@ class SampleServer:
                 jid for jid in list(self._active) if self._active[jid][0].advance(chunk)
             ]
             self._settle_launch(chunk, pending)
+            # Tap the stream after every job has advanced (sweeps_done is
+            # current) and before the hooks and retirement, so a retiring
+            # job's final chunk is sampled (hooks rewrite betas, never spins).
+            if self.stream is not None:
+                self.stream.record(self)
             completed: List[JobResult] = []
             for jid in boundary:
                 job, taken = self._active[jid]
@@ -976,23 +1066,83 @@ class SampleServer:
                         "job", jid, sweeps_done=job.sweeps_done,
                         chunks=job.chunks, preemptions=job.preemptions,
                     )
+            if (
+                self.snapshot_every_sweeps
+                and self.sweeps_elapsed - self._last_snapshot_sweep >= self.snapshot_every_sweeps
+            ):
+                # Periodic snapshot at the step boundary: the host copies
+                # are taken now (they must see THIS boundary), the fsync'd
+                # writes ride the manager's writer thread.
+                self.snapshot(blocking=False)
         return completed
 
     def drain(self, max_steps: int = 1_000_000) -> List[JobResult]:
-        """Run scheduling rounds until queue and slots are empty."""
+        """Run scheduling rounds until queue and slots are empty.
+
+        With a ``preemption`` handler armed, a triggered handler (SIGTERM,
+        or `trigger()`) is honoured between chunks: the in-flight chunk has
+        finished — chunk boundaries are the only consistent checkpoint —
+        so the server snapshots (blocking: durable before the process
+        exits) and returns the results retired so far with
+        ``self.preempted`` set.  `SampleServer.restore` continues the rest.
+        """
         results: List[JobResult] = []
         for _ in range(max_steps):
             if not len(self.policy) and not self._active:
+                self.wait_snapshots()  # no dangling writer past a drain
+                return results
+            if self.preemption is not None and self.preemption.should_exit:
+                self.telemetry.instant(
+                    "sched.preempt_drain",
+                    queued=len(self.policy),
+                    active=len(self._active),
+                    sweeps_elapsed=self.sweeps_elapsed,
+                )
+                if self.snapshot_manager is not None:
+                    self.snapshot(blocking=True)
+                self.preempted = True
                 return results
             results.extend(self.step())
         raise RuntimeError(f"drain did not converge in {max_steps} steps")
 
-    def snapshot(self, *args, **kwargs) -> int:
-        raise ValueError("server snapshots are not ported to repro_torch yet")
+    # -- snapshot / restore (serve_mc/snapshot.py) ------------------------------
+
+    def wait_snapshots(self) -> None:
+        """Join any background snapshot write (after this returns, the
+        newest snapshot is fully on disk)."""
+        if self.snapshot_manager is not None:
+            self.snapshot_manager.wait()
+
+    def snapshot(self, manager=None, *, step: int | None = None, blocking: bool = True) -> int:
+        """Write a whole-server snapshot; returns its step number.
+
+        Call between scheduling rounds (never mid-`step`): a chunk boundary
+        is the one point where pool + bookkeeping form a consistent
+        resumable state.  ``manager`` (a manager or a directory) defaults to
+        the server's ``snapshot_manager``; ``step`` to the sweep clock.
+        """
+        from repro_torch.serve_mc import snapshot as snap
+
+        mgr = manager if manager is not None else self.snapshot_manager
+        if mgr is None:
+            raise ValueError(
+                "no snapshot manager: pass one here or construct the server "
+                "with snapshot_manager=..."
+            )
+        if not isinstance(mgr, CheckpointManager):
+            mgr = CheckpointManager(str(mgr))
+        step = snap.save_snapshot(self, mgr, step=step, blocking=blocking)
+        self._last_snapshot_sweep = self.sweeps_elapsed
+        return step
 
     @classmethod
-    def restore(cls, *args, **kwargs) -> "SampleServer":
-        raise ValueError("server restore is not ported to repro_torch yet")
+    def restore(cls, source, **overrides) -> "SampleServer":
+        """Rebuild a server from a snapshot (`serve_mc.snapshot.
+        restore_server`, which takes the overrides) and continue
+        bit-exactly, on the card unless ``device="cpu"``."""
+        from repro_torch.serve_mc import snapshot as snap
+
+        return snap.restore_server(source, **overrides)
 
     # -- reporting ------------------------------------------------------------
 

@@ -28,7 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import convert, engine, fastexp, ising, metropolis, reorder
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.serve_mc import PTJob, SampleServer
+from repro_torch.serve_mc import SampleServer
 
 
 def _pair(n, L, seed=1, beta=1.1):
@@ -278,24 +278,24 @@ def test_engine_rejects_model_lists_slots_and_slot_models():
         eng.check_model(other)
 
 
-def test_unported_serving_features_raise():
+def test_unported_serving_features_raise(tmp_path):
+    """Only the device mesh is not ported: ``mesh`` and ``capacities`` raise
+    naming themselves, on the server and on a restore; ``replica_tile`` is
+    refused on the plain backend, a snapshot without a manager and an
+    empty profiler window are refused."""
     m = _model()
-    with pytest.raises(ValueError, match="PTJob.snapshot_state"):  # PTJob itself serves
-        PTJob(seed=1, betas=[1.0, 2.0], num_rounds=2).snapshot_state()
-    for field, value in [
-        ("mesh", object()), ("capacities", (4,)),
-        ("replica_tile", 1), ("stream", object()), ("snapshot_manager", "dir"),
-        ("snapshot_every_sweeps", 8), ("preemption", object()),
-    ]:
+    for field, value in [("mesh", object()), ("capacities", (4,)), ("replica_tile", 1)]:
         with pytest.raises(ValueError, match=field):
             SampleServer(m, slots=2, backend="torch", V=4, device="cpu", **{field: value})
     server = SampleServer(m, slots=2, backend="torch", V=4, device="cpu")
-    with pytest.raises(ValueError, match="arm_profiler"):
-        server.arm_profiler("/nonexistent")
-    with pytest.raises(ValueError, match="snapshot"):
+    with pytest.raises(ValueError, match="num_chunks"):
+        server.arm_profiler(str(tmp_path), num_chunks=0)
+    with pytest.raises(ValueError, match="no snapshot manager"):
         server.snapshot()
-    with pytest.raises(ValueError, match="restore"):
-        SampleServer.restore("/nonexistent")
+    server.snapshot(str(tmp_path))
+    for field in ("mesh", "capacities"):
+        with pytest.raises(ValueError, match=f"{field} is not ported"):
+            SampleServer.restore(str(tmp_path), device="cpu", **{field: (1,)})
     with pytest.raises(ValueError, match="cuda"):
         SampleServer(m, slots=2, V=128, device="cpu")  # default backend is the kernel
 

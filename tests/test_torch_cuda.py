@@ -11,7 +11,7 @@ import torch
 from repro_torch.core import engine, ising, metropolis
 from repro_torch.core import mt19937 as mt
 from repro_torch.kernels import ops, ref
-from repro_torch.serve_mc import AnnealJob, SampleServer
+from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
 
 pytestmark = pytest.mark.cuda
 
@@ -530,3 +530,71 @@ def test_a4_server_with_a_replica_tile_matches_plain():
     for jid, r in out[0].items():
         np.testing.assert_array_equal(r.spins, out[1][jid].spins)
         assert r.energy == out[1][jid].energy
+
+
+def _recovery_jobs(m, multi):
+    jobs = [AnnealJob.constant(seed=30 + i, sweeps=6 + 4 * i, beta=0.6 + 0.1 * i, user=f"u{i % 2}")
+            for i in range(5)]
+    jobs.append(PTJob(seed=9, betas=np.array([0.5, 0.9, 1.3], np.float32), num_rounds=4,
+                      sweeps_per_round=2, user="ladder"))
+    if multi:
+        jobs.append(AnnealJob.constant(seed=77, sweeps=14, beta=1.0,
+                                       model=ising.reseed_couplings(m, 3)))
+    return jobs
+
+
+def _serve(server, jobs, steps=None, snap=None):
+    """Submit ``jobs``; drain, or serve ``steps`` rounds and snapshot into
+    ``snap``.  Returns (results by jid, retirement order, final pool rng)."""
+    for j in jobs:
+        server.submit(j)
+    if steps is None:
+        out = {r.jid: r for r in server.drain()}
+    else:
+        out = {}
+        for _ in range(steps):
+            out.update({r.jid: r for r in server.step()})
+        server.snapshot(str(snap))
+    return out, list(server._retired), server.engine.extract_pool(server.carry).carry.rng
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_restore_on_the_card_is_bit_exact(tmp_path, rung, multi):
+    """A card server's snapshot, restored on the card (#1-#4), finishes equal
+    to the uninterrupted card run; restored on the CPU with the plain
+    backend, equal too ("fast")."""
+    _need_card()
+    m = ising.random_layered_model(n=8, L=256, seed=4, beta=1.0)
+    kw = dict(slots=4, chunk_sweeps=4, rung=rung, multi_tenant=multi)
+    want, order, rng = _serve(SampleServer(m, **kw), _recovery_jobs(m, multi))
+    pre, _, _ = _serve(SampleServer(m, **kw), _recovery_jobs(m, multi), steps=3, snap=tmp_path)
+    for restore in (dict(), dict(backend="torch", device="cpu")):
+        server = SampleServer.restore(str(tmp_path), **restore)
+        got, got_order, got_rng = _serve(server, [])
+        got.update({jid: r for jid, r in pre.items() if jid not in got})
+        assert set(got) == set(want) and got_order == order
+        for jid, r in got.items():
+            np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")
+        np.testing.assert_array_equal(got_rng, rng)
+
+
+def test_cpu_snapshot_restores_on_the_card(tmp_path):
+    """A plain-backend snapshot taken on the CPU is refused on the card with
+    the defaults, and continues there with ``backend="cuda"`` bit-equal to
+    the CPU's uninterrupted run."""
+    _need_card()
+    m = ising.random_layered_model(n=8, L=256, seed=5, beta=1.0)
+    kw = dict(slots=4, chunk_sweeps=4, rung="cb", backend="torch", device="cpu")
+    want, order, rng = _serve(SampleServer(m, **kw), _recovery_jobs(m, False))
+    pre, _, _ = _serve(SampleServer(m, **kw), _recovery_jobs(m, False), steps=3, snap=tmp_path)
+    with pytest.raises(ValueError, match="needs backend="):
+        SampleServer.restore(str(tmp_path))  # the plain version on the card, unasked
+    server = SampleServer.restore(str(tmp_path), backend="cuda")
+    assert server.engine.device.type == "cuda"
+    got, got_order, got_rng = _serve(server, [])
+    got.update({jid: r for jid, r in pre.items() if jid not in got})
+    assert set(got) == set(want) and got_order == order
+    for jid, r in got.items():
+        np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")
+    np.testing.assert_array_equal(got_rng, rng)

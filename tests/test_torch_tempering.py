@@ -17,7 +17,7 @@ JAX), on the CPU:
 And `PTJob` against the port's own `run_parallel_tempering`, bit for bit: rounds
 split across chunks, a job waiting for free slots, mixed anneal and PT
 jobs on different models of a multi-tenant server, a preempted PT job,
-and the snapshot methods that are not ported.
+and a job's snapshot round trip (also from the reference's snapshot).
 """
 
 import dataclasses
@@ -306,11 +306,50 @@ def test_preempted_pt_job_resumes_bit_exactly(rung):
     assert r.extras["swap_propose"] == int(state.swap_propose)
 
 
-def test_pt_job_snapshot_is_not_ported():
-    job = PTJob(seed=1, betas=np.ones(2, np.float32), num_rounds=1)
-    with pytest.raises(ValueError, match="PTJob.snapshot_state"):
-        job.snapshot_state()
-    with pytest.raises(ValueError, match="PTJob.from_snapshot"):
-        PTJob.from_snapshot({}, {})
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_pt_job_snapshot_round_trip(source):
+    """`PTJob.snapshot_state` -> `from_snapshot` mid-ladder (a round split
+    across chunks) continues bit-exactly: the restored job, swapped into
+    the server in place of the live one, finishes equal to the standalone
+    run.  A job restored from the reference's `PTJob.snapshot_state` (its
+    server at the same boundary) does too, and both snapshots hold the same
+    meta and arrays."""
+    from repro.serve_mc import PTJob as JPTJob
+    from repro.serve_mc import SampleServer as JServer
+
+    jm, m = _pair(4, 8, seed=6)
+    betas = np.linspace(0.5, 1.5, 3).astype(np.float32)
+    state, _ = tt.run_parallel_tempering(m, betas, 4, V=4, seed=8, sweeps_per_round=3,
+                                         rung="cb", backend="torch", device="cpu")
+    kw = dict(slots=4, chunk_sweeps=2, rung="cb", V=4)
+    srv = SampleServer(m, backend="torch", device="cpu", **kw)
+    job = PTJob(seed=8, betas=betas, num_rounds=4, sweeps_per_round=3)
+    srv.submit(job)
+    jsrv = JServer(jm, backend="jnp", **kw)
+    jjob = JPTJob(seed=8, betas=betas, num_rounds=4, sweeps_per_round=3)
+    jsrv.submit(jjob)
+    for _ in range(3):  # chunks of 2 and 1 (round 0), then 2 of round 1's 3
+        srv.step()
+        jsrv.step()
+    meta, arrays = job.snapshot_state()
+    jmeta, jarrays = jjob.snapshot_state()
+    assert meta.pop("waited_s") is None and jmeta.pop("waited_s") is None
+    assert meta == jmeta and list(arrays) == list(jarrays) == ["betas", "swap_rng"]
+    for k in arrays:
+        assert arrays[k].dtype == np.asarray(jarrays[k]).dtype, k
+        np.testing.assert_array_equal(arrays[k], np.asarray(jarrays[k]), err_msg=k)
+    assert meta["swap_propose"] > 0 and meta["in_seg"] == 2
+    meta, arrays = (meta, arrays) if source == "port" else (jmeta, jarrays)
+    restored = PTJob.from_snapshot(meta, arrays)
+    assert restored.swap_rng.device.type == "cpu"
+    _, slots = srv._active.pop(job.jid)
+    srv._active[restored.jid] = (restored, slots)
+    (r,) = srv.drain()
+    assert r.jid == restored.jid == job.jid
+    np.testing.assert_array_equal(r.spins, _solo_spins(state, m))
+    np.testing.assert_array_equal(r.extras["betas"], state.betas.numpy())
+    assert r.extras["swap_accept"] == int(state.swap_accept)
+    assert r.extras["swap_propose"] == int(state.swap_propose)
+    np.testing.assert_array_equal(_u32(restored.swap_rng.numpy()), _u32(state.swap_rng.numpy()))
     with pytest.raises(ValueError, match="num_rounds"):
         PTJob(seed=1, betas=np.ones(2, np.float32), num_rounds=0)
