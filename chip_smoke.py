@@ -116,6 +116,26 @@ its final ok line; no phase catches an exception):
      the snapshot's synchronous part, its background write and the restore
      at 8 and 128 slots, the pool's bytes, slot-sweeps/s with the stream
      off and on;
+     6d. the slot mesh on four LOGICAL devices of the one card
+     (``SlotMesh(("cuda:0",) * 4)``: a block of storage and a stream each),
+     at n=96 L=256: #1-#4 through `SweepEngine` at B=8 on the equal split
+     and on capacities [4, 2, 1, 1], each equal to one device bit for bit
+     (pool, generator state, tables) through a park on one device, a
+     resume on another and betas rewritten on two; a drain of 12 anneal
+     jobs and a PT ladder of 4 on 8 slots (policy fifo, chunks of 8) on
+     each rung, single-model and on 4 tenants, on one device and over
+     [4, 2, 1, 1] affine (the rebalancer migrates, the ladder swaps on one
+     device) and flat (the ladder spans devices and swaps from gathered
+     energies), telemetry on (the skew monitor fed for every launch):
+     results and retirement order equal one device's; a D=4 snapshot
+     restored on one device and on [4, 2, 1, 1], each equal to the
+     uninterrupted run; the CLI's ``--devices 1`` equal to phase 4's cb
+     serve, ``--devices 2`` refused on one card; per-device and per-kernel
+     launches, and slot-sweeps/s on one and four logical devices (a layout
+     check on one card, not a scaling figure);
+     6e. the four examples (`python -m repro_torch.examples.<name>`) on the
+     card: the quickstart's kernel step holds #5 bit-equal to its plain
+     version, the others check their own results;
   7. timings from CUDA events: each kernel and its plain version at B=8
      and B=115 (the multi-tenant kernels on B distinct tenants; the cb
      kernels also at 4 warp groups; #5 and #6 on the card alone), the
@@ -145,10 +165,12 @@ its final ok line; no phase catches an exception):
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` (#1-#4 also carry ``recovery_launches``, their
-launches in phase 6c's restored drains and nothing else; #1 also carries
+launches in phase 6c's restored drains and nothing else, and
+``mesh_launches``, those of phase 6d's served mesh drains; #1 also carries
 ``stream_launches``, those of the streamed drain, and ``smoke_launches``,
 those of the whole ``anneal_serve --smoke`` run, before and after its
-restore) and the final ``{"ok": true, "device": ...}``.
+restore; a kernel the examples launch carries ``examples_launches``) and
+the final ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -281,6 +303,12 @@ REC_SLOTS, REC_CHUNK, REC_EVERY = 8, 8, 16
 REC_JOBS, REC_BUDGETS = 10, (16, 65)
 REC_PT_R, REC_PT_ROUNDS, REC_PT_SWEEPS = 4, 6, 4
 REC_CPU_SLOTS = 4
+#: The slot mesh (phase 6d): logical devices on the one card and the ragged
+#: capacities; the served drain's short and long anneal budgets (sweeps)
+#: and its PT ladder's replicas and rounds.
+MESH_D, MESH_CAPS = 4, (4, 2, 1, 1)
+MESH_SHORT, MESH_LONG = 16, 64
+MESH_PT_R, MESH_PT_ROUNDS = 4, 4
 
 
 # -- what each kernel must move and compute (bytes, int32 ops, float32 ops) --
@@ -2065,6 +2093,274 @@ def ladder(dev) -> None:
           f"a2 {t2:.2f} s on the card, a2 {t2c:.2f} s on the CPU")
 
 
+# -- the slot mesh (phase 6d) and the examples (phase 6e) -----------------------
+
+
+def logical_mesh(dev, count: int = MESH_D):
+    """``count`` logical devices on the one card (one block and one stream
+    each), or on the host for a CPU trial of this phase."""
+    from repro_torch.launch.mesh import SlotMesh
+
+    return SlotMesh((str(dev),) * count)
+
+
+def mesh_engines(dev, n: int = MAIN_N, L: int = MAIN_L, **kw) -> None:
+    """#1-#4 through `SweepEngine` at B=8: on four logical devices (equal
+    split) and on `MESH_CAPS`, each equal to one device bit for bit (the
+    whole pool in logical layout, generator state and tables included),
+    through two 8-sweep launches with a park on one device and a resume on
+    another and betas rewritten on two devices between them.  Launches of
+    the mesh engines: one a device with slots, a run."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import ising
+    from repro_torch.kernels import ops
+
+    base = ising.random_layered_model(n=n, L=L, seed=21, beta=1.1)
+    models = tenants(base, MAIN_SLOTS)
+    kw = {"device": dev, **kw}
+    for rung in ("cb", "a4"):
+        for multi in (False, True):
+            kernel = (MULTI_KERNEL if multi else SERVE_KERNEL)[rung]
+
+            def make(**mesh_kw):
+                if multi:
+                    return E.SweepEngine.create(models, rung=rung, **kw, **mesh_kw)
+                return E.SweepEngine.create(base, rung=rung, batch=MAIN_SLOTS, **kw, **mesh_kw)
+
+            def drive(eng):
+                c = eng.run(eng.init_carry(seed=4), MAIN_CHUNK)
+                c = eng.slot(1).resume(c, eng.slot(6).park(c))
+                c = eng.set_slot_betas(c, [2, 7], [0.75, 1.25])
+                return eng.extract_pool(eng.run(c, MAIN_CHUNK))
+
+            want = drive(make())
+            for caps in (None, MESH_CAPS):
+                four = make(mesh=logical_mesh(dev), capacities=caps)
+                ops.reset_launches()
+                got = drive(four)
+                launches = ops.launches[kernel]
+                for name, a, b in zip(got.carry._fields, got.carry, want.carry):
+                    if not np.array_equal(host_bits(a), host_bits(b)):
+                        raise AssertionError(f"mesh {rung} multi={multi} caps={caps}: {name}")
+                for k in (want.tables or {}):
+                    if not np.array_equal(host_bits(got.tables[k]), host_bits(want.tables[k])):
+                        raise AssertionError(f"mesh {rung} multi={multi} caps={caps}: table {k}")
+                used = sum(1 for c in four.capacities if c)
+                if dev.type == "cuda" and launches != 2 * used:
+                    raise AssertionError(f"mesh {kernel} caps={caps}: {launches} launches, "
+                                         f"want {2 * used}")
+                print(f"[mesh engine] {kernel} B={MAIN_SLOTS} n={n} L={L} on "
+                      f"{len(four.mesh)} logical devices, capacities {four.capacities}: "
+                      f"{launches} launches (per device {four.device_launches}); pool, generator "
+                      f"state{' and tables' if multi else ''} == one device, bit for bit")
+
+
+def mesh_jobs(base, multi: bool):
+    """(the first 8 anneal jobs, the ladder and 4 more anneal jobs).  Under
+    affine placement on `MESH_CAPS` the first 8 land on slots 6, 7, 4, 5,
+    0, 1, 2, 3 (best fit: the small devices first); the short ones (jobs
+    2-6) retire after two chunks and free slots 4, 5, 0, 1, 2, so the
+    ladder of 4 fits the pool but no device: the rebalancer migrates slot
+    3 off device 0.  Under flat placement jobs land on slots 0-7 in order,
+    and the ladder takes the lowest free slots 2, 3, 4, 5: it spans devices
+    0 and 1."""
+    from repro_torch.serve_mc import AnnealJob, PTJob
+
+    models = tenants(base, 4) if multi else [None] * 4
+    first = [AnnealJob.constant(seed=600 + i, sweeps=MESH_SHORT if 2 <= i <= 6 else MESH_LONG,
+                                beta=0.6 + 0.1 * i, model=models[i % 4] if i % 2 else None)
+             for i in range(8)]
+    ladder = PTJob(seed=88, betas=np.linspace(0.4, 1.4, MESH_PT_R).astype(np.float32),
+                   num_rounds=MESH_PT_ROUNDS, sweeps_per_round=MAIN_CHUNK, model=models[3])
+    more = [AnnealJob.constant(seed=700 + i, sweeps=2 * MESH_SHORT, beta=1.0,
+                               model=models[i] if i % 2 else None) for i in range(4)]
+    return first, [ladder] + more
+
+
+def mesh_server(dev, rung: str, multi: bool, mesh=None, caps=None, placement="affine",
+                n: int = MAIN_N, L: int = MAIN_L, **kw):
+    from repro_torch.core import ising
+    from repro_torch.serve_mc import SampleServer
+
+    base = ising.random_layered_model(n=n, L=L, seed=22, beta=1.1)
+    return base, SampleServer(base, slots=MAIN_SLOTS, chunk_sweeps=MAIN_CHUNK, rung=rung,
+                              multi_tenant=multi, policy="fifo", mesh=mesh, capacities=caps,
+                              placement=placement, device=dev, **kw)
+
+
+def mesh_drain(base, server, steps_before: int = 2, stop_after: int | None = None) -> tuple:
+    """Serve `mesh_jobs`: the first 8, ``steps_before`` chunks, then the
+    rest; drain (or stop after ``stop_after`` more steps).  Returns
+    (results by jid, seconds)."""
+    first, rest = mesh_jobs(base, server.multi_tenant)
+    t0 = time.perf_counter()
+    for j in first:
+        server.submit(j)
+    results = []
+    for _ in range(steps_before):
+        results += server.step()
+    for j in rest:
+        server.submit(j)
+    if stop_after is None:
+        results += server.drain()
+    else:
+        for _ in range(stop_after):
+            results += server.step()
+    if server.engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {r.jid: r for r in results}, time.perf_counter() - t0
+
+
+def same_results(got: dict, want: dict, what: str) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: jobs {sorted(got)} != {sorted(want)}")
+    for jid, r in got.items():
+        w = want[jid]
+        if not (np.array_equal(host_bits(r.spins), host_bits(w.spins))
+                and np.array_equal(host_bits(r.energy), host_bits(w.energy))
+                and r.sweeps_done == w.sweeps_done
+                and all(np.array_equal(host_bits(r.extras[k]), host_bits(w.extras[k]))
+                        for k in ("betas", "swap_accept", "swap_propose", "final_beta")
+                        if k in w.extras)):
+            raise AssertionError(f"{what}: job {jid} differs from one device's")
+
+
+def mesh_served(dev, smi: str, **kw) -> dict:
+    """The served mesh path on each rung, single-model and multi-tenant: the
+    same drain on one device, on four logical devices under `MESH_CAPS`
+    affine (the rebalancer migrates; the ladder swaps on one device) and
+    flat (the ladder spans devices and swaps from gathered energies), with
+    telemetry on (the skew monitor fed for every launch).  Every result and
+    the retirement order equal one device's.  Returns the mesh drains'
+    launches (counts zeroed just before each, read just after)."""
+    from repro_torch.kernels import ops
+
+    launches = dict.fromkeys(KERNELS, 0)
+    for rung in ("cb", "a4"):
+        for multi in (False, True):
+            what = f"mesh {rung}{' multi-tenant' if multi else ''}"
+            base, one = mesh_server(dev, rung, multi, **kw)
+            want, t_one = mesh_drain(base, one)
+            rate = {}
+            for placement in ("affine", "flat"):
+                base, srv = mesh_server(dev, rung, multi, logical_mesh(dev), MESH_CAPS,
+                                        placement, **kw)
+                ops.reset_launches()
+                got, secs = mesh_drain(base, srv)
+                for k, v in ops.launches.items():
+                    launches[k] += v
+                same_results(got, want, f"{what} {placement}")
+                if list(srv._retired) != list(one._retired):
+                    raise AssertionError(f"{what} {placement}: retirement order differs")
+                st = srv.stats()["placement"]
+                if placement == "affine" and not (st["rebalance_migrations"] >= 1
+                                                  and st["pt_swap_local"] > 0):
+                    raise AssertionError(f"{what} affine: no migration / local swap: {st}")
+                if placement == "flat" and not (st["spanning"] >= 1 and st["pt_swap_cross"] > 0):
+                    raise AssertionError(f"{what} flat: the ladder never spanned: {st}")
+                if srv._skew.launches != srv.launches:
+                    raise AssertionError(f"{what}: skew monitor fed {srv._skew.launches} of "
+                                         f"{srv.launches} launches")
+                rate[placement] = srv.stats()["busy_slot_sweeps"] / secs
+                print(f"[{what} {placement}] {len(got)} jobs on {MAIN_SLOTS} slots over "
+                      f"{MESH_D} logical devices {MESH_CAPS}: {srv.launches} steps, launches per "
+                      f"device {srv.engine.device_launches}, per kernel "
+                      f"{ {k: v for k, v in ops.launches.items() if v} }; migrations "
+                      f"{st['rebalance_migrations']}, affine/spanning {st['affine']}/"
+                      f"{st['spanning']}, PT swaps local/cross {st['pt_swap_local']}/"
+                      f"{st['pt_swap_cross']}, straggler events "
+                      f"{srv.stats()['telemetry']['straggler_events']}; results and retirement "
+                      f"order == one device")
+            rate_one = one.stats()["busy_slot_sweeps"] / t_one
+            print(f"[{what} rate] one device {rate_one:.0f} slot-sweeps/s, four logical devices "
+                  f"affine {rate['affine']:.0f} / flat {rate['flat']:.0f} slot-sweeps/s (a layout "
+                  f"check on one card, not a scaling figure); {smi}")
+    return launches
+
+
+def mesh_snapshots(dev, tmp: str, **kw) -> None:
+    """A snapshot of the cb drain on four logical devices (equal split),
+    taken after the ladder is admitted, restored on one device and on
+    `MESH_CAPS`; each finishes equal to the uninterrupted run."""
+    from repro_torch.serve_mc import SampleServer
+
+    base, ref = mesh_server(dev, "cb", False, logical_mesh(dev), **kw)
+    want, _ = mesh_drain(base, ref)
+    base, srv = mesh_server(dev, "cb", False, logical_mesh(dev), **kw)
+    pre, _ = mesh_drain(base, srv, stop_after=1)
+    srv.snapshot(tmp)
+    for mesh, caps in ((None, None), (logical_mesh(dev), MESH_CAPS)):
+        back = SampleServer.restore(tmp, mesh=mesh, capacities=caps, device=dev,
+                                    backend=kw.get("backend", "cuda"))
+        got = dict(pre)
+        got.update({r.jid: r for r in back.drain()})
+        same_results(got, want, f"mesh snapshot onto {caps or 'one device'}")
+        print(f"[mesh snapshot] D={MESH_D} snapshot at sweep {srv.sweeps_elapsed} restored on "
+              f"{back.devices} device(s) {caps or ''}: {len(got)} jobs == the uninterrupted run")
+
+
+def mesh_cli(cb_report) -> None:
+    """``--devices 1`` through the CLI (the mesh path on one card) equals the
+    CLI's serve without a mesh; ``--devices 2`` on one card is refused with
+    the reference's count message."""
+    from repro_torch.launch import anneal_serve
+
+    report = anneal_serve.main(SERVE_ARGS + ["--rung", "cb", "--device", "cuda",
+                                             "--devices", "1"])
+    if report.server.engine.mesh is None:
+        raise AssertionError("--devices 1 served without a mesh")
+    same_results({r.jid: r for r in report.results}, {r.jid: r for r in cb_report.results},
+                 "--devices 1")
+    n = torch.cuda.device_count()
+    try:
+        anneal_serve.main(SERVE_ARGS + ["--rung", "cb", "--devices", str(n + 1)])
+    except ValueError as e:
+        if f"{n + 1} devices requested, {n} visible" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"--devices {n + 1} was not refused on {n} card(s)")
+    print(f"[mesh cli] --devices 1: 12 jobs == the CLI without a mesh; --devices {n + 1} "
+          f"refused on {n} card(s)")
+
+
+def mesh_phase(dev, smi: str, cb_report) -> dict:
+    """Phase 6d.  Returns the served mesh drains' launches per kernel."""
+    mesh_engines(dev)
+    launches = mesh_served(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh_snapshots(dev, tmp)
+    mesh_cli(cb_report)
+    return launches
+
+
+def examples_phase() -> dict:
+    """Phase 6e: the four examples on the card (``--device cuda``), their
+    output kept short.  The quickstart holds kernel #5 bit-equal to its
+    plain version on the card; the others assert their own results.
+    Returns the launches per kernel (counts zeroed just before, read just
+    after)."""
+    from repro_torch.examples import annealing_service, parallel_tempering, quantum_annealing
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    for name, mod in (("quickstart", quickstart), ("parallel_tempering", parallel_tempering),
+                      ("annealing_service", annealing_service),
+                      ("quantum_annealing", quantum_annealing)):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        lines = out.getvalue().strip().splitlines()
+        print(f"[example {name}] {time.perf_counter() - t0:.1f} s; {lines[-1].strip()}")
+    launches = dict(ops.launches)
+    if launches["metropolis_sweep"] != 1:
+        raise AssertionError(f"quickstart launched #5 {launches['metropolis_sweep']} times")
+    print(f"[examples] launches {({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     if "--kill-worker" in argv:
         return kill_worker(argv[argv.index("--kill-worker") + 1])
@@ -2159,6 +2455,15 @@ def main(argv: list[str]) -> int:
     # -- 6c. recovery and the stream -----------------------------------------
     rec_launches = recovery_and_stream(smi)
     end_phase("recovery and stream")
+    # -- 6d. the slot mesh: four logical devices on the card -------------------
+    rec_launches["mesh"] = mesh_phase(dev, smi, cb_report)
+    for name in SWEEP_KERNELS[:4]:
+        if rec_launches["mesh"][name] == 0:
+            raise AssertionError(f"the mesh drains never launched {name}")
+    end_phase("mesh")
+    # -- 6e. the examples on the card ------------------------------------------
+    rec_launches["examples"] = examples_phase()
+    end_phase("examples")
     # -- 7. timings (CUDA events) ------------------------------------------
     sd = main_case.m.space_degree
     times = {name: {} for name in SWEEP_KERNELS}  # name -> B -> (ms, plain ms, bound)

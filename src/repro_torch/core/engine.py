@@ -54,10 +54,22 @@ ride as ``[B, ...]`` tensors (`slot_tables`) that every launch reads, so
 one launch sweeps B slots each with its own model.  With B copies of one
 model this is the single-model engine, bit for bit.
 
-This port runs every rung on one device: a4 and cb for one model or one
-model per slot, a1-a3 for one model on the "torch" backend.  Device
-meshes (``mesh``/``capacities``) are not ported yet and raise ValueError
-naming themselves.
+Every rung runs on one device: a4 and cb for one model or one model per
+slot, a1-a3 for one model on the "torch" backend.
+
+MESH engines (``create(..., mesh=SlotMesh(...))``, `launch.mesh`) lay the
+slot pool out over D devices: device d owns a contiguous block of
+``capacities[d]`` logical slots (default: the equal ``batch / D`` split),
+stored as its own `SweepCarry` of ``B_max = max(capacities)`` rows in
+that device's memory (`MeshCarry`; the ``B_max - capacities[d]`` padding
+rows are idle slots no API addresses, and a device of capacity 0 holds
+no block and launches nothing).  `run` launches the unmodified
+single-device body once per device, on that device's own stream, so
+slots stay independent and D devices equal one bit for bit.  The slot
+APIs keep addressing GLOBAL logical slot indices; `extract_pool` and
+`spins_flat` give the logical layout, so a pool moves between meshes of
+any device count or capacity vector.  An entry of the mesh may repeat
+(``SlotMesh(("cuda:0",) * 4)``: four logical devices on one card).
 
 ``replica_tile`` (backend "cuda" only, as the reference takes it on its
 Pallas backend only) must divide the batch.  On a4 it is the replicas a
@@ -80,6 +92,9 @@ into the carry it was given.
 
 from __future__ import annotations
 
+import copy
+import time
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -111,6 +126,15 @@ class SweepCarry(NamedTuple):
     h_tau: torch.Tensor  # same shape as spins
     betas: torch.Tensor  # (B,)
     rng: torch.Tensor  # (624, B) | (624, B*V) int32 holding uint32 bits
+
+
+class MeshCarry(NamedTuple):
+    """A mesh engine's pool: one `SweepCarry` block per mesh device, each of
+    ``B_max`` rows (logical slots first, then padding) in that device's own
+    storage, or None for a device of capacity 0.  A value like a carry:
+    every engine method returns new blocks."""
+
+    blocks: tuple
 
 
 class PoolState(NamedTuple):
@@ -159,8 +183,8 @@ class SlotHandle:
 
     @property
     def device(self) -> int:
-        """Device index owning this slot (always 0: one device)."""
-        return 0
+        """Mesh device index owning this slot (0 without a mesh)."""
+        return self.engine.slot_device(self.index)
 
     def extract(self, carry: SweepCarry) -> ParkedSlot:
         """This slot's complete resumable state (carry row, and coupling
@@ -204,6 +228,57 @@ def lane_seeds(batch: int, V: int, seed: int) -> np.ndarray:
     """Per-lane MT19937 seeds for `batch` replicas of `V` interlaced lanes
     (replica ``b`` owns lanes ``b*V .. (b+1)*V``)."""
     return np.arange(batch * V, dtype=np.uint32) * LANE_SEED_MULT + np.uint32(seed)
+
+
+def normalize_capacities(devices: int, batch: int, capacities=None) -> tuple[int, ...]:
+    """Validate a per-device slot capacity vector (or make the equal split
+    when ``capacities`` is None), with the reference's messages: ``len ==
+    devices``, every entry a non-negative int (a device may own no slot),
+    at least one positive, summing to the LOGICAL batch; the equal split
+    needs ``batch % devices == 0``."""
+    if capacities is None:
+        if batch % devices != 0:
+            raise ValueError(
+                f"batch {batch} must divide evenly over {devices} devices "
+                "(pass capacities=[...] for an uneven split)"
+            )
+        return (batch // devices,) * devices
+    caps = tuple(int(c) for c in capacities)
+    if len(caps) != devices:
+        raise ValueError(f"capacities has {len(caps)} entries for {devices} devices")
+    if any(c < 0 for c in caps):
+        raise ValueError(f"capacities must be >= 0, got {caps}")
+    if not any(caps):
+        raise ValueError("at least one device needs capacity > 0")
+    if sum(caps) != batch:
+        raise ValueError(f"capacities sum {sum(caps)} != batch {batch}")
+    return caps
+
+
+def _validate_mesh(mesh, batch: int, replica_tile: int | None, capacities=None):
+    """``(SlotMesh, capacities)`` of a mesh engine, or the reference's
+    ValueError: the mesh needs a "data" axis and no other non-trivial one;
+    the capacities obey `normalize_capacities`; ``replica_tile`` divides
+    the largest per-device block."""
+    from repro_torch.launch.mesh import SlotMesh
+
+    shape = getattr(mesh, "shape", None)
+    shape = dict(shape) if isinstance(shape, dict) else {}
+    if "data" not in shape:
+        raise ValueError(f'engine meshes need a "data" axis; got {shape}')
+    extra = {a: s for a, s in shape.items() if a != "data" and s != 1}
+    if extra:
+        raise ValueError(
+            'engine slots shard over the "data" axis only; mesh has '
+            f"non-trivial axes {extra}"
+        )
+    caps = normalize_capacities(shape["data"], batch, capacities)
+    b_max = max(caps)
+    if replica_tile is not None and b_max % replica_tile != 0:
+        raise ValueError(
+            f"replica_tile {replica_tile} must divide the per-device batch {b_max}"
+        )
+    return SlotMesh(mesh.devices), caps
 
 
 def check_same_topology(base: ising.LayeredModel, other: ising.LayeredModel,
@@ -286,32 +361,77 @@ class SweepEngine:
         device: torch.device,
         models: tuple | None = None,
         replica_tile: int | None = None,
+        mesh=None,
+        capacities: tuple | None = None,
     ):
         self.model = model
         self.replica_tile = replica_tile
         self.rung = rung
         self.backend = backend
-        self.batch = batch
+        self.batch = batch  # LOGICAL slot count: what every public API sees
         self.V = V
         self.exp_flavor = exp_flavor
         self.device = device
         # Lane rows (None on the flat rungs, which have no lane layout).
         self.rows = reorder.check_lane_shape(model.n, model.L, V) if rung in LANE_RUNGS else None
         self.classes = reorder.colored_classes(model, V) if rung == "cb" else None
+        # Mesh layout: logical slot b lives on device d at row l of d's
+        # block, d*B_max + l == _phys_index[b]; without a mesh every
+        # translation is the identity.
+        self.mesh = mesh
+        self.capacities = capacities
+        if mesh is not None:
+            D, b_max = len(mesh), max(capacities)
+            self._cum = np.concatenate([[0], np.cumsum(capacities)]).astype(np.int64)
+            self._phys_index = np.concatenate(
+                [d * b_max + np.arange(c, dtype=np.int64) for d, c in enumerate(capacities)]
+            )
+        else:
+            D, b_max = 1, batch
+            self._cum = None
+            self._phys_index = np.arange(batch, dtype=np.int64)
+        self._b_max = b_max
+        self._phys_batch = D * b_max
+        self._ragged = self._phys_batch != batch
+        self._pad_state = None  # the padding rows' template, built on first use
         # Multi-tenant: the model each slot sweeps (None after a raw table
-        # splice) and its coupling tables, stacked [B, ...].  The tables are
-        # values like the carry: a splice builds new tensors.
+        # splice) and its coupling tables, stacked [B, ...] (on a mesh, one
+        # [B_max, ...] dict a device in `block_tables`, padding rows on the
+        # base model).  The tables are values like the carry: a splice
+        # builds new tensors.
         self.multi = models is not None
         self.models = models
         self.slot_tables = None
+        self.block_tables = None
         if self.multi:
-            per_slot = [_coupling_tables(mm, device) for mm in models]
-            self.slot_tables = {k: torch.stack([t[k] for t in per_slot]) for k in per_slot[0]}
+            if mesh is None:
+                per_slot = [_coupling_tables(mm, device) for mm in models]
+                self.slot_tables = {
+                    k: torch.stack([t[k] for t in per_slot]) for k in per_slot[0]
+                }
+            else:
+                per_slot = [_coupling_tables(mm, "cpu") for mm in models]
+                self.block_tables = self._table_blocks(
+                    {k: torch.stack([t[k] for t in per_slot]).numpy() for k in per_slot[0]}
+                )
         # Per-model single-slot tables: a server's tenant set recurs, so a
         # model's tables are uploaded once, not per admission.  Models are
         # kept referenced so a dead id can never alias a new model.
         self._slot_tables_cache: dict[int, tuple] = {}
-        self._run = (_MULTI_BACKENDS if self.multi else _BACKENDS)[backend](self)
+        builder = (_MULTI_BACKENDS if self.multi else _BACKENDS)[backend]
+        if mesh is None:
+            self._run = builder(self)
+        else:
+            # One body per distinct device, built for the per-device block
+            # (entries of one card share it: its tables are read-only).
+            self._bodies = {}
+            for dev in mesh:
+                if str(dev) not in self._bodies:
+                    self._bodies[str(dev)] = builder(self._local_view(dev))
+            self._streams = [None] * D
+            self._ready = [None] * D
+            self.device_launches = [0] * D  # body launches per mesh device
+        self._energy_tabs: dict = {}  # base-model energy tables per device
 
     # -- construction ---------------------------------------------------------
 
@@ -353,8 +473,6 @@ class SweepEngine:
                     f"multi-tenant engines implement rungs {MULTI_RUNGS}; got rung={rung!r}"
                 )
             models, batch = multi[0], len(multi)
-        if mesh is not None or capacities is not None:
-            raise ValueError("device meshes (mesh=/capacities=) are not ported to repro_torch yet")
         if rung not in RUNGS:
             raise ValueError(f"unknown rung {rung!r}; choose from {RUNGS}")
         if backend not in _BACKENDS:
@@ -369,6 +487,16 @@ class SweepEngine:
             raise ValueError("replica_tile is a cuda-backend knob")
         if replica_tile is not None and (replica_tile < 1 or batch % replica_tile != 0):
             raise ValueError(f"replica_tile {replica_tile} must divide batch {batch}")
+        if mesh is None and capacities is not None:
+            raise ValueError("capacities need a mesh-sharded engine (mesh=...)")
+        if mesh is not None:
+            mesh, capacities = _validate_mesh(mesh, batch, replica_tile, capacities)
+            if mesh[0].type != device.type:
+                raise ValueError(
+                    f"the mesh's devices are {mesh[0].type}, device={str(device)!r}: "
+                    "pass the device type the mesh is on"
+                )
+            device = mesh[0]
         if backend == "cuda":
             from repro_torch.kernels import ops
 
@@ -391,7 +519,43 @@ class SweepEngine:
                 replica_tile=replica_tile or 1, multi=multi is not None,
             )
         return cls(models, rung, backend, batch, V, exp_flavor, device, models=multi,
-                   replica_tile=replica_tile)
+                   replica_tile=replica_tile, mesh=mesh, capacities=capacities)
+
+    @classmethod
+    def build(cls, model: ising.LayeredModel, rung: str = "cb", backend: str = "cuda", *,
+              batch: int = 1, **kwargs) -> "SweepEngine":
+        """DEPRECATED: use `SweepEngine.create` (this is it, bit for bit)."""
+        warnings.warn(
+            "SweepEngine.build is deprecated; use SweepEngine.create",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if not isinstance(model, ising.LayeredModel):
+            raise ValueError("SweepEngine.build takes one model; use build_multi for a list")
+        return cls.create(model, rung, backend, batch=batch, **kwargs)
+
+    @classmethod
+    def build_multi(cls, models, rung: str = "cb", backend: str = "cuda",
+                    **kwargs) -> "SweepEngine":
+        """DEPRECATED: use `SweepEngine.create` with a model list (bit for bit)."""
+        warnings.warn(
+            "SweepEngine.build_multi is deprecated; use SweepEngine.create",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        models = tuple(models)
+        if not models:
+            raise ValueError("build_multi needs at least one model")
+        return cls.create(models, rung, backend, **kwargs)
+
+    def _local_view(self, device: torch.device) -> "SweepEngine":
+        """A shallow copy for one device's block: ``B_max`` slots on
+        ``device``, no mesh.  The backend builders read the model, rung,
+        flavour and device from it and build that device's tables."""
+        loc = copy.copy(self)
+        loc.batch, loc.device, loc.mesh, loc.capacities = self._b_max, device, None, None
+        loc._slot_tables_cache = {}
+        return loc
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -401,13 +565,14 @@ class SweepEngine:
         spins: np.ndarray | None = None,
         betas: np.ndarray | None = None,
     ) -> SweepCarry:
-        """Initial batched carry.
+        """Initial batched carry (a `MeshCarry` on a mesh engine).
 
         ``spins`` may be None (per-replica random init from ``seed``), one
         flat (N,) configuration (replicated), or a (B, N) stack.  ``betas``
         defaults to the model beta on every replica (each slot's own
         model's beta on a multi-tenant engine); the fields are likewise
-        each slot's own model's.
+        each slot's own model's.  On a mesh the logical carry is the one a
+        single device would start from, laid out into the devices' blocks.
         """
         m, B = self.model, self.batch
         # Slots whose tables were raw-spliced (model None) use the base model.
@@ -427,50 +592,180 @@ class SweepEngine:
                 spin_list = list(spins)
         if betas is None:
             betas = np.asarray([mm.beta for mm in slot_models], np.float32)
-        states = [self._slot_state(mm, sp) for mm, sp in zip(slot_models, spin_list)]
+        dev = self.device if self.mesh is None else "cpu"
+        states = [self._slot_state(mm, sp, dev) for mm, sp in zip(slot_models, spin_list)]
         stacked = [torch.stack([s[i] for s in states]) for i in range(3)]
         # Flat rungs: one scalar generator per replica, seeds scrambled like
         # the lane rungs'.
-        return SweepCarry(
+        carry = SweepCarry(
             *stacked,
-            betas=torch.as_tensor(np.asarray(betas, np.float32), device=self.device),
-            rng=mt.mt_init(lane_seeds(B, self._slot_lanes(), seed), self.device),
+            betas=torch.as_tensor(np.asarray(betas, np.float32), device=dev),
+            rng=mt.mt_init(lane_seeds(B, self._slot_lanes(), seed), dev),
         )
+        if self.mesh is None:
+            return carry
+        from repro_torch.core import convert
 
-    def _slot_state(self, m: ising.LayeredModel, spins: np.ndarray):
+        return self._carry_blocks(convert.carry_to_numpy(carry))
+
+    def _slot_state(self, m: ising.LayeredModel, spins: np.ndarray, device=None):
         """One replica's state in the rung's layout, fields from scratch."""
+        device = self.device if device is None else device
         if self.rung in FLAT_RUNGS:
-            return metropolis.make_flat_state(m, spins, self.device)
-        return metropolis.make_lane_state(m, spins, self.V, self.device)
+            return metropolis.make_flat_state(m, spins, device)
+        return metropolis.make_lane_state(m, spins, self.V, device)
 
-    def run(self, carry: SweepCarry, num_sweeps: int) -> SweepCarry:
+    def run(self, carry, num_sweeps: int):
         """Advance every replica by ``num_sweeps`` Metropolis sweeps (one
-        kernel launch on the "cuda" backend).  Returns a new carry.  A
-        multi-tenant engine's launch reads the current `slot_tables`."""
+        kernel launch on the "cuda" backend; on a mesh one a device, each on
+        its device's own stream).  Returns a new carry.  A multi-tenant
+        engine's launch reads the current slot tables."""
+        if self.mesh is not None:
+            return self._mesh_run(carry, int(num_sweeps))
         if self.multi:
             return self._run(carry, self.slot_tables, int(num_sweeps))
         return self._run(carry, int(num_sweeps))
 
-    def run_fn(self, num_sweeps: int) -> Callable[[SweepCarry], SweepCarry]:
+    def run_fn(self, num_sweeps: int) -> Callable:
         """Steady-state callable for benchmarking: ``fn(carry) -> carry``."""
         n = int(num_sweeps)
         return lambda carry: self.run(carry, n)
 
+    # -- the mesh: per-device launches ------------------------------------------
+
+    def _stream(self, d: int):
+        if self._streams[d] is None:
+            self._streams[d] = torch.cuda.Stream(device=self.mesh[d])
+        return self._streams[d]
+
+    def _mesh_run(self, carry: MeshCarry, num_sweeps: int) -> MeshCarry:
+        """The unmodified single-device body once per device block.  On the
+        card each block launches on its device's own stream, which first
+        waits for the device's current stream (the splices and beta writes
+        before it) and is then waited for by it (so every later read, write
+        or free on the current stream follows the launch); an event recorded
+        after each launch is what `device_ready_times` waits on."""
+        blocks = list(carry.blocks)
+        for d, blk in enumerate(blocks):
+            if blk is None:
+                self._ready[d] = None
+                continue
+            dev = self.mesh[d]
+            body = self._bodies[str(dev)]
+            self.device_launches[d] += 1
+            args = (blk, self.block_tables[d], num_sweeps) if self.multi else (blk, num_sweeps)
+            if dev.type != "cuda":
+                blocks[d] = body(*args)
+                self._ready[d] = time.perf_counter()
+                continue
+            cur, stream = torch.cuda.current_stream(dev), self._stream(d)
+            stream.wait_stream(cur)
+            with torch.cuda.stream(stream):
+                blocks[d] = body(*args)
+                event = torch.cuda.Event()
+                event.record(stream)
+            cur.wait_stream(stream)
+            self._ready[d] = event
+        return MeshCarry(tuple(blocks))
+
+    def device_ready_times(self, carry: MeshCarry, t0: float) -> np.ndarray:
+        """(D,) wall seconds from ``t0`` until each device's block of the
+        last launch was ready, in mesh device order (mesh engines only).
+        On the card: the launch's event on each device's stream,
+        synchronized in device order, ``perf_counter() - t0`` taken then; on
+        the host the moment each block's body returned.  A device of
+        capacity 0 (no launch) reads as ready when its turn comes.  Pure
+        reads; ``carry`` (the launch's result) is untouched."""
+        if self.mesh is None:
+            raise ValueError("device_ready_times needs a mesh-sharded engine")
+        if not isinstance(carry, MeshCarry) or len(carry.blocks) != len(self.mesh):
+            raise ValueError("device_ready_times takes this engine's pool carry")
+        out = np.empty(len(self.mesh), np.float64)
+        for d, ready in enumerate(self._ready):
+            if isinstance(ready, torch.cuda.Event):
+                ready.synchronize()
+                out[d] = time.perf_counter() - t0
+            elif ready is None:
+                out[d] = time.perf_counter() - t0
+            else:
+                out[d] = ready - t0
+        return out
+
+    def slot_energies(self, carry) -> torch.Tensor:
+        """Per-slot energies (B,) float32 of the carry's spins, each device
+        evaluating its own slots (lane rungs only), on the engine's device.
+
+        `tempering.lane_energy` is the same expression the swap phase
+        evaluates and its bits do not depend on the device or the batch, so
+        a ladder spanning devices gathers only these B scalars and swaps
+        exactly as a resident one.  Multi-tenant engines use each slot's
+        own coupling tables."""
+        from repro_torch.core.tempering import lane_energy as _lane_energy
+
+        if self.rung not in LANE_RUNGS:
+            raise ValueError(
+                f"slot_energies is defined for lane rungs {LANE_RUNGS}; got rung={self.rung!r}"
+            )
+        if self.mesh is None:
+            blocks, tables, caps = [carry], [self.slot_tables], [self.batch]
+        else:
+            blocks, tables, caps = carry.blocks, self.block_tables or [None] * len(self.mesh), \
+                self.capacities
+        out = []
+        for d, (blk, tabs, cap) in enumerate(zip(blocks, tables, caps)):
+            if not cap:
+                continue
+            dev = blk.spins.device
+            nbr, bJ, tJ, h = self.energy_tables_on(dev)
+            if self.multi:
+                e = torch.stack([
+                    _lane_energy(blk.spins[l], tabs["h"][l], nbr, tabs["base_J"][l],
+                                 tabs["tau_J"][l], self.model.n)
+                    for l in range(cap)
+                ])
+            else:
+                e = _lane_energy(blk.spins[:cap], h, nbr, bJ, tJ, self.model.n)
+            out.append(e.to(self.device))
+        return torch.cat(out)
+
+    def energy_tables_on(self, device):
+        """`tempering.model_energy_tables` of the base model on ``device``,
+        built once per engine and device."""
+        from repro_torch.core import tempering
+
+        key = str(device)
+        if key not in self._energy_tabs:
+            self._energy_tabs[key] = tempering.model_energy_tables(self.model, device)
+        return self._energy_tabs[key]
+
     # -- views ----------------------------------------------------------------
 
-    def spins_flat(self, carry: SweepCarry) -> np.ndarray:
+    def spins_flat(self, carry) -> np.ndarray:
         """(B, N) spins in flat layer-major order (host numpy), comparable
-        across rungs."""
+        across rungs: always the LOGICAL slots (a mesh pool's padding rows
+        dropped).  A single-slot carry (`extract_slot`) passes through."""
         m = self.model
-        spins = carry.spins.cpu().numpy()
+        if isinstance(carry, MeshCarry):
+            spins = self._logical_rows(carry, "spins")
+        else:
+            spins = carry.spins.cpu().numpy()
         if self.rung in FLAT_RUNGS:
             return spins
         return np.stack([reorder.from_lane(s, m.n, m.L, self.V) for s in spins])
 
-    def state_of(self, carry: SweepCarry, b: int = 0):
+    def state_of(self, carry, b: int = 0):
         """Replica ``b`` as a per-replica `FlatState` or `LaneState`."""
         cls = metropolis.FlatState if self.rung in FLAT_RUNGS else metropolis.LaneState
-        return cls(carry.spins[b], carry.h_space[b], carry.h_tau[b])
+        blk, l = self.slot_row(carry, b)
+        return cls(blk.spins[l], blk.h_space[l], blk.h_tau[l])
+
+    def gather_betas(self, carry, slots) -> torch.Tensor:
+        """The betas of the given logical slots, in order, as a float32
+        tensor on the engine's device (no host round trip)."""
+        return torch.cat([
+            blk.betas[l : l + 1].to(self.device)
+            for blk, l in (self.slot_row(carry, b) for b in slots)
+        ])
 
     # -- per-slot splice/extract (the serve scheduler's admit/retire API) ------
 
@@ -481,6 +776,37 @@ class SweepEngine:
     def _check_slot(self, b: int) -> None:
         if not 0 <= b < self.batch:
             raise ValueError(f"slot {b} out of range for batch {self.batch}")
+
+    def slot_device(self, b: int) -> int:
+        """Mesh device owning logical slot ``b`` (0 without a mesh): the
+        prefix-sum bracket of the capacity vector, which skips devices of
+        capacity 0."""
+        if self.mesh is None:
+            return 0
+        return int(np.searchsorted(self._cum, int(b), side="right")) - 1
+
+    def phys_slots(self, slots) -> np.ndarray:
+        """Physical rows ``d * B_max + l`` of the given LOGICAL slots (the
+        identity unless a mesh's capacities are uneven)."""
+        return self._phys_index[np.asarray(slots, np.int64)]
+
+    def _slot_phys(self, b: int) -> int:
+        """Physical row of logical slot ``b``."""
+        return int(self._phys_index[int(b)])
+
+    def _locate(self, b: int) -> tuple[int, int]:
+        """(device, row in its block) of logical slot ``b``."""
+        self._check_slot(b)
+        return divmod(self._slot_phys(b), self._b_max)
+
+    def slot_row(self, carry, b: int):
+        """(the carry, or on a mesh the device block, holding logical slot
+        ``b``; its row there)."""
+        if self.mesh is None:
+            self._check_slot(b)
+            return carry, b
+        d, l = self._locate(b)
+        return carry.blocks[d], l
 
     def init_slot_carry(
         self,
@@ -532,25 +858,34 @@ class SweepEngine:
             mt.mt_init(rng_seeds, self.device),
         )
 
-    def splice_slot(self, carry: SweepCarry, b: int, slot: SweepCarry) -> SweepCarry:
-        """Write a single-slot carry into slot ``b``; returns a new carry.
-        Pure data movement — bit-exact by construction."""
-        self._check_slot(b)
+    def splice_slot(self, carry, b: int, slot: SweepCarry):
+        """Write a single-slot carry into logical slot ``b``; returns a new
+        carry (on a mesh only the owning device's block is rebuilt, on that
+        device).  Pure data movement — bit-exact by construction."""
+        blk, l = self.slot_row(carry, b)
+        dev = blk.spins.device
         V = self._slot_lanes()
-        out = [x.clone() for x in carry]
+        out = [x.clone() for x in blk]
         for i in range(4):
-            out[i][b] = slot[i][0]
-        out[4][:, b * V : (b + 1) * V] = slot.rng
-        return SweepCarry(*out)
+            out[i][l] = slot[i][0].to(dev)
+        out[4][:, l * V : (l + 1) * V] = slot.rng.to(dev)
+        return self._replace_block(carry, b, SweepCarry(*out))
 
-    def extract_slot(self, carry: SweepCarry, b: int) -> SweepCarry:
-        """Slot ``b`` of a batched carry as a single-slot carry (the exact
-        inverse of `splice_slot`; a copy, so later carries never alias it)."""
-        self._check_slot(b)
+    def _replace_block(self, carry, b: int, block: SweepCarry):
+        if self.mesh is None:
+            return block
+        d = self._locate(b)[0]
+        return MeshCarry(carry.blocks[:d] + (block,) + carry.blocks[d + 1 :])
+
+    def extract_slot(self, carry, b: int) -> SweepCarry:
+        """Logical slot ``b`` of a batched carry as a single-slot carry (the
+        exact inverse of `splice_slot`; a copy, so later carries never alias
+        it), on the device that owns the slot."""
+        blk, l = self.slot_row(carry, b)
         V = self._slot_lanes()
         return SweepCarry(
-            *(x[b : b + 1].clone() for x in carry[:4]),
-            carry.rng[:, b * V : (b + 1) * V].clone(),
+            *(x[l : l + 1].clone() for x in blk[:4]),
+            blk.rng[:, l * V : (l + 1) * V].clone(),
         )
 
     def slot(self, b: int) -> SlotHandle:
@@ -558,21 +893,128 @@ class SweepEngine:
         self._check_slot(b)
         return SlotHandle(self, b)
 
-    def extract_pool(self, carry: SweepCarry) -> PoolState:
-        """The WHOLE pool's resumable state as host numpy copies (one copy
-        per leaf, never a view of the carry or the tables: a snapshot
-        written in the background while the server steps on must hold
-        this boundary's state).  Pure read."""
+    def park_slot(self, carry, b: int) -> ParkedSlot:
+        """DEPRECATED: use ``engine.slot(b).park(carry)`` (this is it)."""
+        warnings.warn(
+            "SweepEngine.park_slot is deprecated; use SweepEngine.slot(b).park",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.slot(b).park(carry)
+
+    def resume_slot(self, carry, b: int, parked: ParkedSlot, model=None):
+        """DEPRECATED: use ``engine.slot(b).resume(carry, parked)`` (this is
+        it; any slot, the one the state was parked from or another)."""
+        warnings.warn(
+            "SweepEngine.resume_slot is deprecated; use SweepEngine.slot(b).resume",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.slot(b).resume(carry, parked, model=model)
+
+    # -- the whole pool (snapshots), and the mesh's logical <-> block layout ---
+
+    def _pad_template(self) -> dict:
+        """One padding row, host numpy: a fixed function of the base model
+        (the reference's template), so a pool laid out onto any mesh is
+        reproducible.  No API ever reads a padding row."""
+        if self._pad_state is None:
+            m = self.model
+            st = self._slot_state(m, ising.init_spins(m, seed=0), "cpu")
+            rng = mt.mt_init(lane_seeds(1, self._slot_lanes(), 0), "cpu")
+            self._pad_state = dict(
+                spins=st.spins.numpy(), h_space=st.h_space.numpy(), h_tau=st.h_tau.numpy(),
+                betas=np.float32(m.beta), rng=rng.numpy().view(np.uint32),
+            )
+        return self._pad_state
+
+    def _carry_blocks(self, logical: dict) -> MeshCarry:
+        """A LOGICAL host carry (numpy leaves, rng uint32) laid out into the
+        devices' padded blocks, each in its own device's storage."""
         from repro_torch.core import convert
 
-        host = SweepCarry(**convert.carry_to_numpy(carry))
-        tables = convert.slot_tables_to_numpy(self) if self.multi else None
+        pad, lanes, b_max = self._pad_template(), self._slot_lanes(), self._b_max
+        blocks = []
+        for d, cap in enumerate(self.capacities):
+            if not cap:
+                blocks.append(None)
+                continue
+            lo, hi = int(self._cum[d]), int(self._cum[d + 1])
+            leaves = {}
+            for f in ("spins", "h_space", "h_tau", "betas"):
+                x = np.asarray(logical[f])
+                out = np.empty((b_max,) + x.shape[1:], x.dtype)
+                out[:] = pad[f]
+                out[:cap] = x[lo:hi]
+                leaves[f] = out
+            rng = np.tile(pad["rng"], (1, b_max))
+            rng[:, : cap * lanes] = np.asarray(logical["rng"])[:, lo * lanes : hi * lanes]
+            leaves["rng"] = rng
+            blocks.append(convert.carry_from_numpy(leaves, self.mesh[d]))
+        return MeshCarry(tuple(blocks))
+
+    def _logical_rows(self, carry: MeshCarry, field: str) -> np.ndarray:
+        """One leaf of a mesh pool in LOGICAL layout, host numpy (rng as
+        uint32): each device's first ``capacities[d]`` rows (columns)."""
+        from repro_torch.core import convert
+
+        lanes, parts = self._slot_lanes(), []
+        for blk, cap in zip(carry.blocks, self.capacities):
+            if not cap:
+                continue
+            x = getattr(blk, field)
+            parts.append(convert.host_copy(x[:, : cap * lanes] if field == "rng" else x[:cap]))
+        out = np.concatenate(parts, axis=1 if field == "rng" else 0)
+        return out.view(np.uint32) if field == "rng" else out
+
+    def _table_blocks(self, logical: dict) -> list:
+        """LOGICAL [B, ...] slot tables (numpy) as one padded [B_max, ...]
+        dict a device, padding rows on the base model's couplings."""
+        fill = _coupling_tables(self.model, "cpu")
+        out = []
+        for d, cap in enumerate(self.capacities):
+            if not cap:
+                out.append(None)
+                continue
+            lo, hi = int(self._cum[d]), int(self._cum[d + 1])
+            blk = {}
+            for k, v in logical.items():
+                v = np.asarray(v, np.float32)
+                big = np.empty((self._b_max,) + v.shape[1:], np.float32)
+                big[:] = fill[k].numpy()
+                big[:cap] = v[lo:hi]
+                blk[k] = torch.from_numpy(big).to(self.mesh[d])
+            out.append(blk)
+        return out
+
+    def extract_pool(self, carry) -> PoolState:
+        """The WHOLE pool's resumable state as host numpy copies in LOGICAL
+        layout (one copy per leaf, never a view of the carry or the tables:
+        a snapshot written in the background while the server steps on must
+        hold this boundary's state).  A mesh pool drops its padding rows,
+        so the state restores onto any mesh.  Pure read."""
+        from repro_torch.core import convert
+
+        if self.mesh is None:
+            host = SweepCarry(**convert.carry_to_numpy(carry))
+            tables = convert.slot_tables_to_numpy(self) if self.multi else None
+            return PoolState(host, tables)
+        host = SweepCarry(*(self._logical_rows(carry, f) for f in SweepCarry._fields))
+        tables = None
+        if self.multi:
+            tables = {
+                k: np.concatenate([convert.host_copy(t[k][:cap])
+                                   for t, cap in zip(self.block_tables, self.capacities) if cap])
+                for k in convert.SLOT_TABLE_KEYS
+            }
         return PoolState(host, tables)
 
-    def splice_pool(self, pool: PoolState) -> SweepCarry:
+    def splice_pool(self, pool: PoolState):
         """Install a `PoolState` as this engine's pool (the exact inverse of
-        `extract_pool`; also takes the JAX reference's).  The carry goes to
-        the engine's device with ``rng`` back in int32 storage; on
+        `extract_pool`; also takes the JAX reference's).  The pool is in
+        LOGICAL layout, so this engine lays it out for its own mesh,
+        whatever device count or capacity vector extracted it.  The carry
+        goes to the engine's devices with ``rng`` back in int32 storage; on
         multi-tenant engines the coupling tables are installed too and every
         slot's model provenance resets to None (a raw splice: a later
         `set_slot_model` re-records it).  Returns the new carry."""
@@ -598,25 +1040,51 @@ class SweepEngine:
         if self.multi:
             if pool.tables is None:
                 raise ValueError("multi-tenant engines need the pool's coupling tables")
-            self.slot_tables = convert.slot_tables_from_numpy(pool.tables, self.device)
+            if self.mesh is None:
+                self.slot_tables = convert.slot_tables_from_numpy(pool.tables, self.device)
+            else:
+                missing = [k for k in convert.SLOT_TABLE_KEYS if k not in pool.tables]
+                if missing:
+                    raise ValueError(f"slot tables miss {missing}")
+                self.block_tables = self._table_blocks(
+                    {k: pool.tables[k] for k in convert.SLOT_TABLE_KEYS})
             self.models = (None,) * self.batch
         elif pool.tables is not None:
             raise ValueError("pool carries coupling tables but this engine is single-model")
-        return convert.carry_from_numpy(pool.carry._asdict(), self.device)
+        if self.mesh is None:
+            return convert.carry_from_numpy(pool.carry._asdict(), self.device)
+        return self._carry_blocks(pool.carry._asdict())
 
-    def set_slot_betas(self, carry: SweepCarry, slots, betas) -> SweepCarry:
-        """Rewrite the betas of the given slots without touching spins,
-        fields or RNG; returns a new carry.  ``betas`` may be host values or
-        a float32 tensor (a device tensor stays on the device)."""
-        dev = carry.betas.device
-        idx = torch.as_tensor(np.asarray(slots, np.int64), device=dev)
+    def set_slot_betas(self, carry, slots, betas):
+        """Rewrite the betas of the given logical slots without touching
+        spins, fields or RNG; returns a new carry.  ``betas`` may be host
+        values or a float32 tensor (a device tensor stays on the device)."""
         if isinstance(betas, torch.Tensor):
-            vals = betas.to(device=dev, dtype=torch.float32)
+            vals = betas.to(dtype=torch.float32)
         else:
-            vals = torch.as_tensor(np.asarray(betas, np.float32), device=dev)
-        new = carry.betas.clone()
-        new[idx] = vals
-        return carry._replace(betas=new)
+            vals = torch.as_tensor(np.asarray(betas, np.float32))
+        slots = [int(b) for b in slots]
+        if self.mesh is None:
+            groups = {0: (list(range(len(slots))), slots)}
+        else:
+            groups = {}
+            for i, b in enumerate(slots):
+                d, l = self._locate(b)
+                pos, rows = groups.setdefault(d, ([], []))
+                pos.append(i)
+                rows.append(l)
+        for d, (pos, rows) in groups.items():
+            blk = carry if self.mesh is None else carry.blocks[d]
+            dev = blk.betas.device
+            new = blk.betas.clone()
+            new[torch.as_tensor(rows, device=dev)] = vals.to(dev)[
+                torch.as_tensor(pos, device=dev)]
+            if self.mesh is None:
+                carry = carry._replace(betas=new)
+            else:
+                carry = MeshCarry(
+                    carry.blocks[:d] + (blk._replace(betas=new),) + carry.blocks[d + 1 :])
+        return carry
 
     def check_model(self, model: ising.LayeredModel) -> None:
         """Raise unless ``model`` is admissible in this engine's slots."""
@@ -651,18 +1119,25 @@ class SweepEngine:
         later `set_slot_model` wrongly no-op."""
         self._check_multi("splice_slot_tables", b)
         self.models = self.models[:b] + (None,) + self.models[b + 1 :]
+        d, l = self._locate(b)
+        tables = self.slot_tables if self.mesh is None else self.block_tables[d]
         new = {}
-        for k, dst in self.slot_tables.items():
+        for k, dst in tables.items():
             t = dst.clone()
-            t[b] = slot[k][0]
+            t[l] = slot[k][0].to(t.device)
             new[k] = t
-        self.slot_tables = new
+        if self.mesh is None:
+            self.slot_tables = new
+        else:
+            self.block_tables = self.block_tables[:d] + [new] + self.block_tables[d + 1 :]
 
     def extract_slot_tables(self, b: int) -> dict:
         """Slot ``b``'s coupling tables as single-slot tensors (the exact
-        inverse of `splice_slot_tables`; copies)."""
+        inverse of `splice_slot_tables`; copies, on the owning device)."""
         self._check_multi("extract_slot_tables", b)
-        return {k: v[b : b + 1].clone() for k, v in self.slot_tables.items()}
+        d, l = self._locate(b)
+        tables = self.slot_tables if self.mesh is None else self.block_tables[d]
+        return {k: v[l : l + 1].clone() for k, v in tables.items()}
 
     def set_slot_model(self, b: int, model: ising.LayeredModel) -> None:
         """Admit ``model`` into slot ``b``: splice its tables and record it

@@ -385,3 +385,62 @@ def sweep_colored(
     spins = colored_flip_spins(state.spins, u, beta, classes, exp_fn)
     hs, ht = lane_h_eff(spins, h, base_nbr, base_J, tau_J, n)
     return LaneState(spins, hs, ht)
+
+
+# -----------------------------------------------------------------------------
+# DEPRECATED shims: the sweep loops live in `core.engine.SweepEngine`.  Kept, as
+# the reference keeps them, with its semantics: one replica on the plain
+# backend ("torch", the reference's "jnp"), spins bit-identical to the
+# engine path.
+# -----------------------------------------------------------------------------
+
+LADDER = ("a1", "a2", "a3", "a4")  # the paper's rungs; "cb" extends beyond
+
+
+def make_sweeper(
+    m: ising.LayeredModel,
+    impl: str,
+    *,
+    num_sweeps: int = 1,
+    seed: int = 1234,
+    exp_flavor: str | None = None,
+    V: int = 4,
+    device="cuda",
+):
+    """DEPRECATED: use ``SweepEngine.create(...)`` + ``engine.run_fn``.
+
+    ``(fn, initial_carry)`` for steady-state benchmarking: ``fn(carry) ->
+    carry`` runs ``num_sweeps`` sweeps of rung ``impl`` on one replica."""
+    from repro_torch.core import engine as _engine
+
+    eng = _engine.SweepEngine.create(
+        m, rung=impl, backend="torch", batch=1, V=V, exp_flavor=exp_flavor, device=device
+    )
+    carry0 = eng.init_carry(seed=seed, spins=ising.init_spins(m, seed))
+    return eng.run_fn(num_sweeps), carry0
+
+
+def run_sweeps(
+    m: ising.LayeredModel,
+    spins: np.ndarray,
+    impl: str,
+    num_sweeps: int,
+    *,
+    seed: int = 1234,
+    exp_flavor: str | None = None,
+    V: int = 4,
+    device="cuda",
+):
+    """DEPRECATED: use ``SweepEngine.create(...)`` + ``engine.run``.
+
+    ``num_sweeps`` sweeps of rung ``impl`` from ``spins``; returns the final
+    spins in FLAT (layer-major) order whatever the rung, and the replica's
+    state."""
+    from repro_torch.core import engine as _engine
+
+    eng = _engine.SweepEngine.create(
+        m, rung=impl, backend="torch", batch=1, V=V, exp_flavor=exp_flavor, device=device
+    )
+    carry = eng.init_carry(seed=seed, spins=np.asarray(spins))
+    carry = eng.run(carry, num_sweeps)
+    return eng.spins_flat(carry)[0], eng.state_of(carry, 0)

@@ -235,10 +235,7 @@ def model_energy_tables(m: ising.LayeredModel, device="cuda"):
 def energy_tables(eng: sweep_engine.SweepEngine):
     """`model_energy_tables` of the engine's model on its device, built once
     per engine, so per-round calls upload nothing."""
-    tabs = getattr(eng, "_energy_tables", None)
-    if tabs is None:
-        tabs = eng._energy_tables = model_energy_tables(eng.model, eng.device)
-    return tabs
+    return eng.energy_tables_on(eng.device)
 
 
 def pt_round(

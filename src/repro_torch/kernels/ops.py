@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import fastexp as fx
-from repro_torch.core import metropolis
+from repro_torch.core import ising, metropolis, reorder
 from repro_torch.core import mt19937 as mt
 from repro_torch.kernels import _build, ref
 
@@ -763,3 +763,27 @@ def _sweep_exp_check(x: torch.Tensor, exp_flavor: str) -> torch.Tensor:
             _ptr(x), _ptr(out), x.numel(), flavour, *_EXP_CONSTS, _stream(x.device))
     _raise_if_failed("sweep_exp_check", err)
     return out
+
+
+def make_kernel_inputs(m: ising.LayeredModel, batch: int, *, seed: int = 0, device="cuda"):
+    """``(spins, h_space, h_tau, u, base_nbr, base_J2, tau_J2, beta)`` for
+    `metropolis_sweep` on ``batch`` replicas of ``m`` in the 128-lane
+    layout, on ``device``: the JAX reference's inputs from the same numpy
+    seeds (replica b from ``init_spins(m, seed * 131 + b)``, the uniforms
+    from ``default_rng(seed)``), the tables as the kernels take them."""
+    reorder.check_lane_shape(m.n, m.L, LANES)
+    states = [metropolis.make_lane_state(m, ising.init_spins(m, seed=seed * 131 + b), LANES, device)
+              for b in range(batch)]
+    spins, hs, ht = (torch.stack([s[i] for s in states]) for i in range(3))
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(rng.random(tuple(spins.shape), dtype=np.float32)).to(device)
+    return (
+        spins,
+        hs,
+        ht,
+        u,
+        _to_device(m.space_nbr, device),
+        _to_device(np.asarray(2.0 * m.space_J, np.float32), device),
+        _to_device(np.asarray(2.0 * m.tau_J, np.float32), device),
+        torch.full((batch,), m.beta, dtype=torch.float32, device=device),
+    )

@@ -46,13 +46,20 @@ server (a kill: no goodbye snapshot), restores from the snapshot and
 finishes, printing ``smoke:`` lines.  With ``--device cpu`` it serves the
 reference's shape (n=8, L=16, V=4, backend torch), so its results equal
 ``python -m repro.launch.anneal_serve --smoke`` job for job; on the card
-it serves n=8, L=256, V=128 on backend cuda.  Device meshes
-(``--devices``) are not ported yet and raise ValueError naming the flag.
+it serves n=8, L=256, V=128 on backend cuda.
+
+MESH: ``--devices D`` lays the slot pool out over the first D visible
+devices of ``--device`` (`launch.mesh.make_slot_mesh`): D cards, or with
+``--device cpu`` D logical host devices.  Each chunk launches once per
+device; results are bit-identical to one device.  More devices than are
+visible raise the reference's ``"D devices requested, n visible"``.
 
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve --smoke             # on the card
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.anneal_serve \
       --snapshot-dir snaps --snapshot-every 16 [--resume]
+  PYTHONPATH=src python -m repro_torch.launch.anneal_serve --device cpu --devices 4 \
+      --jobs 8 --slots 8 --chunk 4 --n 8 --L 16 --V 4
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.core import ising
+from repro_torch.launch.mesh import make_slot_mesh
 from repro_torch.runtime.ft import PreemptionHandler
 from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
 
@@ -169,11 +177,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="restore the newest valid snapshot from --snapshot-dir and "
                          "finish its recorded jobs instead of submitting a fresh mix")
-    # Not ported yet: accepted so that using it fails with a clear error.
-    ap.add_argument("--devices", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="lay the slot pool out over this many devices of --device "
+                         "(a ('data',) slot mesh); 0 = one device, no mesh. Results "
+                         "are bit-identical either way")
     args = ap.parse_args(argv)
-    if args.devices != ap.get_default("devices"):
-        raise ValueError("--devices is not ported to repro_torch yet")
     on_card = args.device.startswith("cuda")
     if args.backend is None:
         args.backend = "cuda" if on_card else "torch"
@@ -209,8 +217,9 @@ def main(argv=None) -> ServeReport:
         snap_dir = snap_tmp.name
     # SIGTERM -> graceful drain, while this call serves.
     preemption = PreemptionHandler() if snap_dir is not None else None
+    mesh = make_slot_mesh(args.devices, device=args.device) if args.devices > 0 else None
     try:
-        return _serve(args, snap_dir, preemption)
+        return _serve(args, snap_dir, preemption, mesh)
     finally:
         if preemption is not None:
             preemption.uninstall()
@@ -245,7 +254,7 @@ def _smoke_cycle(server, say, restore):
     return [by_jid[j] for j in sorted(by_jid)], server
 
 
-def _serve(args, snap_dir, preemption) -> ServeReport:
+def _serve(args, snap_dir, preemption, mesh) -> ServeReport:
     say = (lambda *a, **k: None) if args.quiet else print
 
     def restore():
@@ -253,6 +262,7 @@ def _serve(args, snap_dir, preemption) -> ServeReport:
             snap_dir,
             backend=args.backend,
             device=args.device,
+            mesh=mesh,
             snapshot_every_sweeps=args.snapshot_every or None,
             preemption=preemption,
         )
@@ -278,6 +288,7 @@ def _serve(args, snap_dir, preemption) -> ServeReport:
             V=args.V,
             device=args.device,
             policy=args.policy,
+            mesh=mesh,
             snapshot_manager=snap_dir,
             snapshot_every_sweeps=args.snapshot_every if snap_dir else 0,
             preemption=preemption,
@@ -286,10 +297,11 @@ def _serve(args, snap_dir, preemption) -> ServeReport:
         for job in jobs:
             server.submit(job)
         snp = f", snapshots every {args.snapshot_every} sweeps -> {snap_dir}" if snap_dir else ""
+        dev = f", mesh={args.devices} devices" if mesh is not None else ""
         say(
             f"serving {len(jobs)} jobs on {args.slots} slots (chunk={args.chunk} "
             f"sweeps, backend={args.backend}, device={args.device}, "
-            f"policy={args.policy}, model n={args.n} L={args.L} V={args.V}{snp})"
+            f"policy={args.policy}, model n={args.n} L={args.L} V={args.V}{dev}{snp})"
         )
     t0 = time.perf_counter()
     if args.smoke and not args.resume:
@@ -299,7 +311,8 @@ def _serve(args, snap_dir, preemption) -> ServeReport:
     if server.engine.device.type == "cuda":
         import torch
 
-        torch.cuda.synchronize(server.engine.device)
+        for dev in {str(d) for d in (server.engine.mesh or (server.engine.device,))}:
+            torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     if server.preempted:
         say(

@@ -8,11 +8,14 @@
     metrics    JSON snapshot + Prometheus text exposition of the registry.
     stream     opt-in per-chunk observable tap (energy / magnetization /
                best-so-far per active job).
+    skew       per-device launch-skew detection on mesh engines, over
+               runtime/ft.py's StragglerMonitor.
 
 Hard contract: observation never touches carries — telemetry-on runs are
 bit-identical to telemetry-off.
 """
 
+from repro_torch.obs.skew import LaunchSkewMonitor, SkewEvent
 from repro_torch.obs.stream import BestState, ChunkSample, ObservableStream
 from repro_torch.obs.telemetry import Counter, Gauge, Histogram, Telemetry
 from repro_torch.obs.trace import validate_events
@@ -23,7 +26,9 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "LaunchSkewMonitor",
     "ObservableStream",
+    "SkewEvent",
     "Telemetry",
     "validate_events",
 ]

@@ -1,2 +1,2 @@
 """Fault-tolerance runtime: `ft.PreemptionHandler` (SIGTERM -> graceful
-drain)."""
+drain) and `ft.StragglerMonitor` (EMA step-time anomalies)."""

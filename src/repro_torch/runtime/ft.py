@@ -1,16 +1,23 @@
-"""Fault-tolerance runtime: preemption handling.
+"""Fault-tolerance runtime: preemption handling and straggler detection.
 
 Preemption / planned maintenance — SIGTERM arrives with a grace window.
 ``PreemptionHandler`` flips a flag that the serving loop checks between
 chunks (`SampleServer.drain` with ``preemption=``); the server then
 finishes the chunk, writes a blocking snapshot and returns, and a later
 `SampleServer.restore` continues bit-exactly.
+
+Stragglers — ``StragglerMonitor`` is an EMA anomaly detector over one
+series of step (launch) times; `obs.skew.LaunchSkewMonitor` runs one per
+mesh device.  Detection only: mitigation is an orchestration action.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import signal
 import threading
+from typing import Optional
 
 
 class PreemptionHandler:
@@ -63,3 +70,43 @@ class PreemptionHandler:
     @property
     def should_exit(self) -> bool:
         return self._flag.is_set()
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """EMA-based step-time anomaly detector (the reference's, number for
+    number): after ``warmup_steps`` a time above ``mean +
+    threshold_sigma * sigma`` is flagged, sigma floored at 5% of the mean,
+    and a flagged time does not update the EMA."""
+
+    alpha: float = 0.1
+    threshold_sigma: float = 3.0
+    warmup_steps: int = 5
+
+    def __post_init__(self):
+        self.mean: Optional[float] = None
+        self.var: float = 0.0
+        self.count = 0
+        self.flagged: list = []
+
+    def record(self, step: int, seconds: float) -> bool:
+        """Returns True if this step is a straggler event."""
+        self.count += 1
+        if self.mean is None:
+            self.mean = seconds
+            return False
+        is_straggler = False
+        if self.count > self.warmup_steps:
+            # Relative floor on sigma: ordinary jitter (a few %) must never
+            # trip the detector, even when the EMA variance is tiny after a
+            # long stable run.
+            sigma = max(math.sqrt(self.var), 0.05 * self.mean, 1e-9)
+            if seconds > self.mean + self.threshold_sigma * sigma:
+                is_straggler = True
+                self.flagged.append((step, seconds, self.mean))
+        # EMA update (skipped on flagged steps, so they do not poison it).
+        if not is_straggler:
+            delta = seconds - self.mean
+            self.mean += self.alpha * delta
+            self.var = (1 - self.alpha) * (self.var + self.alpha * delta * delta)
+        return is_straggler

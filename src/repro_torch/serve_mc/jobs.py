@@ -393,7 +393,7 @@ class PTJob(_ScheduledJob):
         self.swap_rng = mt19937.mt_init(self.seed + 17, "cpu")
         self.swap_accept = torch.zeros((), dtype=torch.int32)
         self.swap_propose = torch.zeros((), dtype=torch.int32)
-        self._energy_tables = None  # built on first swap for a private model
+        self._energy_tables = {}  # device -> a private model's tables, built on first swap
 
     def snapshot_state(self) -> tuple[dict, dict]:
         """The reference's layout: the swap generator's state as uint32 at
@@ -452,37 +452,62 @@ class PTJob(_ScheduledJob):
         ]
 
     def _gather_state(self, eng, carry, slots) -> tempering.PTState:
-        """The ladder's replicas, in replica order, out of the shared carry."""
-        idx = torch.as_tensor(np.asarray(slots, np.int64), device=carry.spins.device)
+        """The ladder's replicas, in replica order, out of the shared carry
+        (on a mesh, out of the one device block that holds them all), with
+        the swap generator and counters moved to that block's device."""
+        block = eng.slot_row(carry, slots[0])[0]
+        self._to_device(block.spins.device)
+        rows = [eng.slot_row(carry, b)[1] for b in slots]
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=block.spins.device)
         lanes = eng._slot_lanes()
         cols = (idx[:, None] * lanes + torch.arange(lanes, device=idx.device)).reshape(-1)
         return tempering.PTState(
-            carry.spins[idx],
-            carry.h_space[idx],
-            carry.h_tau[idx],
-            carry.betas[idx],
-            carry.rng[:, cols],
+            block.spins[idx],
+            block.h_space[idx],
+            block.h_tau[idx],
+            block.betas[idx],
+            block.rng[:, cols],
             swap_rng=self.swap_rng,
             swap_accept=self.swap_accept,
             swap_propose=self.swap_propose,
         )
 
-    def _swap_energy_tables(self, eng):
-        """Energy tables of the job's model: the engine's when the job has
-        none, else built once per job from the private model."""
+    def _swap_energy_tables(self, eng, device):
+        """Energy tables of the job's model on ``device``: the engine's when
+        the job has none, else built once per job from the private model."""
         if self.model is None:
-            return tempering.energy_tables(eng)
-        if self._energy_tables is None:
-            self._energy_tables = tempering.model_energy_tables(self.model, eng.device)
-        return self._energy_tables
+            return eng.energy_tables_on(device)
+        key = str(device)
+        if key not in self._energy_tables:
+            self._energy_tables[key] = tempering.model_energy_tables(self.model, device)
+        return self._energy_tables[key]
 
     def on_segment(self, server, carry, slots):
         eng = server.engine
         parity = (self._seg - 1) % 2  # the round just completed: the standalone r % 2
-        self._to_device(eng.device)
+        # A ladder whose slots span devices gathers only its R energies and
+        # betas (`slot_energies`: each device evaluates its own slots) and
+        # decides with the same `_swap_decide` as the resident path, so the
+        # route is invisible in the results.  A ladder on one device (what
+        # affine placement produces) takes the resident path.
+        spans = eng.mesh is not None and len({eng.slot_device(b) for b in slots}) > 1
+        if eng.mesh is not None:
+            (server._c_swap_cross if spans else server._c_swap_local).add(1)
+        if spans:
+            self._to_device(eng.device)
+            idx = torch.as_tensor(np.asarray(slots, np.int64), device=eng.device)
+            betas = eng.gather_betas(carry, slots)
+            betas, self.swap_rng, self.swap_accept, self.swap_propose = (
+                tempering.swap_phase_from_energies(
+                    betas, eng.slot_energies(carry)[idx], self.swap_rng, self.swap_accept,
+                    self.swap_propose, parity, eng.exp_flavor,
+                )
+            )
+            return eng.set_slot_betas(carry, slots, betas)
+        state = self._gather_state(eng, carry, slots)
         state = tempering.swap_phase(
-            self._gather_state(eng, carry, slots),
-            *self._swap_energy_tables(eng),
+            state,
+            *self._swap_energy_tables(eng, state.spins.device),
             parity,
             eng.model.n,
             eng.exp_flavor,
@@ -497,7 +522,7 @@ class PTJob(_ScheduledJob):
         spins = np.stack(
             [eng.spins_flat(eng.extract_slot(server.carry, b))[0] for b in slots]
         )
-        betas = server.carry.betas[list(slots)].cpu().numpy()
+        betas = eng.gather_betas(server.carry, slots).cpu().numpy()
         return JobResult(
             jid=self.jid,
             spins=spins,

@@ -49,13 +49,25 @@ at admission, so one launch sweeps each slot with its own model
 (``backend="cuda"``: the multi-tenant kernels).  A model-less job resets
 its slot to the server's model, so a retired tenant's tables never leak.
 
-The port serves on one device, on every rung: "a4" and "cb" on both
-backends, the paper's slower rungs a1-a3 (one model) on
-``backend="torch"`` only; every exp flavour ("fast", "accurate",
-"exact") on every backend.  Anneal jobs and parallel-tempering jobs
-(`PTJob`, R slots each) share the launches.  Device meshes
-(``mesh``/``capacities``) are not ported yet and raise ValueError naming
-themselves.
+The server runs every rung: "a4" and "cb" on both backends, the paper's
+slower rungs a1-a3 (one model) on ``backend="torch"`` only; every exp
+flavour ("fast", "accurate", "exact") on every backend.  Anneal jobs and
+parallel-tempering jobs (`PTJob`, R slots each) share the launches.
+
+MESH: ``mesh=`` (a `launch.mesh.SlotMesh`) lays the slot pool out over D
+devices (``capacities=[...]`` per device, default the equal split) and
+every chunk launches once per device.  The `SlotPool` keeps a free list
+per device; ``placement="affine"`` (the default) packs a multi-slot job
+onto one device when any has room and falls back to a spanning placement,
+a chunk-boundary rebalancer migrates single slots (park + resume) to
+clear a device for a queued ladder, and a PT ladder that spans devices
+swaps from gathered energies (`SweepEngine.slot_energies`).  With
+telemetry on, each launch's per-device ready times feed a
+`obs.LaunchSkewMonitor` (``serve.straggler_events``, ``engine.straggler``
+events).  Placement changes which device a slot sits on, never what a
+job computes: D devices, any capacities, affine or flat, give the
+results of one device bit for bit, and every placement decision is the
+reference's.
 
 OBSERVATION: ``stream=`` attaches an `obs.ObservableStream`, an opt-in
 per-chunk energy/magnetization/best-so-far tap over the active jobs (one
@@ -91,8 +103,8 @@ import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import ising
-from repro_torch.core.engine import SweepEngine
-from repro_torch.obs import Telemetry
+from repro_torch.core.engine import SweepEngine, normalize_capacities
+from repro_torch.obs import LaunchSkewMonitor, Telemetry
 
 from repro_torch.serve_mc.jobs import JobResult
 
@@ -115,46 +127,113 @@ def _job_cost(job) -> int:
 
 
 class SlotPool:
-    """The server's free slots as one sorted list.
+    """Free lists keyed by DEVICE over the global slot index space.
 
-    Allocation takes the lowest free indices (the port serves one device,
-    so there is no placement to choose).  Every transition is guarded:
-    releasing a slot that is already free, or taking one that is not,
-    raises instead of silently double-booking a launch.
+    The mesh lays the slots out as contiguous per-device blocks
+    (`SweepEngine`'s mesh mode), so global slot ``b`` lives on the device
+    whose capacity bracket holds it — a pure function of the index, which
+    is what lets the scheduler name locality.  The pool keeps one SORTED
+    free list per device and guards every transition: releasing a slot
+    that is already free, or taking one that is not, raises instead of
+    silently double-booking a launch.
+
+    ``mode`` picks the allocation discipline:
+
+    * ``"affine"`` (the default) packs a multi-slot job onto ONE device
+      whenever any device has room — best-fit over the per-device free
+      counts, so narrow jobs fill the emptiest-fitting device last and a
+      wide ladder keeps finding whole devices — and falls back to a
+      SPANNING placement (fewest devices, most-free first) only when
+      fragmentation forces it.  Placement never changes results (slot
+      state is slot-private); it changes which PT swap phases stay on the
+      in-device fast path.
+    * ``"flat"`` takes the lowest global indices first, devices ignored.
+
+    With ``devices == 1`` the two modes coincide.  Every decision is the
+    JAX reference's, call for call.
     """
 
-    def __init__(self, slots: int):
+    def __init__(
+        self,
+        slots: int,
+        devices: int = 1,
+        mode: str = "affine",
+        capacities=None,
+    ):
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if mode not in ("affine", "flat"):
+            raise ValueError(
+                f"placement mode must be 'affine' or 'flat', got {mode!r}"
+            )
         self.slots = int(slots)
-        self._free: list[int] = list(range(self.slots))
+        self.devices = int(devices)
+        # One validation path with the engine: the equal split (which must
+        # divide evenly) when capacities is None, else the explicit vector.
+        self.capacities = normalize_capacities(self.devices, self.slots, capacities)
+        # Largest per-device block: the bound on how wide a job can be
+        # placed without spanning (planner gates check W <= cap).
+        self.cap = max(self.capacities)
+        self.mode = mode
+        self._cum = [0]
+        for c in self.capacities:
+            self._cum.append(self._cum[-1] + c)
+        self._free: list[list[int]] = [
+            list(range(self._cum[d], self._cum[d + 1]))
+            for d in range(self.devices)
+        ]
+
+    def device_of(self, b: int) -> int:
+        """Device owning global slot ``b``: the prefix-sum bracket of the
+        capacity vector (with equal capacities, ``b // (B/D)``)."""
+        return bisect.bisect_right(self._cum, int(b)) - 1
+
+    def _rel_free(self, d: int) -> float:
+        """Free fraction of device ``d`` (0.0 for a zero-capacity device).
+
+        Tie-break currency on heterogeneous pools: comparing absolute
+        free counts would treat "2 of 8 free" as fuller than "1 of 1
+        free"; relative capacity ranks devices by how full they really
+        are.  On equal-capacity pools every comparison below reduces to
+        the absolute-count order (same denominator).
+        """
+        c = self.capacities[d]
+        return len(self._free[d]) / c if c else 0.0
 
     @property
     def total_free(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    def free_by_device(self) -> list[int]:
+        return [len(f) for f in self._free]
+
+    def free_on(self, d: int) -> list[int]:
+        return list(self._free[d])
 
     def flat_free(self) -> list[int]:
-        """The free slots as one sorted list (the snapshot format)."""
-        return list(self._free)
-
-    def restore_free(self, flat) -> None:
-        """Reset the free list from a snapshot's (guarded like `release`)."""
-        self._free = []
-        self.release_all(int(b) for b in flat)
+        """All free slots as one sorted global list (snapshot format)."""
+        return [b for f in self._free for b in f]
 
     def clone(self) -> "SlotPool":
         out = SlotPool.__new__(SlotPool)
-        out.slots, out._free = self.slots, list(self._free)
+        out.slots, out.devices = self.slots, self.devices
+        out.cap, out.mode = self.cap, self.mode
+        out.capacities, out._cum = self.capacities, list(self._cum)
+        out._free = [list(f) for f in self._free]
         return out
 
     def release(self, b: int) -> None:
-        """Return one slot to the free list (sorted insert); raises on
-        double-free."""
+        """Return one slot to its device's free list (sorted insert);
+        raises on double-free — a slot on a free list twice silently
+        double-books a later launch, the bug class this pool closes."""
         b = int(b)
         if not 0 <= b < self.slots:
             raise ValueError(f"slot {b} outside pool of {self.slots}")
-        i = bisect.bisect_left(self._free, b)
-        if i < len(self._free) and self._free[i] == b:
+        f = self._free[self.device_of(b)]
+        i = bisect.bisect_left(f, b)
+        if i < len(f) and f[i] == b:
             raise RuntimeError(f"slot {b} released twice (double-free)")
-        self._free.insert(i, b)
+        f.insert(i, b)
 
     def release_all(self, slots) -> None:
         for b in slots:
@@ -164,35 +243,88 @@ class SlotPool:
         """Claim specific slots; raises if any is not currently free."""
         for b in slots:
             b = int(b)
-            i = bisect.bisect_left(self._free, b)
-            if i >= len(self._free) or self._free[i] != b:
+            f = self._free[self.device_of(b)]
+            i = bisect.bisect_left(f, b)
+            if i >= len(f) or f[i] != b:
                 raise RuntimeError(
                     f"slot {b} is not free (placement double-books slots)"
                 )
-            del self._free[i]
+            del f[i]
 
-    def alloc(self, n: int) -> tuple[int, ...]:
-        """Allocate the ``n`` lowest free slots."""
+    def _take_lowest(self, d: int, n: int) -> list[int]:
+        taken, self._free[d] = self._free[d][:n], self._free[d][n:]
+        return taken
+
+    def alloc(self, n: int, avoid: int | None = None) -> tuple[int, ...]:
+        """Allocate ``n`` slots under the pool's placement mode.
+
+        ``avoid`` (affine mode) steers the placement off one device —
+        other devices are preferred at every stage — but is a preference,
+        not a guarantee: callers enforcing a hard budget on the avoided
+        device count the returned slots themselves.
+        """
         if n < 1:
             raise ValueError(f"alloc needs n >= 1, got {n}")
         if n > self.total_free:
             raise RuntimeError(
                 f"alloc({n}) with only {self.total_free} slots free"
             )
-        taken, self._free = self._free[:n], self._free[n:]
+        if self.mode == "flat":
+            # Lowest global indices, devices ignored.
+            taken: list[int] = []
+            for d in range(self.devices):
+                take = min(n - len(taken), len(self._free[d]))
+                taken.extend(self._take_lowest(d, take))
+                if len(taken) == n:
+                    break
+            return tuple(taken)
+        # Device-affine: best-fit device (smallest RELATIVE free fraction
+        # that still fits, then fewest absolute free, ties to the lowest
+        # index) keeps the emptiest devices whole for wide ladders across
+        # uneven capacity vectors; `avoid` is considered only when
+        # nothing else fits.
+        fits = [d for d in range(self.devices) if len(self._free[d]) >= n]
+        pick = [d for d in fits if d != avoid] or fits
+        if pick:
+            d = min(pick, key=lambda d: (self._rel_free(d), len(self._free[d]), d))
+            return tuple(self._take_lowest(d, n))
+        # Spanning fallback: fragmentation forces a cross-device placement;
+        # take from the relatively-emptiest devices first so the job
+        # straddles as few devices as possible (the avoided device
+        # contributes last).
+        order = sorted(
+            (d for d in range(self.devices) if self._free[d]),
+            key=lambda d: (d == avoid, -self._rel_free(d), -len(self._free[d]), d),
+        )
+        taken = []
+        for d in order:
+            take = min(n - len(taken), len(self._free[d]))
+            taken.extend(self._take_lowest(d, take))
+            if len(taken) == n:
+                break
         return tuple(taken)
+
+    def restore_free(self, flat) -> None:
+        """Reset the free lists from a flat global list (snapshot restore:
+        the per-device keying is recomputed for THIS pool's device count,
+        which is how a D=4 snapshot restores onto D=1 and vice versa)."""
+        for f in self._free:
+            f.clear()
+        self.release_all(int(b) for b in flat)
 
 
 class PlacementPlanner(int):
     """The free-pool view handed to `AdmissionPolicy.plan`.
 
     Subclasses ``int`` (its value is the free-slot count), so custom
-    policies that treat ``free`` as a count keep working and may return
-    bare jobs — the server then places them itself.  Built-in policies
-    use the placement API instead: `alloc` simulates a placement against
-    a PRIVATE clone of the server's pool (the real pool mutates only when
-    the server executes the plan) and `release_job` models a planned
-    preemption.
+    policies that treat ``free`` as the
+    free-slot count (compare, subtract) keep working and may keep
+    returning bare jobs — the server then places them itself.  Built-in
+    policies use the placement API instead: `alloc`/`putback` simulate
+    placements against a PRIVATE clone of the server's pool (the real
+    pool mutates only when the server executes the plan), `release_job`
+    models a planned preemption, and `slots_of` exposes where each active
+    job sits so reservations can count freed slots per device.
     """
 
     def __new__(cls, pool: SlotPool, held: dict | None = None):
@@ -202,14 +334,60 @@ class PlacementPlanner(int):
         self._pool = pool.clone()
         self._held = dict(held or {})  # id(job) -> slots tuple
 
+    @classmethod
+    def from_counts(cls, free: int, active=()) -> "PlacementPlanner":
+        """A single-device planner synthesized from bare counts — the
+        adapter behind direct ``plan(free_count, active)`` calls."""
+        active = list(active)
+        total = int(free) + sum(j.num_slots for j in active)
+        pool = SlotPool(max(total, 1), devices=1)
+        if total == 0:
+            pool.take((0,))  # the padding slot is not actually free
+        held, nxt = {}, int(free)
+        for j in active:
+            slots = tuple(range(nxt, nxt + j.num_slots))
+            pool.take(slots)
+            held[id(j)] = slots
+            nxt += j.num_slots
+        return cls(pool, held)
+
+    @property
+    def devices(self) -> int:
+        return self._pool.devices
+
+    @property
+    def mode(self) -> str:
+        return self._pool.mode
+
+    @property
+    def cap(self) -> int:
+        return self._pool.cap
+
+    @property
+    def capacities(self) -> tuple:
+        return self._pool.capacities
+
     @property
     def total_free(self) -> int:
         return self._pool.total_free
 
-    def alloc(self, job) -> tuple[int, ...]:
-        slots = self._pool.alloc(job.num_slots)
+    def free_by_device(self) -> list[int]:
+        return self._pool.free_by_device()
+
+    def device_of(self, b: int) -> int:
+        return self._pool.device_of(b)
+
+    def slots_of(self, job) -> tuple:
+        return self._held.get(id(job), ())
+
+    def alloc(self, job, avoid: int | None = None) -> tuple[int, ...]:
+        slots = self._pool.alloc(job.num_slots, avoid=avoid)
         self._held[id(job)] = slots
         return slots
+
+    def putback(self, job) -> None:
+        """Undo a simulated `alloc` (the candidate was rejected)."""
+        self._pool.release_all(self._held.pop(id(job), ()))
 
     def release_job(self, job) -> tuple:
         """Model a planned preemption: the victim's slots free up."""
@@ -258,11 +436,17 @@ class AdmissionPolicy:
     def jobs(self) -> list:
         return list(self._queued)
 
-    def plan(self, free: PlacementPlanner, active: list) -> tuple[list, list]:
+    def plan(self, free, active: list) -> tuple[list, list]:
+        planner = free if isinstance(free, PlacementPlanner) else None
+        n_free = int(free)
         admit = []
-        while self._queued and self._queued[0].num_slots <= free.total_free:
+        while self._queued and self._queued[0].num_slots <= n_free:
             job = self._queued.pop(0)
-            admit.append((job, free.alloc(job)))
+            n_free -= job.num_slots
+            if planner is not None:
+                admit.append((job, planner.alloc(job)))
+            else:
+                admit.append(job)  # a bare-count call: the server places it
         return [], admit
 
 
@@ -455,12 +639,83 @@ class PriorityBackfillPolicy(AdmissionPolicy):
                 got -= v.num_slots
         return take
 
-    def plan(self, planner: PlacementPlanner, active: list) -> tuple[list, list]:
+    def _reservation_placed(self, job, planner, running) -> tuple:
+        """(start, spare, d_star, spare_dev) for a blocked ``job``.
+
+        ``start``/``spare`` are the exact GLOBAL accounting of
+        `_reservation`.  When the pool spans devices and the job fits on
+        one (W <= slots-per-device), the reservation additionally pins
+        ``d_star`` — the device provably able to host the job WHOLE at
+        ``start`` (free slots now plus slots its running jobs retire by
+        then) — and ``spare_dev``, d_star's start-time surplus beyond W.
+        Condition-(b) backfill must keep that surplus intact: counting
+        freed slots only globally lets a narrow admit occupy d_star past
+        ``start`` and silently demote the wide job's single-device start
+        to a spanning one.
+        """
+        start, spare = self._reservation(job, planner.total_free, running)
+        d_star = spare_dev = None
+        W = job.num_slots
+        # Per-device protection only matters when placement is affine:
+        # a flat pool ignores devices, so guarding one would change
+        # admission timing for nothing in return.
+        if (
+            planner.devices > 1
+            and planner.mode == "affine"
+            and W <= planner.cap
+        ):
+            avail = planner.free_by_device()
+            for j in running:
+                if j.total_remaining() <= start:
+                    for b in planner.slots_of(j):
+                        avail[planner.device_of(b)] += 1
+            # Only devices that can hold W at all are candidates (an
+            # uneven pool may have devices smaller than the job); rank
+            # by RELATIVE projected availability so a half-empty small
+            # device does not outbid a nearly-empty big one.
+            caps = planner.capacities
+            feas = [d for d in range(planner.devices) if caps[d] >= W]
+            if feas:
+                best = max(
+                    feas, key=lambda d: (avail[d] / caps[d], avail[d], -d)
+                )
+                if avail[best] >= W:
+                    d_star, spare_dev = best, avail[best] - W
+        return start, spare, d_star, spare_dev
+
+    def _pick_victims(self, job, running: list, free: int) -> list | None:
+        """Lowest-priority active jobs to evict so ``job`` fits, or None
+        if even evicting every lower-priority job would not suffice."""
+        need = job.num_slots - free
+        cands = sorted(
+            (v for v in running if v.priority < job.priority),
+            key=lambda v: (v.priority, -v.num_slots, v.jid),
+        )
+        take: list = []
+        got = 0
+        for v in cands:
+            take.append(v)
+            got += v.num_slots
+            if got >= need:
+                break
+        if got < need:
+            return None
+        # Trim overshoot: drop any victim whose slots we don't need
+        # (smallest first), so preemption evicts the minimum set.
+        for v in sorted(take, key=lambda v: (v.num_slots, -v.priority)):
+            if got - v.num_slots >= need:
+                take.remove(v)
+                got -= v.num_slots
+        return take
+
+    def plan(self, free, active: list) -> tuple[list, list]:
+        bare = not isinstance(free, PlacementPlanner)  # a custom policy's count
+        planner = PlacementPlanner.from_counts(free, active) if bare else free
         preempt: list = []
         admit: list = []  # (job, slots) pairs
         running = list(active)  # original actives + planned admissions
         originals = set(id(j) for j in active)
-        reservation = None  # (start, spare) of the blocked job
+        reservation = None  # (start, spare, d_star, spare_dev) of the blocked job
         for job in self._order():
             n = job.num_slots
             if reservation is None:
@@ -487,22 +742,34 @@ class PriorityBackfillPolicy(AdmissionPolicy):
                         continue
                 if not self.backfill:
                     break
-                reservation = self._reservation(job, planner.total_free, running)
+                reservation = self._reservation_placed(job, planner, running)
                 continue
             # Backfill under the reservation: exact no-delay accounting.
-            start, spare = reservation
+            start, spare, d_star, spare_dev = reservation
             if n <= planner.total_free and job.total_remaining() <= start:
-                # Retires before the reserved start: its slots are back
-                # by then, so it cannot erode the reservation.
+                # Retires before the reserved start: its slots (wherever
+                # placed) are back by then, so it cannot erode the
+                # reservation globally OR on d_star.
                 admit.append((job, planner.alloc(job)))
                 self._charge(job)
                 running.append(job)
             elif n <= planner.total_free and n <= spare:
-                # Fits the slots the reserved job spares at its start.
-                admit.append((job, planner.alloc(job)))
+                # Fits the slots the reserved job spares — but only if it
+                # also leaves d_star's start-time surplus intact, else a
+                # narrow admit would force the wide job to span devices.
+                slots = planner.alloc(job, avoid=d_star)
+                if d_star is not None:
+                    on_star = sum(
+                        1 for b in slots if planner.device_of(b) == d_star
+                    )
+                    if on_star > spare_dev:
+                        planner.putback(job)
+                        continue
+                    spare_dev -= on_star
+                admit.append((job, slots))
                 self._charge(job)
                 running.append(job)
-                reservation = (start, spare - n)
+                reservation = (start, spare - n, d_star, spare_dev)
         for job, _ in admit:
             self._queued.remove(job)
         for job in preempt:
@@ -510,6 +777,8 @@ class PriorityBackfillPolicy(AdmissionPolicy):
             # submission seq, so they re-sort ahead of later arrivals of
             # the same priority/user and resume as soon as slots free up.
             self.enqueue(job)
+        if bare:
+            return preempt, [job for job, _ in admit]
         return preempt, admit
 
 
@@ -613,11 +882,6 @@ class AdaptiveChunker:
             self.per_sweep_ewma += self.alpha * (per_sweep - self.per_sweep_ewma)
 
 
-#: ServeConfig fields naming features that are not ported yet, with the
-#: value that means "off".
-_UNPORTED = {"mesh": None, "capacities": None}
-
-
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Every `SampleServer` construction knob as one value object.
@@ -629,10 +893,10 @@ class ServeConfig:
     ``device="cuda"``; pass ``backend="torch", device="cpu"`` (any V) for
     the plain version on the CPU.  ``multi_tenant=True`` admits jobs that
     carry their own model.  ``replica_tile`` goes to the engine
-    (`SweepEngine.create`; backend "cuda" only).  ``placement`` is the
-    reference's slot-placement mode, "affine" or "flat": on the one device
-    this port serves on, both place alike.  ``mesh`` and ``capacities``
-    name features that are not ported yet; setting one raises ValueError.
+    (`SweepEngine.create`; backend "cuda" only).  ``mesh`` (a
+    `launch.mesh.SlotMesh` on ``device``'s type) and ``capacities`` lay the
+    slots out over several devices; ``placement`` is the slot-placement
+    mode, "affine" or "flat" (alike on one device).
     ``stream``, ``snapshot_manager``, ``snapshot_every_sweeps`` and
     ``preemption`` arm observation and recovery (module docstring).
     """
@@ -683,9 +947,6 @@ class SampleServer:
             cfg = dataclasses.replace(config, **kwargs)
         else:
             cfg = config
-        for name, off in _UNPORTED.items():
-            if getattr(cfg, name) != off:
-                raise ValueError(f"{name} is not ported to repro_torch yet")
         if cfg.placement not in ("affine", "flat"):
             raise ValueError(
                 f"placement mode must be 'affine' or 'flat', got {cfg.placement!r}"
@@ -714,6 +975,8 @@ class SampleServer:
             exp_flavor=cfg.exp_flavor,
             device=cfg.device,
             replica_tile=cfg.replica_tile,
+            mesh=cfg.mesh,
+            capacities=cfg.capacities,
         )
         # Idle slots hold (and keep sweeping) this placeholder state until
         # a job is spliced over it.
@@ -740,11 +1003,26 @@ class SampleServer:
         self._c_preempt = tel.counter("serve.preemptions")
         self._c_submitted = tel.counter("serve.jobs_submitted")
         self._c_completed = tel.counter("serve.jobs_completed")
+        self._c_straggler = tel.counter("serve.straggler_events")
         self._h_wait = tel.histogram("serve.queue_wait_s")
+        # Placement decisions and PT swap routing: affine = all of a job's
+        # slots on one device; swap_local = a ladder's swap phase gathered
+        # its replicas on one device.
+        self._c_place_affine = tel.counter("sched.placements_affine")
+        self._c_place_span = tel.counter("sched.placements_spanning")
+        self._c_migrations = tel.counter("sched.rebalance_migrations")
+        self._c_swap_local = tel.counter("pt.swap_local")
+        self._c_swap_cross = tel.counter("pt.swap_cross")
         # Chunk sizes already launched: the first launch at a size pays
         # one-time set-up, and its trace event says so (compile=True).
         self._warm_chunks: set[int] = set()
-        self._pool = SlotPool(self.slots)
+        self.devices = len(self.engine.mesh) if self.engine.mesh is not None else 1
+        # Free lists keyed by device over the mesh's per-device blocks.
+        self._pool = SlotPool(
+            self.slots, devices=self.devices, mode=cfg.placement,
+            capacities=self.engine.capacities,
+        )
+        self._skew = LaunchSkewMonitor(self.devices) if self.devices > 1 else None
         # Queue-wait samples (user, priority, wait_s, wait_sweeps), taken
         # at FIRST admission; bounded so a resident server never grows it
         # without limit.
@@ -854,6 +1132,8 @@ class SampleServer:
         server executes (park preempted jobs, place admitted ones)."""
         # Refresh the policy's sweep clock first: priority aging reads it.
         self.policy.clock = self.sweeps_elapsed
+        if self._pool.mode == "affine" and self.devices > 1:
+            self._rebalance()
         planner = PlacementPlanner(
             self._pool,
             {id(j): slots for j, slots in self._active.values()},
@@ -902,6 +1182,14 @@ class SampleServer:
         else:
             taken = tuple(int(b) for b in placement)
             self._pool.take(taken)  # raises if the plan double-booked a slot
+        devs = sorted({self._pool.device_of(b) for b in taken})
+        if self.devices > 1:
+            affine = len(devs) == 1
+            (self._c_place_affine if affine else self._c_place_span).add(1)
+            self.telemetry.instant(
+                "sched.placement", jid=job.jid, slots=list(taken), devices=devs,
+                affine=affine, mode=self._pool.mode,
+            )
         if job.parked is not None:
             model = job.model_on(self) if self.multi_tenant else None
             for b, parked in zip(taken, job.parked):
@@ -932,6 +1220,98 @@ class SampleServer:
                 sweeps_done=job.sweeps_done,
             )
         self._active[job.jid] = (job, taken)
+
+    def _rebalance(self) -> None:
+        """Chunk-boundary defragmentation (affine mode, ``devices > 1``).
+
+        When a queued multi-slot job would fit one device (W no wider
+        than the largest per-device capacity) and fits the pool
+        globally, but fragmentation leaves no single device with W free,
+        migrate active slots OFF the relatively-most-free device that
+        can hold W until it can host the job whole.  Each migration is a
+        park+resume pair (slot state is position- and device-independent),
+        so rebalancing changes placement, never results.  Invariants: the
+        total free count is unchanged (one release per alloc); migrations
+        happen only at the chunk boundary (the same safety point as
+        preemption); a migrated slot never lands back on the target
+        device (the loop stops if fragmentation leaves nowhere else).
+        """
+        pool = self._pool
+        target = None
+        for job in self.policy.jobs():
+            W = job.num_slots
+            if (
+                1 < W <= pool.cap
+                and W <= pool.total_free
+                and max(pool.free_by_device()) < W
+            ):
+                target = job
+                break
+        if target is None:
+            return
+        free_by = pool.free_by_device()
+        caps = pool.capacities
+        # Migration target: relatively-emptiest device big enough to
+        # host the job whole (absolute free, then lowest index, as ties).
+        feas = [d for d in range(self.devices) if caps[d] >= target.num_slots]
+        if not feas:
+            return
+        d_t = max(
+            feas,
+            key=lambda d: (
+                free_by[d] / caps[d] if caps[d] else 0.0,
+                free_by[d],
+                -d,
+            ),
+        )
+        need = target.num_slots - free_by[d_t]
+        if need > pool.total_free - free_by[d_t]:
+            return  # nowhere else to absorb the displaced slots
+        # Occupied slots on the target device, preferring single-slot
+        # jobs (moving one rung of a resident ladder would split it) and
+        # higher indices (displaced state re-packs lowest-first).
+        occupants = []
+        for jid, (job, slots) in self._active.items():
+            for i, b in enumerate(slots):
+                if pool.device_of(b) == d_t:
+                    occupants.append((job.num_slots != 1, -b, jid, i, b))
+        occupants.sort()
+        moved = 0
+        for _, _, jid, i, b_src in occupants:
+            if moved >= need:
+                break
+            job, slots = self._active[jid]
+            (b_dst,) = pool.alloc(1, avoid=d_t)
+            if pool.device_of(b_dst) == d_t:
+                pool.release(b_dst)  # only d_t itself had room: stop
+                break
+            parked = self.engine.slot(b_src).park(self.carry)
+            model = job.model_on(self) if self.multi_tenant else None
+            self.carry = self.engine.slot(b_dst).resume(
+                self.carry, parked, model=model
+            )
+            new_slots = list(slots)
+            new_slots[i] = b_dst
+            self._active[jid] = (job, tuple(new_slots))
+            pool.release(b_src)
+            moved += 1
+            self._c_migrations.add(1)
+            self.telemetry.async_instant(
+                "job",
+                jid,
+                phase="migrate",
+                src=int(b_src),
+                dst=int(b_dst),
+                reason=f"defrag_device_{d_t}",
+            )
+        if moved:
+            self.telemetry.instant(
+                "sched.rebalance",
+                device=d_t,
+                migrated=moved,
+                for_jid=target.jid,
+                free_by_device=pool.free_by_device(),
+            )
 
     def arm_profiler(self, logdir: str, num_chunks: int = 4) -> None:
         """Arm a `torch.profiler` window (CPU + CUDA activities) around the
@@ -1002,13 +1382,28 @@ class SampleServer:
                 self._stop_profiler()
 
     def _record_launch(self, chunk: int, pending) -> None:
+        """On a mesh with telemetry on, the launch's per-device ready times
+        (`SweepEngine.device_ready_times`) feed the skew monitor, so one
+        straggling device is flagged, not averaged into the wall time."""
         t0, warm = pending
-        if self.engine.device.type == "cuda":
-            torch.cuda.synchronize(self.engine.device)
-        dt = time.perf_counter() - t0
+        tel = self.telemetry
+        if self._skew is not None and tel.enabled:
+            times = self.engine.device_ready_times(self.carry, t0)
+            dt = float(times.max())
+            flagged = self._skew.record(times)
+            if flagged:
+                self._c_straggler.add(len(flagged))
+                tel.instant(
+                    "engine.straggler", cat="engine", devices=flagged,
+                    times_s=[float(t) for t in times],
+                )
+        else:
+            if self.engine.device.type == "cuda":
+                for dev in sorted({str(d) for d in (self.engine.mesh or [self.engine.device])}):
+                    torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
         if self._chunker is not None:
             self._chunker.observe(chunk, dt)
-        tel = self.telemetry
         tel.histogram("serve.launch_s", phase="steady" if warm else "compile").observe(dt)
         tel.complete(
             "engine.launch",
@@ -1016,7 +1411,7 @@ class SampleServer:
             cat="engine",
             chunk=chunk,
             jobs=len(self._active),
-            devices=1,
+            devices=self.devices,
             compile=not warm,
         )
 
@@ -1032,6 +1427,9 @@ class SampleServer:
             tel.gauge("serve.active_jobs").set(len(self._active))
             tel.gauge("serve.queued_jobs").set(len(self.policy))
             tel.gauge("serve.free_slots").set(self._pool.total_free)
+            if self.devices > 1:
+                for d, nfree in enumerate(self._pool.free_by_device()):
+                    tel.gauge("serve.free_slots_dev", device=d).set(nfree)
             if not self._active:
                 return []
             bound = min(j.remaining_in_segment() for j, _ in self._active.values())
@@ -1209,9 +1607,23 @@ class SampleServer:
                 "by_priority": {p: self._wait_summary(w) for p, w in by_priority.items()},
             },
             "queue_wait_recent": self._wait_recent_summary(),
+            # Placement health: admissions that landed on one device vs
+            # spanning, rebalancer migrations, and which PT swap path ran.
+            "placement": {
+                "mode": self._pool.mode,
+                "devices": self.devices,
+                "free_by_device": self._pool.free_by_device(),
+                "affine": self._c_place_affine.value,
+                "spanning": self._c_place_span.value,
+                "rebalance_migrations": self._c_migrations.value,
+                "pt_swap_local": self._c_swap_local.value,
+                "pt_swap_cross": self._c_swap_cross.value,
+            },
             "telemetry": {
                 "enabled": self.telemetry.enabled,
                 "events_recorded": self.telemetry.num_events,
                 "events_dropped": self.telemetry.dropped_events,
+                "straggler_events": self._c_straggler.value,
+                "devices": self.devices,
             },
         }

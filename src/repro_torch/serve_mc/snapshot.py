@@ -28,10 +28,12 @@ write saves this boundary's state however far the server has stepped on.
 
 The layout is the JAX reference package's, name for name and key for key
 (``SNAPSHOT_VERSION`` 1): a JAX server's snapshot restores here and a
-port server's in the reference.  Keys the port has no state for hold its
-one-device values (``devices`` 1, ``capacities`` null, ``interpret``
-false, one ``free_by_device`` entry, 0 for the mesh's counters).  The
-recorded backend is the writer's ("jnp"/"pallas" from the reference,
+port server's in the reference.  The pool is stored in LOGICAL layout and
+the free list flat, so a snapshot taken on D devices under one capacity
+vector restores onto any other device count or vector (``mesh=``,
+``capacities=`` on restore); ``devices``, ``capacities`` and
+``free_by_device`` record the writer's layout, for information.  The
+port's ``interpret`` is always false.  The recorded backend is the writer's ("jnp"/"pallas" from the reference,
 "torch"/"cuda" from the port); `restore_server` refuses one this package
 does not have, and a "torch" snapshot restored on the card, unless
 ``backend=`` names the one to use.
@@ -198,16 +200,20 @@ def snapshot_state(server) -> tuple[dict, dict]:
             "replica_tile": eng.replica_tile,
             "multi_tenant": server.multi_tenant,
             "wait_window": server._wait_recent.maxlen,
-            "devices": 1,
-            "placement": server.config.placement,
-            "capacities": None,
+            "devices": server.devices,
+            "placement": server._pool.mode,
+            # The capacity vector the snapshot was taken under (None for the
+            # equal split); informational: the pool is in logical layout.
+            "capacities": (
+                list(server.config.capacities) if server.config.capacities is not None else None
+            ),
             "snapshot_every_sweeps": server.snapshot_every_sweeps,
         },
         "model": model_meta,
         "policy": _policy_state(server.policy),
         "jobs": jobs_meta,
         "free": free,
-        "free_by_device": [len(free)],
+        "free_by_device": server._pool.free_by_device(),  # informational
         "next_jid": server._next_jid,
         "counters": {
             "launches": server.launches,
@@ -217,14 +223,12 @@ def snapshot_state(server) -> tuple[dict, dict]:
             "preemptions": server.preemptions,
             "submitted": server._c_submitted.value,
             "completed": server._c_completed.value,
-            # One device: no launch skew, no placement choice, no
-            # rebalancing, and every ladder's swap is local.
-            "straggler": 0,
-            "placements_affine": 0,
-            "placements_spanning": 0,
-            "rebalance_migrations": 0,
-            "pt_swap_local": 0,
-            "pt_swap_cross": 0,
+            "straggler": server._c_straggler.value,
+            "placements_affine": server._c_place_affine.value,
+            "placements_spanning": server._c_place_span.value,
+            "rebalance_migrations": server._c_migrations.value,
+            "pt_swap_local": server._c_swap_local.value,
+            "pt_swap_cross": server._c_swap_cross.value,
         },
         "launch_chunks": {str(k): int(v) for k, v in server.launch_chunks.items()},
         "chunker": chunker,
@@ -290,18 +294,17 @@ def restore_server(
     parameters; ``backend`` must be given when the recorded one is not
     this package's ("jnp"/"pallas" from the JAX reference), and when a
     snapshot of the plain backend ("torch") is restored on the card, so
-    the plain version never runs there unasked.  ``mesh`` and
-    ``capacities`` are not ported and raise ValueError naming themselves.
-    By default periodic snapshots continue into ``source`` at the recorded
+    the plain version never runs there unasked.  ``mesh`` (a `SlotMesh` on
+    ``device``'s type) and ``capacities`` lay the restored pool out over
+    devices; the recorded ones are informational and never reapplied (the
+    restoring mesh may have another device count), so the default is one
+    device.  By default periodic snapshots continue into ``source`` at the recorded
     cadence; pass ``snapshot_manager``/``snapshot_every_sweeps`` to
     redirect or disable them.
     """
     from repro_torch.serve_mc.jobs import AnnealJob, PTJob
     from repro_torch.serve_mc.scheduler import AdaptiveChunker, SampleServer
 
-    for name, value in (("mesh", mesh), ("capacities", capacities)):
-        if value is not None:
-            raise ValueError(f"{name} is not ported to repro_torch yet")
     mgr = source if isinstance(source, CheckpointManager) else CheckpointManager(str(source))
     if step is None:
         step, arrays, extra = mgr.restore_latest_named()
@@ -369,6 +372,8 @@ def restore_server(
             else snapshot_every_sweeps
         ),
         preemption=preemption,
+        mesh=mesh,
+        capacities=capacities,
     )
 
     tables = _sub_arrays(arrays, "tables") or None
@@ -409,6 +414,12 @@ def restore_server(
     server._c_preempt.add(c["preemptions"])
     server._c_submitted.add(c["submitted"])
     server._c_completed.add(c["completed"])
+    server._c_straggler.add(c.get("straggler", 0))
+    server._c_place_affine.add(c.get("placements_affine", 0))
+    server._c_place_span.add(c.get("placements_spanning", 0))
+    server._c_migrations.add(c.get("rebalance_migrations", 0))
+    server._c_swap_local.add(c.get("pt_swap_local", 0))
+    server._c_swap_cross.add(c.get("pt_swap_cross", 0))
     for chunk, v in extra["launch_chunks"].items():
         server.telemetry.counter("serve.launches_by_chunk", chunk=int(chunk)).add(int(v))
     server._wait_records.extend(tuple(r) for r in extra["wait_records"])
@@ -418,7 +429,7 @@ def restore_server(
     server.telemetry.instant(
         "snapshot.restore",
         step=step,
-        devices=1,
+        devices=server.devices,
         saved_devices=cfg["devices"],
         queued=len(server.policy),
         active=len(server._active),

@@ -233,8 +233,8 @@ def _model():
         (dict(backend="jnp"), "unknown backend"),
         (dict(backend="cuda", exp_flavor="zz", V=128, device="cuda"), "unknown exp flavour 'zz'"),
         (dict(backend="torch", replica_tile=1), "replica_tile"),
-        (dict(backend="torch", mesh=object()), "mesh"),
-        (dict(backend="torch", capacities=[1]), "mesh"),
+        (dict(backend="torch", mesh=object()), 'engine meshes need a "data" axis'),
+        (dict(backend="torch", capacities=[1]), "capacities need a mesh-sharded engine"),
         (dict(backend="torch", batch=0), "batch"),
         (dict(backend="cuda", V=128), "CUDA device"),
         (dict(backend="cuda", V=4, device="cuda"), "V=128"),
@@ -246,7 +246,9 @@ def test_engine_rejects_unported_modes(kwargs, match):
     """Modes the port does not run raise ValueError naming themselves: the
     "cuda" backend refuses the rungs its kernels do not compute (id "a3");
     an unknown exp flavour is refused on any rung and backend (ids "a1",
-    "exp": the kernels take every known flavour)."""
+    "exp": the kernels take every known flavour).  A mesh that is not one
+    and capacities without a mesh raise the reference's messages (ids
+    "mesh", "capacities": the mesh itself is ported, tests/test_torch_mesh.py)."""
     kw = dict(V=4, device="cpu")
     kw.update(kwargs)
     with pytest.raises(ValueError, match=match):
@@ -279,13 +281,19 @@ def test_engine_rejects_model_lists_slots_and_slot_models():
 
 
 def test_unported_serving_features_raise(tmp_path):
-    """Only the device mesh is not ported: ``mesh`` and ``capacities`` raise
-    naming themselves, on the server and on a restore; ``replica_tile`` is
-    refused on the plain backend, a snapshot without a manager and an
-    empty profiler window are refused."""
+    """Misused serving knobs raise: a ``mesh`` that is not one and
+    ``capacities`` without a mesh raise the reference's messages, on the
+    server and on a restore (the mesh itself is served,
+    tests/test_torch_mesh_serve.py); ``replica_tile`` is refused on the
+    plain backend, a snapshot without a manager and an empty profiler
+    window are refused."""
     m = _model()
-    for field, value in [("mesh", object()), ("capacities", (4,)), ("replica_tile", 1)]:
-        with pytest.raises(ValueError, match=field):
+    for field, value, match in [
+        ("mesh", object(), 'engine meshes need a "data" axis'),
+        ("capacities", (4,), r"capacities need a mesh-sharded engine \(mesh=\.\.\.\)"),
+        ("replica_tile", 1, "replica_tile"),
+    ]:
+        with pytest.raises(ValueError, match=match):
             SampleServer(m, slots=2, backend="torch", V=4, device="cpu", **{field: value})
     server = SampleServer(m, slots=2, backend="torch", V=4, device="cpu")
     with pytest.raises(ValueError, match="num_chunks"):
@@ -293,8 +301,9 @@ def test_unported_serving_features_raise(tmp_path):
     with pytest.raises(ValueError, match="no snapshot manager"):
         server.snapshot()
     server.snapshot(str(tmp_path))
-    for field in ("mesh", "capacities"):
-        with pytest.raises(ValueError, match=f"{field} is not ported"):
+    for field, match in (("mesh", 'engine meshes need a "data" axis'),
+                         ("capacities", "capacities need a mesh-sharded engine")):
+        with pytest.raises(ValueError, match=match):
             SampleServer.restore(str(tmp_path), device="cpu", **{field: (1,)})
     with pytest.raises(ValueError, match="cuda"):
         SampleServer(m, slots=2, V=128, device="cpu")  # default backend is the kernel

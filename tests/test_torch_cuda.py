@@ -598,3 +598,65 @@ def test_cpu_snapshot_restores_on_the_card(tmp_path):
     for jid, r in got.items():
         np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")
     np.testing.assert_array_equal(got_rng, rng)
+
+
+@pytest.mark.parametrize("caps", [None, (4, 2, 1, 1), (3, 3, 2, 0)], ids=["d4", "ragged", "zero"])
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_mesh_of_logical_devices_on_the_card_equals_one_device(rung, multi, caps):
+    """Four logical devices of the card (a block and a stream each) equal
+    one device bit for bit through the kernels, a park on one device and a
+    resume on another included; a device of capacity 0 launches nothing."""
+    _need_card()
+    from repro_torch.launch.mesh import SlotMesh
+
+    m = ising.random_layered_model(n=8, L=256, seed=3, beta=1.0)
+    models = [ising.reseed_couplings(m, seed=k) for k in range(8)]
+
+    def make(**kw):
+        if multi:
+            return engine.SweepEngine.create(models, rung=rung, **kw)
+        return engine.SweepEngine.create(m, rung=rung, batch=8, **kw)
+
+    def drive(eng):
+        c = eng.run(eng.init_carry(seed=2), 5)
+        c = eng.slot(1).resume(c, eng.slot(6).park(c))
+        c = eng.set_slot_betas(c, [2, 7], [0.5, 1.5])
+        return eng.extract_pool(eng.run(c, 3))
+
+    kernel = {("cb", False): "colored_multisweep", ("cb", True): "colored_multisweep_multi",
+              ("a4", False): "metropolis_multisweep",
+              ("a4", True): "metropolis_multisweep_multi"}[rung, multi]
+    want = drive(make())
+    four = make(mesh=SlotMesh(["cuda:0"] * 4), capacities=caps)
+    before = ops.launches[kernel]
+    got = drive(four)
+    assert ops.launches[kernel] - before == 2 * sum(1 for c in four.capacities if c)
+    for a, b in zip(got.carry, want.carry):
+        np.testing.assert_array_equal(a, b)
+    for k in want.tables or ():
+        np.testing.assert_array_equal(got.tables[k], want.tables[k])
+
+
+def test_mesh_server_on_the_card_equals_one_device():
+    """A served drain with a PT ladder over four logical devices of the
+    card, affine and flat, equals one device job for job."""
+    _need_card()
+    from repro_torch.launch.mesh import SlotMesh
+
+    m = ising.random_layered_model(n=8, L=256, seed=5, beta=1.0)
+
+    def serve(**kw):
+        srv = SampleServer(m, slots=8, chunk_sweeps=4, policy="fifo", **kw)
+        for s, b in [(10, 8), (11, 12), (12, 4), (13, 16)]:
+            srv.submit(AnnealJob.constant(seed=s, sweeps=b, beta=1.0))
+        srv.submit(PTJob(seed=3, betas=np.linspace(0.5, 1.5, 3).astype(np.float32),
+                         num_rounds=3, sweeps_per_round=4))
+        return {r.jid: r for r in srv.drain()}
+
+    want = serve()
+    for placement in ("affine", "flat"):
+        got = serve(mesh=SlotMesh(["cuda:0"] * 4), capacities=(4, 2, 1, 1), placement=placement)
+        assert sorted(got) == sorted(want)
+        for jid, r in got.items():
+            np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")

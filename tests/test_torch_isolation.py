@@ -56,3 +56,14 @@ def test_no_source_imports_jax_or_reference():
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_the_walk_reaches_the_examples_and_the_mesh_modules():
+    """The two tests above walk every module under `repro_torch`: the
+    examples package and the slot-mesh modules are among them."""
+    rel = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for name in ("examples/__init__.py", "examples/quickstart.py",
+                 "examples/parallel_tempering.py", "examples/annealing_service.py",
+                 "examples/quantum_annealing.py", "launch/mesh.py", "obs/skew.py",
+                 "core/qmc.py", "runtime/ft.py"):
+        assert name in rel, name

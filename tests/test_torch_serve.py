@@ -16,6 +16,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import ising as jis
 from repro.launch import anneal_serve as jas
@@ -183,10 +184,16 @@ def test_cli_serves_on_cpu(tmp_path, capsys, rung):
     validate_events(json.loads(trace.read_text())["traceEvents"])
 
 
-@pytest.mark.parametrize("flag", [["--devices", "4"]], ids=["devices"])
+@pytest.mark.parametrize("flag", [["--devices", "3"]], ids=["devices"])
 def test_cli_rejects_unported_flags(flag):
-    with pytest.raises(ValueError, match=f"{flag[0]} is not ported"):
+    """``--devices`` is served (tests/test_torch_mesh_serve.py); its misuse
+    raises the reference's messages: 8 slots do not split over 3 devices,
+    and the card refuses more devices than it can see."""
+    with pytest.raises(ValueError, match="batch 8 must divide evenly over 3 devices"):
         anneal_serve.main(["--device", "cpu", "--V", "4", "--L", "16"] + flag)
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"{n + 1} devices requested, {n} visible"):
+        anneal_serve.main(["--V", "4", "--L", "16", "--devices", str(n + 1)])
 
 
 def test_cli_smoke_on_the_cpu_equals_the_references(tmp_path, capsys):

@@ -486,10 +486,15 @@ def test_restore_refuses_a_plain_snapshot_on_the_card_unless_asked(tmp_path):
 
 @pytest.mark.parametrize("name", ["mesh", "capacities"])
 def test_restore_and_server_refuse_a_mesh(tmp_path, name):
+    """A restore lays the pool out over any mesh (tests/test_torch_mesh_serve.py);
+    what is refused is a ``mesh`` that is not one and ``capacities``
+    without a mesh, with the reference's messages."""
     _one_snapshot(tmp_path)
-    with pytest.raises(ValueError, match=f"{name} is not ported"):
+    match = {"mesh": 'engine meshes need a "data" axis',
+             "capacities": "capacities need a mesh-sharded engine"}[name]
+    with pytest.raises(ValueError, match=match):
         SampleServer.restore(str(tmp_path), device="cpu", **{name: (1,)})
-    with pytest.raises(ValueError, match=f"{name} is not ported"):
+    with pytest.raises(ValueError, match=match):
         _port_server(**{name: (1,)})
 
 
