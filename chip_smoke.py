@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA device; ~6 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --profile  # also trace the serving runs (torch.profiler)
+    python3 chip_smoke.py --profile  # also trace the serving runs and LM decode steps (torch.profiler)
 
 (``--kill-worker DIR`` is the SIGKILL child of phase 6c: the script runs
 itself with it; it serves, snapshots into DIR and kills itself.)
@@ -162,6 +162,26 @@ its final ok line; no phase catches an exception):
      rungs a3 (n=96, L=256, B=1; bit-equal to the a4 engine through kernel
      #3 from the same seed), a1 and a2 (a1 == a2 under "fast"; a2 on the
      card == a2 on the CPU); their times are those of eager plain loops.
+  10. the LM server (no kernel of its own: the LM has no TPU kernel, its
+     products and elementwise ops are plain PyTorch on the card): a.
+     gemma-2b at full width (18 layers, d_model 2048, 8 heads / 1 KV head
+     of 256, d_ff 16384, vocab 256000; 2,506,172,416 parameters, the
+     config's 2,506,096,640 and the norms' 75,776, initialised from a
+     seeded generator on the card): one float32 prefill of 8 tokens
+     on the card against the same weights on the CPU within ROADMAP §3w's
+     bound (`LM_F32_LOGITS`), and in float32 a prefill of 8 tokens and 8
+     decode steps against teacher forcing (one forward pass) within the
+     reference's 0.06; the served bfloat16 model's forward and decode
+     against the float32 forward, printed (bfloat16 drifts past 0.06 at 18
+     layers, the reference's too: ROADMAP §3w); `ServeEngine` with the CLI's defaults (8
+     requests, 4 slots, prompts of 8, 16 new tokens, max_len 128), every
+     request served its 16 tokens; b. qwen2.5-14b, deepseek-coder-33b,
+     command-r-35b and internvl2-26b at full width and 2 layers, one at a
+     time: a prefill and 8 decode steps against teacher forcing; c. CUDA-
+     event times of a prefill (B=4, 8 tokens) and of a decode step (B=4)
+     with the decode step's bytes bound (the held weights once a step at
+     3.35 TB/s), the served drain's tokens/s (host clock), the peak memory
+     while serving.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` (#1-#4 also carry ``recovery_launches``, their
@@ -194,6 +214,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.ising_qmc import CONFIG as PAPER  # noqa: E402  (after the path)
+
 #: Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 #: 67 TFLOP/s float32 outside the tensor cores.  That rate counts a fused
 #: multiply-add as two operations (132 SMs x 128 float32 lanes x 2 at the
@@ -206,12 +228,14 @@ FP32_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
 SMS = 132
 
-MAIN_N, MAIN_L, MAIN_SLOTS, MAIN_CHUNK = 96, 256, 8, 8
-LANES, MT_N = 128, 624
+#: The paper's shape (configs/ising_qmc.py): 96 spins x 256 layers a model,
+#: 115 models, 128 lanes.
+MAIN_N, MAIN_L, MAIN_SLOTS, MAIN_CHUNK = PAPER.spins_per_layer, PAPER.num_layers, 8, 8
+LANES, MT_N = PAPER.lanes, 624
 
 #: Exp kernel sizes: 2^20, one sweep's exps at the paper's shape (115
 #: models x 24,576 spins), 2^26.
-FASTEXP_MAIN = 115 * 96 * 256
+FASTEXP_MAIN = PAPER.total_spins
 FASTEXP_SIZES = (2**20, FASTEXP_MAIN, 2**26)
 #: The paper's §2.4 valid range of "accurate", and its error envelopes.
 ACCURATE_LO, ACCURATE_HI = -31.5 * np.log(2.0), 32.0 * np.log(2.0)
@@ -269,7 +293,7 @@ A4_CHECKS = (
 #: Generator columns #6 is held bit-equal at (a partial tile, odd and
 #: even counts, B=8 and B=115 lanes), one block and `MT_CHAINED` chained
 #: blocks, both flavours.
-MT_CHECK_V = (1, 31, 33, 200, 1024, 115 * LANES)
+MT_CHECK_V = (1, 31, 33, 200, 1024, PAPER.num_models * LANES)
 MT_CHAINED = 5
 #: Shapes where replica tiles > 1 fit: (n, L, B, sweeps); rows 32 and 64.
 A4_TILE_CHECKS = ((16, MAIN_L, MAIN_SLOTS, 5), (32, MAIN_L, MAIN_SLOTS, 3))
@@ -288,7 +312,7 @@ FLAVOUR_CHECKS = (
 #: width; rounds and sweeps a round of `run_parallel_tempering`; the served
 #: ladder's server: slots, anneal jobs beside it, a chunk that does not
 #: divide the sweeps of a round (rounds split across chunks).
-PT_R, PT_BETA_MIN, PT_BETA_MAX = 115, 0.1, 3.0
+PT_R, PT_BETA_MIN, PT_BETA_MAX = PAPER.num_models, PAPER.beta_min, PAPER.beta_max
 PT_ROUNDS, PT_SWEEPS = 32, 8
 PT_SLOTS, PT_ANNEAL_JOBS, PT_CHUNK = 128, 8, 3
 #: Rounds of the multi-tenant ladder and of the CLI's.
@@ -2361,6 +2385,234 @@ def examples_phase() -> dict:
     return launches
 
 
+# -- the LM server (phase 10) ----------------------------------------------------
+
+#: The served arch at full width, and the CLI's defaults (launch/serve.py):
+#: requests, slots, prompt tokens, new tokens, max_len.
+LM_ARCH = "gemma-2b"
+LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_MAX_NEW, LM_MAX_LEN = 8, 4, 8, 16, 128
+#: The other dense configs, at full width and this many layers (depth cut
+#: to fit the phase's time), and their decode steps after an 8-token prefill.
+LM_OTHER = ("qwen2.5-14b", "deepseek-coder-33b", "command-r-35b", "internvl2-26b")
+LM_OTHER_LAYERS, LM_DECODE_STEPS = 2, 8
+#: Bounds on the scaled error max|a - b| / max|a|: the card's float32
+#: prefill against the CPU's (ROADMAP §3w, tests/test_torch_lm_trap.py
+#: F32_LOGITS), and decode against teacher forcing (the reference's bound,
+#: tests/test_archs.py:90).
+LM_F32_LOGITS = 2.0**-13
+LM_TEACHER_FORCING = 0.06
+
+
+def scaled_error(want: torch.Tensor, got: torch.Tensor) -> float:
+    want, got = want.double().cpu(), got.double().cpu()
+    return float((want - got).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def lm_tokens(cfg, batch: int, length: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length)).astype(np.int32))
+
+
+def lm_model(cfg, dev, seed: int = 0):
+    """The port's init of ``cfg`` from a seeded generator on the card."""
+    from repro_torch.models import decoder
+
+    return decoder.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+
+
+def lm_teacher_forcing(cfg, model, batch: int, what: str) -> float:
+    """A prefill of 8 tokens and `LM_DECODE_STEPS` decode steps against one
+    forward pass of all 16; returns the largest scaled error."""
+    from repro_torch.models import decoder
+
+    dev = next(model.parameters()).device
+    toks = lm_tokens(cfg, batch, 8 + LM_DECODE_STEPS, seed=1).to(dev)
+    with torch.inference_mode():
+        lg_tf, _ = decoder.apply(model, toks, cfg)
+        lg, caches, n = decoder.prefill(model, toks[:, :8], cfg, max_len=8 + LM_DECODE_STEPS)
+        errs = [scaled_error(lg_tf[:, :8], lg)]
+        for t in range(n, 8 + LM_DECODE_STEPS):
+            lg, caches = decoder.decode_step(model, toks[:, t:t + 1], caches, t, cfg)
+            errs.append(scaled_error(lg_tf[:, t], lg[:, 0]))
+    if not all(np.isfinite(errs)) or max(errs) >= LM_TEACHER_FORCING:
+        raise AssertionError(f"{what}: prefill/decode vs teacher forcing {errs}")
+    return max(errs)
+
+
+def lm_float32_checks(dev) -> tuple[float, float]:
+    """gemma-2b at full width in float32: prefill and decode against
+    teacher forcing on the card (bound 0.06), then one prefill on the card
+    against the same weights' prefill on the CPU (bound `LM_F32_LOGITS`).
+    Returns the two scaled errors."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    model = lm_model(cfg, dev)
+    toks = lm_tokens(cfg, 1, LM_PROMPT, seed=2)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products, not TF32
+    try:
+        tf_err = lm_teacher_forcing(cfg, model, LM_SLOTS, f"{LM_ARCH} float32")
+        with torch.inference_mode():
+            card = decoder.prefill(model, toks.to(dev), cfg, max_len=LM_PROMPT)[0].cpu()
+        model.to("cpu")
+        with torch.inference_mode():
+            cpu = decoder.prefill(model, toks, cfg, max_len=LM_PROMPT)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del model
+    torch.cuda.empty_cache()
+    err = scaled_error(cpu, card)
+    if not torch.isfinite(card).all() or err > LM_F32_LOGITS:
+        raise AssertionError(f"float32 prefill, card vs CPU: scaled error {err} > {LM_F32_LOGITS}")
+    return tf_err, err
+
+
+def lm_bf16_drift(cfg, model, dev) -> tuple[float, float]:
+    """The served bfloat16 model's teacher forcing and decode against
+    the float32 teacher forcing of the same weights (ROADMAP §3w: at 18
+    layers bfloat16 itself drifts past 0.06, the reference's too); printed,
+    not a check.  Returns (bf16 forward vs float32, bf16 decode vs float32)."""
+    import dataclasses
+
+    from repro_torch.models import decoder
+
+    steps = 8 + LM_DECODE_STEPS
+    toks = lm_tokens(cfg, LM_SLOTS, steps, seed=1).to(dev)
+    with torch.inference_mode():
+        tf_bf16, _ = decoder.apply(model, toks, cfg)
+        lg, caches, n = decoder.prefill(model, toks[:, :8], cfg, max_len=steps)
+        dec = [decoder.decode_step(model, toks[:, t:t + 1], caches, t, cfg)[0][:, 0]
+               for t in range(n, steps)]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = lm_model(cfg32, dev)
+    with torch.inference_mode():
+        tf32 = decoder.apply(m32, toks, cfg32)[0][:, n:]
+    del m32
+    torch.cuda.empty_cache()
+    return scaled_error(tf32, tf_bf16[:, n:]), scaled_error(tf32, torch.stack(dec, 1))
+
+
+def profile_lm(cfg, model, caches, cur_len: int, steps: int = 8) -> None:
+    """Trace ``steps`` decode steps (B = the caches' batch) with
+    torch.profiler: wall and device busy time a step, the device's kernels
+    a step, the top device ops (where a host-bound step's time goes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decoder
+
+    dev = caches.kv.k.device
+    token = torch.zeros((caches.kv.k.shape[1], 1), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        decoder.decode_step(model, token, caches, cur_len, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                decoder.decode_step(model, token, caches, cur_len, cfg)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # The device's own rows (kernels, copies): an aten op's row carries its
+    # kernels' time too, so summing every row would count it twice.
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    kernels = sum(e.count for e in rows) / steps
+    print(f"[lm profile] {cfg.name} decode step B={token.shape[0]} under the profiler: "
+          f"{wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of "
+          f"wall), {kernels:.0f} device activities a step; top:")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"[lm profile]   {e.self_device_time_total / 1e3 / steps:9.4f} ms a step  "
+              f"x{e.count // steps:4d}  {e.key[:70]}")
+
+
+def lm_phase(dev, smi: str, profile: bool = False) -> None:
+    """Phase 10: the LM server on the card.  a. gemma-2b at full width: in
+    float32, prefill and decode vs teacher forcing and the prefill card vs
+    CPU; the served (bfloat16) model's drift from the float32 forward,
+    printed; `ServeEngine` with the CLI's defaults, every request its
+    `LM_MAX_NEW` tokens.  b. the other dense configs at
+    full width and `LM_OTHER_LAYERS` layers, one at a time.  c. timings."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder
+    from repro_torch.nn.basic import FLOAT32_MODULES
+
+    t0 = time.perf_counter()
+    tf32_err, err32 = lm_float32_checks(dev)
+    print(f"[lm {LM_ARCH}] float32: prefill + {LM_DECODE_STEPS} decode steps vs teacher forcing "
+          f"on the card: scaled error {tf32_err:.3e} (bound {LM_TEACHER_FORCING}); prefill "
+          f"({LM_PROMPT} tokens), card vs CPU: {err32:.3e} (bound {LM_F32_LOGITS:.3e}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = get_config(LM_ARCH)
+    model = lm_model(cfg, dev).hold_compute_dtype()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    n_norm = sum(p.numel() for m in model.modules() if isinstance(m, FLOAT32_MODULES)
+                 for p in m.parameters())
+    if n_params - n_norm != cfg.num_params():  # the config's count leaves the norms out
+        raise AssertionError(f"{LM_ARCH}: {n_params} parameters, {n_norm} of them norms; "
+                             f"the config counts {cfg.num_params()}")
+    drift_tf, drift_dec = lm_bf16_drift(cfg, model, dev)
+    print(f"[lm {LM_ARCH}] {n_params:,} parameters ({cfg.dtype}, {weight_bytes:,} B held); "
+          f"against the float32 forward of the same weights: the bf16 forward {drift_tf:.4f}, "
+          f"bf16 prefill + decode {drift_dec:.4f} (ROADMAP §3w: bf16 drift at 18 layers)")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()  # the peak of serving, not of the float32 models
+    engine = serve.ServeEngine(cfg, model, LM_SLOTS, max_len=LM_MAX_LEN, seed=0, device=dev)
+    pending = serve.make_requests(cfg, LM_REQUESTS, LM_PROMPT, LM_MAX_NEW, seed=0)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    finished, steps = serve.drain(engine, pending)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    tokens = sum(len(r.out) for r in finished)
+    if len(finished) != LM_REQUESTS or any(len(r.out) != LM_MAX_NEW for r in finished):
+        raise AssertionError(f"served {[len(r.out) for r in finished]}, want {LM_MAX_NEW} each")
+    if not all(0 <= t < cfg.vocab_size for r in finished for t in r.out):
+        raise AssertionError("a served token is outside the vocabulary")
+    print(f"[lm serve] {LM_REQUESTS} requests on {LM_SLOTS} slots, {tokens} tokens in "
+          f"{serve_s:.3f} s ({steps} decode steps, {tokens / serve_s:.1f} tok/s); "
+          f"req 0: {finished[0].out[:8]}")
+
+    # c. timings: prefill (B=slots, prompt tokens) and a decode step (B=slots).
+    toks = lm_tokens(cfg, LM_SLOTS, LM_PROMPT, seed=3).to(dev)
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: decoder.prefill(model, toks, cfg, max_len=LM_MAX_LEN), 10)
+        _, caches, n = decoder.prefill(model, toks, cfg, max_len=LM_MAX_LEN)
+        step = toks[:, :1]
+        decode_ms = cuda_ms(lambda: decoder.decode_step(model, step, caches, n, cfg), 20)
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm time] {LM_ARCH} B={LM_SLOTS}: prefill of {LM_PROMPT} tokens {prefill_ms:.3f} ms; "
+          f"decode step {decode_ms:.3f} ms (bytes bound {bound_ms:.3f} ms: {weight_bytes:,} B "
+          f"of weights once a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {bound_ms / decode_ms:.3f} "
+          f"of it); served {tokens / serve_s:.1f} tok/s; peak memory {peak:,} B; {smi}")
+    if profile:
+        profile_lm(cfg, model, caches, n)
+    del model, engine, caches
+    torch.cuda.empty_cache()
+
+    for arch in LM_OTHER:
+        t1 = time.perf_counter()
+        ocfg = dataclasses.replace(get_config(arch), num_layers=LM_OTHER_LAYERS)
+        omodel = lm_model(ocfg, dev).hold_compute_dtype()
+        err = lm_teacher_forcing(ocfg, omodel, 2, arch)
+        del omodel
+        torch.cuda.empty_cache()
+        print(f"[lm {arch}] full width, {LM_OTHER_LAYERS} layers: prefill + {LM_DECODE_STEPS} "
+              f"decode steps vs teacher forcing: scaled error {err:.4f} in "
+              f"{time.perf_counter() - t1:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     if "--kill-worker" in argv:
         return kill_worker(argv[argv.index("--kill-worker") + 1])
@@ -2623,6 +2875,10 @@ def main(argv: list[str]) -> int:
     # -- 9. the ladder's slower rungs (plain version) --------------------------
     ladder(dev)
     end_phase("ladder")
+
+    # -- 10. the LM server ----------------------------------------------------
+    lm_phase(dev, smi, profile)
+    end_phase("LM server")
 
     if profile:
         profile_serve("cb")

@@ -89,3 +89,72 @@ def slot_tables_from_numpy(d: dict, device="cuda") -> dict:
     if missing:
         raise ValueError(f"slot tables miss {missing}")
     return {k: torch.from_numpy(np.array(d[k], np.float32)).to(device) for k in SLOT_TABLE_KEYS}
+
+
+# -- language-model weights ----------------------------------------------------------
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def lm_params_from_arrays(values: dict, cfg, device="cuda"):
+    """A `models.decoder.Decoder` for ``cfg`` holding ``values``: the
+    reference's value tree (``split_tree(init_params(key, cfg))[0]``) as
+    numpy arrays, its layer stack ``blocks`` sliced into the port's
+    ``ModuleList``.  Every name must match, shape for shape."""
+    from repro_torch.models import decoder
+
+    model = decoder.Decoder(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want = dict(model.named_parameters())
+    flat = {}
+    for name, arr in _flatten(values).items():
+        arr = np.asarray(arr, np.float32)
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            for layer in range(arr.shape[0]):
+                flat[f"blocks.{layer}.{rest}"] = arr[layer]
+        else:
+            flat[name] = arr
+    if set(flat) != set(want):
+        raise ValueError(f"parameter names differ: missing {sorted(set(want) - set(flat))}, "
+                         f"unknown {sorted(set(flat) - set(want))}")
+    with torch.no_grad():
+        for name, p in want.items():
+            if tuple(flat[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {flat[name].shape}, want {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(flat[name])))
+    return model.to(device)
+
+
+def lm_params_to_arrays(model) -> dict:
+    """The inverse of `lm_params_from_arrays`: the reference's value tree
+    (nested dicts of float32 numpy arrays, ``blocks`` stacked on a leading
+    layer axis)."""
+    tree: dict = {}
+    blocks: dict = {}
+    for name, p in model.named_parameters():
+        arr = host_copy(p.float())
+        if name.startswith("blocks."):
+            _, layer, rest = name.split(".", 2)
+            blocks.setdefault(rest, {})[int(layer)] = arr
+            continue
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    for rest, layers in blocks.items():
+        node = tree.setdefault("blocks", {})
+        *path, leaf = rest.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.stack([layers[i] for i in range(len(layers))])
+    return tree

@@ -122,13 +122,14 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
     return torch.reciprocal(torch.sqrt(v.double())).float()
 
 
-def fastexp_accurate(x: torch.Tensor) -> torch.Tensor:
+def fastexp_accurate(x: torch.Tensor, clamp: bool = True) -> torch.Tensor:
     """Accurate e^x approximation (paper's 11-cycle variant).
 
     The interpolant of ``2^(4y)`` plus a fourth root, with the paper's
     masking: exactly 0.0 for ``x < -31.5 ln 2`` and at least 1.0 for
     ``x > 0`` (so Metropolis accept tests always accept on negative
     energy deltas).  Relative error roughly within (-1%, +0.5%).
+    ``clamp=False`` skips both masks and returns the root itself.
     """
     x = flush_subnormal(x.to(torch.float32))  # a subnormal input is zero
     # Clip to the valid range; maximum/minimum keep a NaN.
@@ -139,6 +140,8 @@ def fastexp_accurate(x: torch.Tensor) -> torch.Tensor:
     f = _interpolant(xc * _f32_const(SCALE4_F32, x.device))
     # The fourth root, as two reciprocal square roots.
     r = _rsqrt(_rsqrt(f))
+    if not clamp:
+        return r
     r = torch.where(x < _f32_const(ACCURATE_LO_F32, x.device), torch.zeros_like(r), r)
     return torch.where(x > 0, torch.clamp(r, min=1.0), r)
 

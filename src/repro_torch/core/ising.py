@@ -39,6 +39,10 @@ class LayeredModel:
     def space_degree(self) -> int:
         return self.space_nbr.shape[1]
 
+    @property
+    def max_degree(self) -> int:
+        return self.space_degree + 2  # + two tau edges, as in the paper
+
 
 def random_layered_model(
     n: int,

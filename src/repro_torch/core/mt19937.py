@@ -110,9 +110,19 @@ def mt_twist(state: torch.Tensor) -> torch.Tensor:
     return from_u32(_twist_words(to_u32(state)))
 
 
-def mt_temper(state: torch.Tensor) -> torch.Tensor:
+def mt_temper(y: torch.Tensor) -> torch.Tensor:
     """MT19937 output tempering (pure elementwise ops), int32 storage."""
-    return from_u32(_temper_words(to_u32(state)))
+    return from_u32(_temper_words(to_u32(y)))
+
+
+def mt_next_block(state: torch.Tensor):
+    """Advance state and emit 624 tempered outputs per lane.
+
+    Returns ``(new_state, outputs)`` with shapes matching ``state``, both
+    int32 storage of uint32 bits.
+    """
+    w = _twist_words(to_u32(state))
+    return from_u32(w), from_u32(_temper_words(w))
 
 
 def uniforms_from_u32(u32: torch.Tensor) -> torch.Tensor:

@@ -660,3 +660,74 @@ def test_mesh_server_on_the_card_equals_one_device():
         assert sorted(got) == sorted(want)
         for jid, r in got.items():
             np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")
+
+
+# -- the LM server (chip_smoke.py phase 10's twins, at the smoke sizes) -------------
+
+LM_DENSE = ["qwen2.5-14b", "deepseek-coder-33b", "gemma-2b", "command-r-35b", "internvl2-26b"]
+
+
+def _lm(arch, dtype, device):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, decoder.init_params(gen, cfg, device=device)
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_decode_on_the_card_matches_teacher_forcing(arch):
+    """Prefill 8 tokens and decode 8 on the card, served dtype (bf16),
+    against one forward pass: the reference's bound of 0.06."""
+    _need_card()
+    from repro_torch.models import decoder
+    from test_torch_lm_trap import scaled_error
+
+    cfg, model = _lm(arch, "bfloat16", "cuda")
+    model.hold_compute_dtype()
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)).cuda()
+    with torch.inference_mode():
+        lg_tf, _ = decoder.apply(model, toks, cfg)
+        lg, caches, _ = decoder.prefill(model, toks[:, :8], cfg, max_len=16)
+        assert scaled_error(lg_tf[:, :8].float().cpu().numpy(), lg.float().cpu().numpy()) < 0.06
+        for t in range(8, 16):
+            lg, caches = decoder.decode_step(model, toks[:, t:t + 1], caches, t, cfg)
+            err = scaled_error(lg_tf[:, t].float().cpu().numpy(), lg[:, 0].float().cpu().numpy())
+            assert err < 0.06, (arch, t, err)
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_float32_prefill_on_the_card_equals_the_cpu(arch):
+    """The same weights' float32 prefill on the card and on the CPU, within
+    ROADMAP §3w's F32_LOGITS."""
+    _need_card()
+    from repro_torch.models import decoder
+    from test_torch_lm_trap import F32_LOGITS, scaled_error
+
+    cfg, model = _lm(arch, "float32", "cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12))
+                            .astype(np.int32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card = decoder.prefill(model, toks.cuda(), cfg, max_len=16)[0].cpu()
+        model.to("cpu")
+        with torch.inference_mode():
+            cpu = decoder.prefill(model, toks, cfg, max_len=16)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert scaled_error(cpu.numpy(), card.numpy()) <= F32_LOGITS
+
+
+def test_lm_server_cli_on_the_card(capsys):
+    _need_card()
+    from repro_torch.launch import serve
+
+    finished = serve.main(["--requests", "6", "--slots", "4", "--max-new", "10"])
+    assert len(finished) == 6 and all(len(r.out) == 10 for r in finished)
+    assert "served 6 requests, 60 tokens" in capsys.readouterr().out

@@ -60,10 +60,14 @@ def test_no_source_imports_jax_or_reference():
 
 def test_the_walk_reaches_the_examples_and_the_mesh_modules():
     """The two tests above walk every module under `repro_torch`: the
-    examples package and the slot-mesh modules are among them."""
+    examples package, the slot-mesh modules and the LM modules are among
+    them."""
     rel = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for name in ("examples/__init__.py", "examples/quickstart.py",
                  "examples/parallel_tempering.py", "examples/annealing_service.py",
                  "examples/quantum_annealing.py", "launch/mesh.py", "obs/skew.py",
-                 "core/qmc.py", "runtime/ft.py"):
+                 "core/qmc.py", "runtime/ft.py", "configs/registry.py", "configs/gemma_2b.py",
+                 "nn/param.py", "nn/basic.py", "nn/attention.py", "nn/moe.py",
+                 "sharding/ctx.py", "models/decoder.py", "launch/serve.py",
+                 "examples/serve_lm.py"):
         assert name in rel, name
