@@ -182,6 +182,32 @@ its final ok line; no phase catches an exception):
      with the decode step's bytes bound (the held weights once a step at
      3.35 TB/s), the served drain's tokens/s (host clock), the peak memory
      while serving.
+     10b. the other LM families (plain PyTorch on the card too; they launch
+     none of #1-#7, counts zeroed just before and read just after), one
+     model at a time, random weights from a seeded generator on the card:
+     a. zamba2-1.2b (Mamba2 with a shared attention block every 6 layers)
+     and rwkv6-1.6b at full width and depth (38 and 24 layers), the main
+     path of this phase: in float32, 16 decode steps from empty caches
+     against the card's teacher forcing within 0.06 and the card's forward
+     against the same weights' forward on the CPU within `LM_F32_LOGITS`
+     (TF32 off: `float32_products`); in bfloat16, served through
+     `ServeEngine` with phase 10's settings, every request its 16 tokens;
+     a decode step's CUDA-event time at B=4 against its bytes bound, the
+     drain's tokens/s, the peak memory; b. deepseek-v3-671b (its 3 dense
+     layers and its first MoE layer of 256 experts) and
+     llama4-scout-17b-a16e (2 layers) at full width, depth cut for memory:
+     in float32 a prefill of 8 tokens and up to 8 decode steps against
+     teacher forcing (B=1): capacity depends on the batch, so the steps
+     compared end before the first position whose (token, expert)
+     assignment teacher forcing dropped (`DropCount`; at least the
+     reference's 4; the prefill and decode steps drop none), then served
+     in bfloat16 as in a.; c.
+     whisper-tiny at full size (4 + 4 layers, 1500 frames from the seed),
+     float32: encode, `init_decode_caches` and 16 decode steps against
+     `encdec.apply`'s teacher forcing, and each of the three on the card
+     against the CPU; then served in bfloat16 as the server builds it (a
+     dense decoder, as the reference's decoder builds an encoder-decoder
+     config).  ``--profile`` adds `profile_lm` to each served model.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` (#1-#4 also carry ``recovery_launches``, their
@@ -1442,7 +1468,11 @@ def profile_serve(rung: str, multi: bool = False) -> None:
         else:
             seconds = anneal_serve.main(
                 SERVE_ARGS + ["--rung", rung, "--device", "cuda", "--backend", "cuda"]).seconds
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # The device's own rows (kernels, copies): an aten op's row carries its
+    # kernels' time too, so summing every row would count it twice.
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        raise AssertionError("the profiler recorded no device activity")
     total_us = sum(e.self_device_time_total for e in rows)
     ours = sum(e.self_device_time_total for e in rows if f"{kernel}_kernel" in e.key)
     wall_us = seconds * 1e6
@@ -2408,6 +2438,19 @@ def scaled_error(want: torch.Tensor, got: torch.Tensor) -> float:
     return float((want - got).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
+@contextlib.contextmanager
+def float32_products():
+    """Float32 products in float32, not TF32, while the gates run: the WKV
+    chunk scales k by exp(-cs), up to e^64, and amplifies any reduced-
+    precision product (ROADMAP §3y)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 def lm_tokens(cfg, batch: int, length: int, seed: int) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, length)).astype(np.int32))
@@ -2452,17 +2495,13 @@ def lm_float32_checks(dev) -> tuple[float, float]:
     cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
     model = lm_model(cfg, dev)
     toks = lm_tokens(cfg, 1, LM_PROMPT, seed=2)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products, not TF32
-    try:
+    with float32_products():
         tf_err = lm_teacher_forcing(cfg, model, LM_SLOTS, f"{LM_ARCH} float32")
         with torch.inference_mode():
             card = decoder.prefill(model, toks.to(dev), cfg, max_len=LM_PROMPT)[0].cpu()
         model.to("cpu")
         with torch.inference_mode():
             cpu = decoder.prefill(model, toks, cfg, max_len=LM_PROMPT)[0]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     del model
     torch.cuda.empty_cache()
     err = scaled_error(cpu, card)
@@ -2496,16 +2535,16 @@ def lm_bf16_drift(cfg, model, dev) -> tuple[float, float]:
     return scaled_error(tf32, tf_bf16[:, n:]), scaled_error(tf32, torch.stack(dec, 1))
 
 
-def profile_lm(cfg, model, caches, cur_len: int, steps: int = 8) -> None:
-    """Trace ``steps`` decode steps (B = the caches' batch) with
+def profile_lm(cfg, model, caches, cur_len: int, batch: int, steps: int = 8) -> None:
+    """Trace ``steps`` decode steps (B = ``batch``, the caches') with
     torch.profiler: wall and device busy time a step, the device's kernels
     a step, the top device ops (where a host-bound step's time goes)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import decoder
 
-    dev = caches.kv.k.device
-    token = torch.zeros((caches.kv.k.shape[1], 1), dtype=torch.int32, device=dev)
+    dev = next(model.parameters()).device
+    token = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
     with torch.inference_mode():
         decoder.decode_step(model, token, caches, cur_len, cfg)
         torch.cuda.synchronize()
@@ -2597,7 +2636,7 @@ def lm_phase(dev, smi: str, profile: bool = False) -> None:
           f"of weights once a step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {bound_ms / decode_ms:.3f} "
           f"of it); served {tokens / serve_s:.1f} tok/s; peak memory {peak:,} B; {smi}")
     if profile:
-        profile_lm(cfg, model, caches, n)
+        profile_lm(cfg, model, caches, n, LM_SLOTS)
     del model, engine, caches
     torch.cuda.empty_cache()
 
@@ -2611,6 +2650,259 @@ def lm_phase(dev, smi: str, profile: bool = False) -> None:
         print(f"[lm {arch}] full width, {LM_OTHER_LAYERS} layers: prefill + {LM_DECODE_STEPS} "
               f"decode steps vs teacher forcing: scaled error {err:.4f} in "
               f"{time.perf_counter() - t1:.1f} s")
+
+
+# -- the other LM families (phase 10b) --------------------------------------------
+
+#: Served at full width and full depth (this slice's main path).
+LM_FAMILIES_FULL = ("zamba2-1.2b", "rwkv6-1.6b")
+#: At full width, depth cut for memory: arch -> layers (deepseek-v3: its 3
+#: dense layers and its first MoE layer of 256 experts).
+LM_FAMILIES_CUT = {"deepseek-v3-671b": 4, "llama4-scout-17b-a16e": 2}
+#: The encoder-decoder at full size, and the frames it encodes.
+LM_ENCDEC = "whisper-tiny"
+LM_FAMILY_STEPS = 16
+
+
+class DropCount:
+    """Counts the (token, expert) assignments that capacity drops in a
+    model's MoE layers (`moe.dropped_pairs` on each layer's input), and
+    the first sequence position of a token that lost one, until `close`.
+    Capacity depends on the whole batch, so teacher forcing may drop what a
+    decode step keeps (ROADMAP §3z); a drop at position p changes no
+    position before it (causal attention, per-token experts)."""
+
+    def __init__(self, model):
+        from repro_torch.nn import moe
+
+        self.reset()
+        self.handles = [m.register_forward_pre_hook(self._hook) for m in model.modules()
+                        if isinstance(m, moe.MoE)]
+
+    def reset(self) -> None:
+        self.dropped, self.calls, self.first = 0, 0, None
+
+    def _hook(self, m, args):
+        from repro_torch.nn import moe
+
+        x = args[0]
+        pairs = moe.dropped_pairs(m.tree(), x.reshape(-1, x.shape[-1]), m.cfg)
+        self.calls += 1
+        if len(pairs):
+            self.dropped += len(pairs)
+            first = int((pairs[:, 0] % x.shape[1]).min())
+            self.first = first if self.first is None else min(self.first, first)
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+def family_float32_full(arch: str, dev) -> tuple[float, float]:
+    """zamba2 / rwkv6 at full width and depth in float32: `LM_FAMILY_STEPS`
+    decode steps on the card against the card's teacher forcing (bound
+    0.06), and the card's forward against the same weights' forward on the
+    CPU (bound `LM_F32_LOGITS`).  Returns the two scaled errors."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    model = lm_model(cfg, dev)
+    toks = lm_tokens(cfg, 2, LM_FAMILY_STEPS, seed=1)
+    with float32_products(), torch.inference_mode():
+        card = decoder.apply(model, toks.to(dev), cfg)[0]
+        caches = decoder.init_decode_caches(cfg, 2, LM_FAMILY_STEPS, device=dev)
+        errs = []
+        for t in range(LM_FAMILY_STEPS):
+            lg, caches = decoder.decode_step(model, toks[:, t:t + 1].to(dev), caches, t, cfg)
+            errs.append(scaled_error(card[:, t], lg[:, 0]))
+        card = card.cpu()
+        model.to("cpu")
+        cpu = decoder.apply(model, toks, cfg)[0]
+    del model
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(errs)) or max(errs) >= LM_TEACHER_FORCING:
+        raise AssertionError(f"{arch} float32: decode vs teacher forcing {errs}")
+    err = scaled_error(cpu, card)
+    if not torch.isfinite(card).all() or err > LM_F32_LOGITS:
+        raise AssertionError(f"{arch} float32 forward, card vs CPU: {err} > {LM_F32_LOGITS}")
+    return max(errs), err
+
+
+def family_float32_cut(arch: str, layers: int, dev) -> dict:
+    """deepseek-v3 / llama4-scout at full width and ``layers`` layers in
+    float32 on the card, B=1: a prefill of 8 tokens and up to
+    `LM_DECODE_STEPS` decode steps against teacher forcing (one forward of
+    16 tokens).  The steps compared end before the first position whose
+    assignment teacher forcing dropped (the prefill and the decode steps
+    must drop none), and must include the reference's 4.  Returns the
+    largest scaled error, teacher forcing's dropped assignments, their
+    first position and the decode steps compared."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", num_layers=layers)
+    model = lm_model(cfg, dev)
+    watch = DropCount(model)
+    steps = 8 + LM_DECODE_STEPS
+    toks = lm_tokens(cfg, 1, steps, seed=1).to(dev)
+    with float32_products(), torch.inference_mode():
+        lg_tf, _ = decoder.apply(model, toks, cfg)
+        tf = dict(dropped=watch.dropped, first=watch.first, calls=watch.calls)
+        end = steps if watch.first is None else watch.first
+        watch.reset()
+        lg, caches, n = decoder.prefill(model, toks[:, :8], cfg, max_len=steps)
+        errs = [scaled_error(lg_tf[:, :8], lg)]
+        for t in range(n, end):
+            lg, caches = decoder.decode_step(model, toks[:, t:t + 1], caches, t, cfg)
+            errs.append(scaled_error(lg_tf[:, t], lg[:, 0]))
+    watch.close()
+    peak = torch.cuda.max_memory_allocated()
+    del model, caches
+    torch.cuda.empty_cache()
+    if watch.dropped:
+        raise AssertionError(f"{arch}: the prefill or a decode step dropped {watch.dropped}")
+    if end - n < 4:
+        raise AssertionError(f"{arch}: teacher forcing dropped {tf['dropped']} assignments from "
+                             f"position {tf['first']}: fewer than 4 decode steps to compare")
+    if not all(np.isfinite(errs)) or max(errs) >= LM_TEACHER_FORCING:
+        raise AssertionError(f"{arch} float32: prefill/decode vs teacher forcing {errs}")
+    return dict(err=max(errs), steps=end - n, peak=peak, **tf)
+
+
+def family_served(cfg, dev, smi: str, profile: bool) -> None:
+    """``cfg`` (bfloat16) served through `ServeEngine` with phase 10's
+    settings; the CUDA-event time of a decode step at B = `LM_SLOTS`
+    against its bytes bound (every held weight read once: the reference's
+    MoE dispatch runs every expert), tokens/s, peak memory."""
+    from repro_torch.launch import serve
+    from repro_torch.models import decoder
+
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, dev).hold_compute_dtype()  # float32 drawn, cast a parameter at a time
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = serve.ServeEngine(cfg, model, LM_SLOTS, max_len=LM_MAX_LEN, seed=0, device=dev)
+    pending = serve.make_requests(cfg, LM_REQUESTS, LM_PROMPT, LM_MAX_NEW, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished, steps = serve.drain(engine, pending)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    tokens = sum(len(r.out) for r in finished)
+    if len(finished) != LM_REQUESTS or any(len(r.out) != LM_MAX_NEW for r in finished):
+        raise AssertionError(f"{cfg.name}: served {[len(r.out) for r in finished]}")
+    if not all(0 <= t < cfg.vocab_size for r in finished for t in r.out):
+        raise AssertionError(f"{cfg.name}: a served token is outside the vocabulary")
+    caches = decoder.init_decode_caches(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    step = lm_tokens(cfg, LM_SLOTS, 1, seed=3).to(dev)
+    with torch.inference_mode():
+        logits = decoder.decode_step(model, step, caches, LM_PROMPT, cfg)[0]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{cfg.name}: non-finite decode logits")
+        decode_ms = cuda_ms(lambda: decoder.decode_step(model, step, caches, LM_PROMPT, cfg), 20)
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm serve {cfg.name}] {cfg.num_layers} layers, {n_params:,} parameters "
+          f"({weight_bytes:,} B held, bf16); {LM_REQUESTS} requests on {LM_SLOTS} slots, {tokens} "
+          f"tokens in {serve_s:.3f} s ({steps} decode steps, {tokens / serve_s:.1f} tok/s); decode "
+          f"step B={LM_SLOTS} {decode_ms:.3f} ms (bytes bound {bound_ms:.3f} ms, "
+          f"{bound_ms / decode_ms:.3f} of it); peak memory {peak:,} B; req 0: "
+          f"{finished[0].out[:8]}; {smi}")
+    if profile:
+        profile_lm(cfg, model, caches, LM_PROMPT, LM_SLOTS)
+    del model, engine, caches
+    torch.cuda.empty_cache()
+
+
+def encdec_float32(dev) -> tuple[float, float]:
+    """whisper-tiny at full size in float32 (B=1, `enc_seq` frames from the
+    seed): encode, `init_decode_caches` and `LM_FAMILY_STEPS` decode steps
+    on the card against `encdec.apply`'s teacher forcing (bound 0.06); the
+    card's encoding, forward and decode logits against the CPU's (bound
+    `LM_F32_LOGITS`).  Returns (teacher-forcing error, card vs CPU)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+
+    cfg = dataclasses.replace(get_config(LM_ENCDEC), dtype="float32")
+    model = encdec.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = lm_tokens(cfg, 1, LM_FAMILY_STEPS, seed=1)
+    frames = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+
+    def run(device):
+        t, f = toks.to(device), frames.to(device)
+        enc = encdec.encode(model, f, cfg)
+        lg_tf = encdec.apply(model, t, f, cfg)[0]
+        caches = encdec.init_decode_caches(model, f, cfg, LM_FAMILY_STEPS)
+        dec = []
+        for s in range(LM_FAMILY_STEPS):
+            lg, caches = encdec.decode_step(model, t[:, s:s + 1], caches, s, cfg)
+            dec.append(lg[:, 0])
+        return enc.cpu(), lg_tf.cpu(), torch.stack(dec, 1).cpu()
+
+    with float32_products(), torch.inference_mode():
+        card = run(dev)
+        model.to("cpu")
+        cpu = run("cpu")
+    tf_err = scaled_error(card[1], card[2])
+    if not all(torch.isfinite(c).all() for c in card) or tf_err >= LM_TEACHER_FORCING:
+        raise AssertionError(f"{LM_ENCDEC}: decode vs teacher forcing {tf_err}")
+    errs = [scaled_error(c, g) for c, g in zip(cpu, card)]
+    if max(errs) > LM_F32_LOGITS:
+        raise AssertionError(f"{LM_ENCDEC} card vs CPU (encode, forward, decode): {errs}")
+    return tf_err, max(errs)
+
+
+def lm_families_phase(dev, smi: str, profile: bool = False) -> None:
+    """Phase 10b: the other LM families on the card, one model at a time,
+    random weights from a seeded generator on the card.  a. zamba2-1.2b
+    and rwkv6-1.6b at full width and depth: float32 gates, then served in
+    bfloat16; b. deepseek-v3 (4 layers) and llama4-scout (2 layers) at
+    full width: float32 teacher forcing with no assignment dropped, then
+    served in bfloat16; c. whisper-tiny at full size, float32, card vs
+    CPU, then served (as a dense decoder) in bfloat16."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    for arch in LM_FAMILIES_FULL:
+        t0 = time.perf_counter()
+        tf_err, cpu_err = family_float32_full(arch, dev)
+        print(f"[lm {arch}] float32, full width and depth: {LM_FAMILY_STEPS} decode steps vs "
+              f"teacher forcing on the card {tf_err:.3e} (bound {LM_TEACHER_FORCING}); forward "
+              f"(B=2, {LM_FAMILY_STEPS} tokens) card vs CPU {cpu_err:.3e} (bound "
+              f"{LM_F32_LOGITS:.3e}) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        family_served(get_config(arch), dev, smi, profile)
+        print(f"[lm {arch}] bf16 serving in {time.perf_counter() - t0:.1f} s")
+    for arch, layers in LM_FAMILIES_CUT.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        r = family_float32_cut(arch, layers, dev)
+        print(f"[lm {arch}] float32, full width, {layers} layers, B=1: prefill of 8 + "
+              f"{r['steps']} decode steps vs teacher forcing {r['err']:.3e} (bound "
+              f"{LM_TEACHER_FORCING}); teacher forcing dropped {r['dropped']} assignments in "
+              f"{r['calls']} MoE calls (first at position {r['first']}: the steps compared end "
+              f"before it), the prefill and decode steps none; peak memory {r['peak']:,} B in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        family_served(dataclasses.replace(get_config(arch), num_layers=layers), dev, smi, profile)
+        print(f"[lm {arch}] bf16 serving in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tf_err, cpu_err = encdec_float32(dev)
+    print(f"[lm {LM_ENCDEC}] float32, full size: encode, caches and {LM_FAMILY_STEPS} decode "
+          f"steps vs teacher forcing {tf_err:.3e} (bound {LM_TEACHER_FORCING}); card vs CPU "
+          f"{cpu_err:.3e} (bound {LM_F32_LOGITS:.3e}) in {time.perf_counter() - t0:.1f} s")
+    # What the server serves for whisper: its config built as a dense decoder,
+    # as the reference's decoder builds it.
+    family_served(get_config(LM_ENCDEC), dev, smi, profile)
 
 
 def main(argv: list[str]) -> int:
@@ -2879,6 +3171,12 @@ def main(argv: list[str]) -> int:
     # -- 10. the LM server ----------------------------------------------------
     lm_phase(dev, smi, profile)
     end_phase("LM server")
+    # -- 10b. the other LM families -------------------------------------------
+    ops.reset_launches()
+    lm_families_phase(dev, smi, profile)
+    if any(ops.launches.values()):
+        raise AssertionError(f"the LM families launched {dict(ops.launches)}; they have no kernel")
+    end_phase("LM families")
 
     if profile:
         profile_serve("cb")

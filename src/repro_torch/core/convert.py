@@ -105,22 +105,29 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def lm_params_from_arrays(values: dict, cfg, device="cuda"):
-    """A `models.decoder.Decoder` for ``cfg`` holding ``values``: the
-    reference's value tree (``split_tree(init_params(key, cfg))[0]``) as
-    numpy arrays, its layer stack ``blocks`` sliced into the port's
-    ``ModuleList``.  Every name must match, shape for shape."""
-    from repro_torch.models import decoder
+#: The reference's layer stacks: a leading layer axis, one module a layer in the port.
+STACKS = ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
 
-    model = decoder.Decoder(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+def lm_params_from_arrays(values: dict, cfg, device="cuda"):
+    """The port's model for ``cfg`` holding ``values``: the reference's
+    value tree (``split_tree(init_params(key, cfg))[0]``, of
+    `models.decoder` or, with ``enc_blocks``, of `models.encdec`) as numpy
+    arrays, its layer stacks (`STACKS`) sliced into the port's
+    ``ModuleList``s.  A `models.decoder.Decoder`, or a
+    `models.encdec.EncDec`.  Every name must match, shape for shape."""
+    from repro_torch.models import decoder, encdec
+
+    cls = encdec.EncDec if "enc_blocks" in values else decoder.Decoder
+    model = cls(cfg, torch.Generator().manual_seed(0), device="cpu")
     want = dict(model.named_parameters())
     flat = {}
     for name, arr in _flatten(values).items():
         arr = np.asarray(arr, np.float32)
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
+        stack, _, rest = name.partition(".")
+        if stack in STACKS:
             for layer in range(arr.shape[0]):
-                flat[f"blocks.{layer}.{rest}"] = arr[layer]
+                flat[f"{stack}.{layer}.{rest}"] = arr[layer]
         else:
             flat[name] = arr
     if set(flat) != set(want):
@@ -136,23 +143,24 @@ def lm_params_from_arrays(values: dict, cfg, device="cuda"):
 
 def lm_params_to_arrays(model) -> dict:
     """The inverse of `lm_params_from_arrays`: the reference's value tree
-    (nested dicts of float32 numpy arrays, ``blocks`` stacked on a leading
-    layer axis)."""
+    (nested dicts of float32 numpy arrays, each of `STACKS` stacked on a
+    leading layer axis)."""
     tree: dict = {}
-    blocks: dict = {}
+    stacks: dict = {}
     for name, p in model.named_parameters():
         arr = host_copy(p.float())
-        if name.startswith("blocks."):
-            _, layer, rest = name.split(".", 2)
-            blocks.setdefault(rest, {})[int(layer)] = arr
+        head, _, tail = name.partition(".")
+        if head in STACKS:
+            layer, rest = tail.split(".", 1)
+            stacks.setdefault((head, rest), {})[int(layer)] = arr
             continue
         node = tree
         *path, leaf = name.split(".")
         for k in path:
             node = node.setdefault(k, {})
         node[leaf] = arr
-    for rest, layers in blocks.items():
-        node = tree.setdefault("blocks", {})
+    for (stack, rest), layers in stacks.items():
+        node = tree.setdefault(stack, {})
         *path, leaf = rest.split(".")
         for k in path:
             node = node.setdefault(k, {})

@@ -170,8 +170,9 @@ def mlp_apply(p, x, kind: str = "swiglu", dtype=torch.bfloat16):
 class RMSNorm(ParamModule):
     """Float32 scale, float32 compute (never held in the compute dtype)."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-6, zero_centered: bool = False, device=None):
-        super().__init__(rmsnorm_init(dim, device=device))
+    def __init__(self, dim: int, *, eps: float = 1e-6, zero_centered: bool = False,
+                 logical=("embed",), device=None):
+        super().__init__(rmsnorm_init(dim, logical, device=device))
         self.eps, self.zero_centered = eps, zero_centered
 
     def forward(self, x):
@@ -181,8 +182,8 @@ class RMSNorm(ParamModule):
 class LayerNorm(ParamModule):
     """Float32 scale and bias, float32 compute (never held in the compute dtype)."""
 
-    def __init__(self, dim: int, *, eps: float = 1e-5, device=None):
-        super().__init__(layernorm_init(dim, device=device))
+    def __init__(self, dim: int, *, eps: float = 1e-5, logical=("embed",), device=None):
+        super().__init__(layernorm_init(dim, logical, device=device))
         self.eps = eps
 
     def forward(self, x):
@@ -220,11 +221,15 @@ FLOAT32_MODULES = (RMSNorm, LayerNorm)
 
 
 def hold_in(module: torch.nn.Module, dtype) -> torch.nn.Module:
-    """Hold every parameter that is used in the compute dtype in ``dtype``
-    (norm parameters stay float32); returns ``module``."""
+    """Hold every parameter that is used in the compute dtype in ``dtype``,
+    one at a time; returns ``module``.  Norm parameters stay float32, and
+    so do those a module names in ``FLOAT32_PARAMS`` (used in float32
+    whatever the compute dtype: a router, an SSM's decay)."""
     for mod in module.modules():
         if isinstance(mod, FLOAT32_MODULES):
             continue
-        for p in mod.parameters(recurse=False):
-            p.data = p.data.to(dtype)
+        keep = getattr(mod, "FLOAT32_PARAMS", ())
+        for name, p in mod.named_parameters(recurse=False):
+            if name not in keep:
+                p.data = p.data.to(dtype)
     return module

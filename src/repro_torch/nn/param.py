@@ -52,7 +52,7 @@ def normal_init(generator: torch.Generator, shape, std, dtype=torch.float32, dev
     """``normal(shape) * std`` in float32, drawn from ``generator`` (on its
     device), then cast to ``dtype`` and moved to ``device``."""
     x = torch.randn(tuple(shape), generator=generator, device=generator.device,
-                    dtype=torch.float32) * std
+                    dtype=torch.float32).mul_(std)  # in place: no second tensor of the size
     return x.to(dtype=dtype, device=device or generator.device)
 
 

@@ -731,3 +731,104 @@ def test_lm_server_cli_on_the_card(capsys):
     finished = serve.main(["--requests", "6", "--slots", "4", "--max-new", "10"])
     assert len(finished) == 6 and all(len(r.out) == 10 for r in finished)
     assert "served 6 requests, 60 tokens" in capsys.readouterr().out
+
+
+# -- the other LM families (chip_smoke.py phase 10b's twins, at the smoke sizes) -----
+
+LM_RECURRENT = ["zamba2-1.2b", "rwkv6-1.6b"]
+
+
+@pytest.mark.parametrize("arch", LM_RECURRENT + ["deepseek-v3-671b", "llama4-scout-17b-a16e"])
+def test_lm_family_float32_forward_on_the_card_equals_the_cpu(arch):
+    """The same weights' float32 forward on the card and on the CPU (TF32
+    off), within ROADMAP §3w's F32_LOGITS."""
+    _need_card()
+    from repro_torch.models import decoder
+    from test_torch_lm_trap import F32_LOGITS, scaled_error
+
+    cfg, model = _lm(arch, "float32", "cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+                            .astype(np.int32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card = decoder.apply(model, toks.cuda(), cfg)[0].cpu()
+        model.to("cpu")
+        with torch.inference_mode():
+            cpu = decoder.apply(model, toks, cfg)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert scaled_error(cpu.numpy(), card.numpy()) <= F32_LOGITS
+
+
+@pytest.mark.parametrize("arch", LM_RECURRENT)
+def test_lm_recurrent_decode_on_the_card_matches_teacher_forcing(arch):
+    """16 decode steps from empty caches on the card, float32 (TF32 off),
+    against one forward pass: the reference's bound of 0.06."""
+    _need_card()
+    from repro_torch.models import decoder
+    from test_torch_lm_trap import scaled_error
+
+    cfg, model = _lm(arch, "float32", "cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 16))
+                            .astype(np.int32)).cuda()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            lg_tf, _ = decoder.apply(model, toks, cfg)
+            caches = decoder.init_decode_caches(cfg, 4, 16, device="cuda")
+            for t in range(16):
+                lg, caches = decoder.decode_step(model, toks[:, t:t + 1], caches, t, cfg)
+                err = scaled_error(lg_tf[:, t].cpu().numpy(), lg[:, 0].cpu().numpy())
+                assert err < 0.06, (arch, t, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_lm_encdec_on_the_card_equals_the_cpu():
+    """whisper-tiny's smoke encoder-decoder, float32: the card's decode
+    logits equal the CPU's within F32_LOGITS."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+    from test_torch_lm_trap import F32_LOGITS, scaled_error
+
+    cfg = dataclasses.replace(get_config("whisper-tiny", smoke=True), dtype="float32")
+    model = encdec.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.enc_seq, cfg.d_model))
+                              .astype(np.float32))
+
+    def decode(device):
+        caches = encdec.init_decode_caches(model, frames.to(device), cfg, 8)
+        out = []
+        for t in range(8):
+            lg, caches = encdec.decode_step(model, toks[:, t:t + 1].to(device), caches, t, cfg)
+            out.append(lg[:, 0].cpu())
+        return torch.stack(out, 1)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card = decode("cuda")
+            model.to("cpu")
+            cpu = decode("cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert scaled_error(cpu.numpy(), card.numpy()) <= F32_LOGITS
+
+
+@pytest.mark.parametrize("arch", LM_RECURRENT + ["deepseek-v3-671b"])
+def test_lm_family_server_cli_on_the_card(arch, capsys):
+    _need_card()
+    from repro_torch.launch import serve
+
+    finished = serve.main(["--arch", arch, "--requests", "5", "--slots", "2", "--max-new", "6"])
+    assert len(finished) == 5 and all(len(r.out) == 6 for r in finished)
+    assert "served 5 requests, 30 tokens" in capsys.readouterr().out

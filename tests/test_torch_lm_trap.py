@@ -34,6 +34,34 @@ max |a|``, the measure of the reference's own teacher-forcing bound
   another token only where the reference's top-two logit gap, scaled by
   the largest logit, is below this (twice ``F32_LOGITS``: each side may
   move by it).
+
+The other LM families (ROADMAP §3y, §3z) add the ops of their mixers:
+``softplus`` (the Mamba2 step size; the port writes the reference's
+``logaddexp(x, 0)``, `nn.mamba2.softplus`, not ``F.softplus``),
+``sigmoid`` (the sigmoid router, RWKV's receptance gate), ``tanh`` (the
+DDLerp and decay LoRAs), ``logsumexp`` (the router's z-loss), ``cumsum``
+of log-decays and ``exp`` of their differences (both chunked scans).  In
+float32 they differ by an ulp on a share of the inputs, within
+``F32_OP``; in bfloat16 ``sigmoid`` differs by one bfloat16 ulp, within
+``BF16_OP``.  ``exp`` of cumsum differences inherits the cumsums' one-ulp differences
+as absolute errors of its exponent: within ``F32_SCAN_EXP`` (measured
+3.8e-6 over 20 steps of log-decays down to -4; ulp(64) is 2^-17).
+``sinusoid_positions`` (numpy in both) is equal.  Routing
+must break ties as ``jax.lax.top_k`` and ``jnp.argsort`` do: ``torch.topk``
+and an unstable ``torch.argsort`` do not.
+
+* ``BF16_HYBRID_LOGITS``: zamba2's smoke model in bfloat16 (4 Mamba2
+  layers and 2 calls of the shared attention block, 6 blocks deep) against
+  the reference's: measured 0.048-0.074 over seeds 0-2, while the
+  reference's own bfloat16 logits are 0.079-0.150 from its float32 ones
+  (§3w's drift with depth; `test_torch_lm_families.py`).
+* ``BF16_ROUTE_TIE``: in bfloat16 the router's input is one rounding away
+  from another path's (teacher forcing against decode, the port against
+  the reference), so an expert whose selection score is this close to the
+  k-th (scaled by the row's largest score) may swap in or out, and the
+  step's logits then differ by far more than ``BF16_LOGITS`` (0.85 at
+  deepseek-v3's smoke size, §3z).  A bfloat16 MoE comparison that fails
+  its bound must find such a tie at or before the failing step.
 """
 
 import importlib.util
@@ -46,6 +74,9 @@ import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
+from repro.models import encdec as jencdec
+from repro_torch.models import encdec
+from repro_torch.nn.mamba2 import softplus
 
 ROOT = Path(__file__).resolve().parents[1]
 F32_OP = 2.0**-21
@@ -55,6 +86,9 @@ BF16_LAYER = 2.0**-6
 F32_LOGITS = 2.0**-13
 BF16_LOGITS = 2.0**-5
 F32_TOP2_GAP = 2 * F32_LOGITS
+F32_SCAN_EXP = 2.0**-16
+BF16_HYBRID_LOGITS = 2.0**-3
+BF16_ROUTE_TIE = 2.0**-7
 
 N = 100_000
 DTYPES = {"float32": (jnp.float32, torch.float32, F32_OP),
@@ -81,6 +115,9 @@ def _inputs():
         "b": rng.standard_normal((64, 128)).astype(np.float32),
         "q": rng.standard_normal((2, 16, 2, 2, 32)).astype(np.float32),
         "k": rng.standard_normal((2, 16, 2, 32)).astype(np.float32),
+        "wide": (rng.standard_normal(N) * 8).astype(np.float32),
+        "logit rows": (rng.standard_normal((N // 100, 100)) * 4).astype(np.float32),
+        "log decays": -rng.uniform(1e-6, 4.0, (N // 100, 100)).astype(np.float32),
     }
 
 
@@ -108,15 +145,40 @@ OPS = {
     "times an embedding scale": (("normal",), lambda x: x * x.dtype.type(45.25),
                                  lambda x: x * 45.25, True),
 }
+OPS.update({
+    "sigmoid": (("wide",), jax.nn.sigmoid, torch.sigmoid, True),
+    "tanh of a LoRA": (("wide",), jnp.tanh, torch.tanh, True),
+})
+#: Ops the LM runs in float32 only: op -> (input names, reference, port, bound).
+OPS_F32 = {
+    "softplus": (("wide",), jax.nn.softplus, softplus, F32_OP),
+    "logsumexp of rows of 100": (("logit rows",), lambda x: jax.nn.logsumexp(x, axis=-1),
+                                 lambda x: torch.logsumexp(x, -1), F32_OP),
+    "cumsum of log decays": (("log decays",), lambda x: jnp.cumsum(x, axis=1),
+                             lambda x: torch.cumsum(x, 1), F32_OP),
+    "exp of cumsum differences": (
+        ("log decays",),
+        lambda x: jnp.exp(_lower(jnp.cumsum(x, axis=1)[:, 10:20, None]
+                                 - jnp.cumsum(x, axis=1)[:, None, 10:20])),
+        lambda x: torch.exp(_lower(torch.cumsum(x, 1)[:, 10:20, None]
+                                   - torch.cumsum(x, 1)[:, None, 10:20])), F32_SCAN_EXP),
+}
 #: dtype -> the ops whose results differ from the reference's.  The mean
 #: of squares differs in float32 only: in bfloat16 the final rounding hides
 #: the float32 sums' last bits.
 DIFFERING = {
     "float32": {"rsqrt", "cos of RoPE angles", "sin of RoPE angles", "tanh-GELU", "SiLU",
-                "softmax of rows of 1000", "mean of squares"},
+                "softmax of rows of 1000", "mean of squares", "sigmoid", "tanh of a LoRA"},
     "bfloat16": {"rsqrt", "cos of RoPE angles", "sin of RoPE angles", "tanh-GELU", "SiLU",
-                 "softmax of rows of 1000"},
+                 "softmax of rows of 1000", "sigmoid"},
 }
+
+
+def _lower(d):
+    """The lower triangle of (rows, i, j) differences (i >= j, where the
+    scans take their exps; the rest is 0): exponents <= 0."""
+    i = np.arange(d.shape[1])
+    return d * (i[:, None] >= i[None, :])
 
 
 def _run(op: str, dtype: str):
@@ -144,6 +206,60 @@ def test_op_differences_are_measured_and_bounded(op, dtype):
     assert scaled_error(want, got) <= DTYPES[dtype][2], (op, scaled_error(want, got))
 
 
+@pytest.mark.parametrize("op", list(OPS_F32))
+def test_float32_op_differences_are_measured_and_bounded(op):
+    """The ops the families run in float32 only: each differs from the
+    reference's on some of its 100,000 inputs, within its bound."""
+    names, jfn, tfn, bound = OPS_F32[op]
+    want = np.asarray(jfn(*[jnp.asarray(X[n]) for n in names]))
+    got = tfn(*[torch.from_numpy(X[n]) for n in names]).numpy()
+    assert int((want != got).sum()) > 0, op
+    assert scaled_error(want, got) <= bound, (op, scaled_error(want, got))
+
+
+def test_softplus_is_written_the_references_way():
+    """``jax.nn.softplus`` is ``logaddexp(x, 0)``; `nn.mamba2.softplus`
+    writes that, and is nearer the reference than ``F.softplus`` (which
+    computes ``log1p(exp(x))`` below its threshold and returns ``x`` above
+    it): in bfloat16 it is equal where ``F.softplus`` is not."""
+    x = X["wide"]
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(jax.nn.softplus(jnp.asarray(x).astype(jdt)).astype(jnp.float32))
+        ours = softplus(torch.from_numpy(x).to(tdt)).float().numpy()
+        theirs = torch.nn.functional.softplus(torch.from_numpy(x).to(tdt)).float().numpy()
+        assert scaled_error(want, ours) <= scaled_error(want, theirs)
+        if tdt == torch.bfloat16:
+            assert int((want != ours).sum()) == 0 and int((want != theirs).sum()) > 0
+
+
+def test_sinusoid_positions_are_the_references():
+    for length, dim in ((1500, 384), (448, 384), (64, 64), (16, 64)):
+        np.testing.assert_array_equal(encdec.sinusoid_positions(length, dim),
+                                      jencdec.sinusoid_positions(length, dim))
+
+
+def test_routing_needs_the_stable_tie_order():
+    """``jax.lax.top_k`` breaks ties toward the lower index and
+    ``jnp.argsort`` is stable.  ``torch.topk`` and an unstable
+    ``torch.argsort`` order tied values otherwise on the CPU, so the
+    router would pick other experts and the capacity sort would pass other
+    (token, expert) pairs; `nn.moe`'s stable forms are the reference's."""
+    from repro_torch.nn.moe import topk_lower_index_first
+
+    ties = np.zeros((3, 64), np.float32)
+    ties[1, ::3] = 1.0
+    ties[2] = np.repeat(np.arange(8, dtype=np.float32), 8)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(ties), 8)[1])
+    ours = topk_lower_index_first(torch.from_numpy(ties), 8)[1].numpy()
+    np.testing.assert_array_equal(want, ours)
+    assert not np.array_equal(want, torch.topk(torch.from_numpy(ties), 8).indices.numpy())
+    experts = np.random.default_rng(0).integers(0, 8, 4096)
+    want = np.asarray(jnp.argsort(jnp.asarray(experts)))
+    np.testing.assert_array_equal(want, torch.argsort(torch.from_numpy(experts),
+                                                      stable=True).numpy())
+    assert not np.array_equal(want, torch.argsort(torch.from_numpy(experts)).numpy())
+
+
 def test_the_float32_differences_are_a_few_ulps():
     """In float32 no differing op is off by more than 9 ulps where its
     result is not tiny (softmax's smallest weights aside), but tanh-GELU,
@@ -156,8 +272,9 @@ def test_the_float32_differences_are_a_few_ulps():
 
 
 def test_the_bounds_are_ordered():
-    assert F32_OP < F32_LAYER < F32_LOGITS < F32_TOP2_GAP < BF16_OP
-    assert BF16_OP <= BF16_LAYER <= BF16_LOGITS < 0.06
+    assert F32_OP < F32_LAYER < F32_SCAN_EXP < F32_LOGITS < F32_TOP2_GAP < BF16_OP
+    assert BF16_OP <= BF16_LAYER <= BF16_LOGITS < 0.06 < BF16_HYBRID_LOGITS
+    assert BF16_ROUTE_TIE == BF16_OP
 
 
 def test_chip_smoke_uses_these_bounds():
