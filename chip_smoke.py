@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device; ~6 minutes
+    python3 chip_smoke.py            # needs one CUDA device; ~8 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
-    python3 chip_smoke.py --profile  # also trace the serving runs and LM decode steps (torch.profiler)
+    python3 chip_smoke.py --profile  # also trace the serving runs, LM decode steps and a train step
 
 (``--kill-worker DIR`` is the SIGKILL child of phase 6c: the script runs
-itself with it; it serves, snapshots into DIR and kills itself.)
+itself with it; it serves, snapshots into DIR and kills itself.
+``--train-worker cut|resume DIR`` are the children of phase 11d.)
 
 The port's kernels (src/repro_torch/kernels/csrc/):
 
@@ -208,6 +209,28 @@ its final ok line; no phase catches an exception):
      against the CPU; then served in bfloat16 as the server builds it (a
      dense decoder, as the reference's decoder builds an encoder-decoder
      config).  ``--profile`` adds `profile_lm` to each served model.
+  11. LM training (plain PyTorch on the card: it launches none of #1-#7,
+     counts zeroed just before and read just after): a. gemma-2b at full
+     width and depth, one float32 `make_train_step` step (B=1, 16 tokens,
+     TF32 off) on the card and on the CPU from the same weights and batch:
+     loss, gradient norm and the worst leaf's clipped gradient (Adam's m)
+     within `TRAIN_F32_GRAD_DEEP`; b. the main path:
+     `launch.train.main(TRAIN_ARGS)` trains gemma-2b (bf16 compute over
+     float32 parameters, remat "full", the config's own): every loss
+     finite and printed as returned; a step's CUDA-event time, tokens/s,
+     its share of the dense-bf16 peak (8 N a token: the recompute's 2 N
+     too), the AdamW update's time against its bytes bound (28 B a
+     parameter), the peak memory (``--profile``: the device's busy share
+     of a step); then the same with bfloat16 m and v (lower peak);
+     c. grad_accum=2 against 1 on a batch of 8 at full width: Adam's m
+     within the reference's scaled 2e-2 in float32, bf16 printed; d.
+     resume bit for bit on the card: two children (``--train-worker``,
+     deterministic algorithms) train the CLI's default smoke config
+     uninterrupted and with SIGTERM after step 2 (the emergency
+     checkpoint), a fresh one resumes to step 4; every leaf equal; e.
+     zamba2-1.2b and rwkv6-1.6b at full width and depth, 4 bf16 steps each
+     through `launch.train.main`; f. every other LM arch's smoke config,
+     one float32 train step card against CPU within a.'s bound.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` (#1-#4 also carry ``recovery_launches``, their
@@ -2905,9 +2928,468 @@ def lm_families_phase(dev, smi: str, profile: bool = False) -> None:
     family_served(get_config(LM_ENCDEC), dev, smi, profile)
 
 
+# -- LM training (phase 11) --------------------------------------------------------
+
+#: The trained arch at full width and depth, and the main path's CLI flags
+#: (the CLI's default lr of 3e-3 was set for the smoke configs).
+TRAIN_ARCH = "gemma-2b"
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "12", "--batch", "4", "--seq-len", "128",
+              "--lr", "3e-4", "--warmup", "4"]
+#: Steps of the main path left out of its times (allocation, cuBLAS set-up).
+TRAIN_WARMUP_STEPS = 2
+#: The other families trained at full width and depth (bf16, the configs' own).
+TRAIN_FAMILIES = ("zamba2-1.2b", "rwkv6-1.6b")
+#: The bound (tests/test_torch_lm_trap.py F32_GRAD_DEEP) on a float32 train
+#: step's loss, clipped gradient (Adam's first moment after one step) and
+#: gradient norm, the card's against the CPU's, as scaled errors: the bound at
+#: 18 layers (the CPU tests' F32_GRAD, 2^-15, holds the port against the
+#: reference at the smoke configs; zamba2's smoke step, card vs CPU, is 3.0e-5:
+#: its scans' exps).
+TRAIN_F32_GRAD_DEEP = 2.0**-13
+#: Grad accumulation against one batch: the reference's own bound on Adam's m
+#: (tests/test_train_infra.py:54-73), scaled by each leaf's largest value.
+TRAIN_ACCUM_M = 2e-2
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W).
+BF16_OPS_PER_S = 989e12
+
+
+class StepEvents:
+    """Wraps `train.step.make_train_step` and `optim.adamw.adamw_update` in
+    `launch.train` so that each call is timed by a pair of CUDA events (the
+    call's span on the card: host gaps included) and the states it returns
+    are kept; ``profile_step`` traces that step with torch.profiler."""
+
+    def __init__(self, profile_step: int | None = None):
+        from repro_torch.launch import train as train_cli
+        from repro_torch.train import step as step_mod
+
+        self.step_ms, self.adamw_ms, self.states, self.busy = [], [], [], None
+        self._mods, self._profile_step = (train_cli, step_mod), profile_step
+        self._make, self._adamw = train_cli.make_train_step, step_mod.adamw_update
+
+    def _events(self, fn, out: list):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*args, **kw)
+            end.record()
+            out.append((start, end))
+            return result
+        return timed
+
+    def __enter__(self):
+        train_cli, step_mod = self._mods
+        step_mod.adamw_update = self._events(self._adamw, self.adamw_ms)
+
+        def make(cfg, tc):
+            step = self._events(self._make(cfg, tc), self.step_ms)
+
+            def call(state, batch):
+                if len(self.step_ms) == self._profile_step:
+                    return self._profiled(step, state, batch)
+                state, metrics = step(state, batch)
+                self.states.append(state)
+                return state, metrics
+            return call
+
+        train_cli.make_train_step = make
+        return self
+
+    def _profiled(self, step, state, batch):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not rows:
+            raise AssertionError("the profiler recorded no device activity")
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        self.busy = (busy_ms, wall_ms, sum(e.count for e in rows))
+        self.states.append(state)
+        return state, metrics
+
+    def __exit__(self, *exc):
+        train_cli, step_mod = self._mods
+        train_cli.make_train_step, step_mod.adamw_update = self._make, self._adamw
+        torch.cuda.synchronize()
+        self.step_ms = [s.elapsed_time(e) for s, e in self.step_ms]
+        self.adamw_ms = [s.elapsed_time(e) for s, e in self.adamw_ms]
+        return False
+
+
+def train_cli(argv: list[str], profile_step: int | None = None):
+    """`launch.train.main(argv)` on the card: returns (losses, `StepEvents`,
+    peak memory).  The losses printed must be the losses returned."""
+    from repro_torch.launch import train as train_mod
+
+    out = io.StringIO()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with StepEvents(profile_step) as ev, contextlib.redirect_stdout(out):
+        losses = train_mod.main(argv)
+    peak = torch.cuda.max_memory_allocated()
+    printed = re.findall(r"^step +\d+ loss +(\S+)", out.getvalue(), re.M)
+    if printed != [f"{loss:.4f}" for loss in losses] or not all(np.isfinite(losses)):
+        raise AssertionError(f"{argv}: printed {printed}, returned {losses}")
+    return losses, ev, peak
+
+
+def card_scaled_error(want: torch.Tensor, got: torch.Tensor, floor: float = 1e-30) -> float:
+    """`scaled_error` in float64 on ``want``'s device (a leaf of 2 GB stays
+    on the card); the largest value floored at ``floor``."""
+    want, got = want.double(), got.to(want.device).double()
+    return float((want - got).abs().max() / want.abs().max().clamp(min=floor))
+
+
+def leaf_errors(want: dict, got: dict, floor: float = 1e-30) -> tuple[float, str]:
+    """The worst scaled error over the leaves of two ``{name: tensor}``."""
+    worst, where = 0.0, ""
+    for name, w in want.items():
+        e = card_scaled_error(w, got[name], floor)
+        if not e <= worst:  # NaN counts as worst
+            worst, where = e, name
+    return worst, where
+
+
+def train_step_card_vs_cpu(cfg, dev, batch_np: dict, seed: int = 0):
+    """One float32 `make_train_step` step (TF32 off) on the card and on the
+    CPU from the same weights (drawn on the card) and batch.  Returns the
+    scaled errors of the loss, the gradient norm and the worst leaf of m
+    (the clipped gradient times 1 - b1), with that leaf's name."""
+    from repro_torch.models import decoder, encdec
+    from repro_torch.train import step as step_mod
+
+    init = (encdec if cfg.encdec else decoder).init_params
+    tc = step_mod.TrainConfig()
+    with float32_products():
+        model = init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        state, met = step_mod.make_train_step(cfg, tc)(
+            step_mod.init_train_state(model, tc),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()})
+        m_card = state.opt.m
+        state = None
+        model.to("cpu")
+        cpu_state, cpu_met = step_mod.make_train_step(cfg, tc)(
+            step_mod.init_train_state(model, tc),
+            {k: torch.from_numpy(v) for k, v in batch_np.items()})
+    errs = {k: scaled_error(cpu_met[k].reshape(1), met[k].reshape(1))
+            for k in ("loss", "grad_norm")}
+    m_err, worst = leaf_errors(m_card, cpu_state.opt.m)
+    return errs["loss"], errs["grad_norm"], m_err, worst, float(met["loss"])
+
+
+def host_free_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) * 1024
+
+
+def train_float32_gate(dev) -> None:
+    """11a: gemma-2b at full width and depth, one float32 train step (B=1,
+    16 tokens) on the card and on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    batch = SyntheticLMDataset(cfg.vocab_size, 16, 1, seed=0).batch_at(0)
+    free = host_free_bytes()
+    t0 = time.perf_counter()
+    loss_e, gn_e, m_e, worst, loss = train_step_card_vs_cpu(cfg, dev, batch)
+    torch.cuda.empty_cache()
+    for what, e in (("loss", loss_e), ("grad norm", gn_e), ("clipped gradient", m_e)):
+        if not e <= TRAIN_F32_GRAD_DEEP:
+            raise AssertionError(f"{TRAIN_ARCH} float32 train step, card vs CPU: {what} "
+                                 f"scaled error {e} > {TRAIN_F32_GRAD_DEEP}")
+    print(f"[train {TRAIN_ARCH}] float32 train step, full width and depth (B=1, 16 tokens), "
+          f"card vs CPU from the same weights: loss {loss:.6f} (scaled error {loss_e:.3e}), "
+          f"grad norm {gn_e:.3e}, worst leaf's clipped gradient {m_e:.3e} ({worst}); bound "
+          f"{TRAIN_F32_GRAD_DEEP:.3e}; host memory free before: {free:,} B; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_main_path(smi: str, profile: bool) -> None:
+    """11b: gemma-2b trained through `launch.train.main` (bf16 compute over
+    float32 parameters, remat "full"), then the same run with bfloat16 m, v."""
+    import functools
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    batch, seq = int(TRAIN_ARGS[5]), int(TRAIN_ARGS[7])
+    tokens = batch * seq
+    t0 = time.perf_counter()
+    losses, ev, peak = train_cli(TRAIN_ARGS, profile_step=8 if profile else None)
+    wall = time.perf_counter() - t0
+    state = ev.states[-1]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    if n_params != 2_506_172_416 or cfg.num_layers != 18 or cfg.d_model != 2048:
+        raise AssertionError(f"{TRAIN_ARCH}: {n_params} parameters, {cfg.num_layers} layers")
+    if any(t.dtype != torch.float32 for t in (*state.opt.m.values(), *state.params.parameters())):
+        raise AssertionError("the main path's parameters and m must be float32")
+    del state
+    ev.states.clear()
+    steady = ev.step_ms[TRAIN_WARMUP_STEPS:]
+    step_ms = float(np.median(steady))
+    adamw_ms = float(np.median(ev.adamw_ms[TRAIN_WARMUP_STEPS:]))
+    flops = 8 * n_params * tokens  # 6 N a token, and the recompute's 2 N
+    bound_flops_ms = flops / BF16_OPS_PER_S * 1e3
+    adamw_bytes = 28 * n_params  # read p, g, m, v; write p, m, v (float32)
+    adamw_bound = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[train {TRAIN_ARCH}] launch.train.main({' '.join(TRAIN_ARGS)}): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} (printed == returned, all finite) in "
+          f"{wall:.1f} s; {n_params:,} parameters, 18 layers, d_model 2048, remat full")
+    print(f"[train time] {TRAIN_ARCH} B={batch} S={seq}: step {step_ms:.2f} ms (CUDA events, "
+          f"median of steps {TRAIN_WARMUP_STEPS}-{len(ev.step_ms) - 1}: "
+          f"{min(steady):.2f}-{max(steady):.2f}), {tokens / step_ms * 1e3:.0f} tokens/s; "
+          f"{flops:.3e} operations a step (8 N a token) = {bound_flops_ms:.2f} ms at the dense "
+          f"bf16 peak ({bound_flops_ms / step_ms:.3f} of it); AdamW update {adamw_ms:.2f} ms "
+          f"against its bytes bound {adamw_bound:.2f} ms ({adamw_bytes:,} B at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {adamw_bound / adamw_ms:.3f} of it); peak memory "
+          f"{peak:,} B; {smi}")
+    if ev.busy is not None:
+        busy_ms, wall_ms, acts = ev.busy
+        print(f"[train profile] {TRAIN_ARCH} step 8 under the profiler: {wall_ms:.2f} ms wall, "
+              f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.3f} of wall), {acts} device "
+              f"activities")
+    orig = train_mod.AdamWConfig
+    train_mod.AdamWConfig = functools.partial(AdamWConfig, state_dtype="bfloat16")
+    try:
+        losses16, ev16, peak16 = train_cli(TRAIN_ARGS)
+    finally:
+        train_mod.AdamWConfig = orig
+    if any(t.dtype != torch.bfloat16 for t in ev16.states[-1].opt.v.values()):
+        raise AssertionError("state_dtype='bfloat16': m and v must be bfloat16")
+    ev16.states.clear()
+    if not peak16 < peak:
+        raise AssertionError(f"bfloat16 m, v: peak memory {peak16:,} B, not below {peak:,}")
+    step16 = float(np.median(ev16.step_ms[TRAIN_WARMUP_STEPS:]))
+    print(f"[train {TRAIN_ARCH}] bfloat16 m, v (AdamWConfig(state_dtype='bfloat16')): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses16)}; step {step16:.2f} ms, AdamW "
+          f"{float(np.median(ev16.adamw_ms[TRAIN_WARMUP_STEPS:])):.2f} ms; peak memory "
+          f"{peak16:,} B (float32 m, v: {peak:,}); {smi}")
+
+
+def accum_m_error(cfg, dev, batch) -> tuple[float, str]:
+    """One step of ``cfg`` at full width on ``batch``, grad_accum=2 against
+    1 (lr 0 at the first step, so both start from the same weights): the
+    worst leaf of Adam's m as the reference scales it (by the largest value
+    of grad_accum=1's leaf, floored at 1e-6), and its name."""
+    from repro_torch.models import decoder
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as step_mod
+
+    model = decoder.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    m = {}
+    for accum in (2, 1):  # grad_accum=1's m (the scale) stays on the card
+        tc = step_mod.TrainConfig(optimizer=AdamWConfig(lr=1e-2, warmup_steps=1,
+                                                        total_steps=10), grad_accum=accum)
+        state, met = step_mod.make_train_step(cfg, tc)(step_mod.init_train_state(model, tc),
+                                                       batch)
+        if accum == 2 and set(met) & {"ce_loss", "aux_loss"}:
+            raise AssertionError(f"grad_accum=2 metrics carry {sorted(met)}")
+        m[accum] = {n: t.cpu() if accum == 2 else t for n, t in state.opt.m.items()}
+        del state, met
+    worst = leaf_errors(m[1], m[2], floor=1e-6)
+    del model, m
+    torch.cuda.empty_cache()
+    return worst
+
+
+def train_grad_accum(dev) -> None:
+    """11c: gemma-2b at full width, one step on a batch of 8 (S=128),
+    grad_accum=2 against 1: in float32 (TF32 off) Adam's m within the
+    reference's scaled 2e-2; the config's bf16, printed: a norm scale's
+    gradient is a sum over every token with cancellation, and at 18 layers
+    bf16's rounding moves it by more than that."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+
+    cfg = get_config(TRAIN_ARCH)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticLMDataset(cfg.vocab_size, 128, 8, seed=1).batch_at(0).items()}
+    t0 = time.perf_counter()
+    with float32_products():
+        err32, where32 = accum_m_error(dataclasses.replace(cfg, dtype="float32"), dev, batch)
+    err16, where16 = accum_m_error(cfg, dev, batch)
+    if not err32 <= TRAIN_ACCUM_M:
+        raise AssertionError(f"grad_accum=2 vs 1, float32: m scaled error {err32} at {where32}")
+    print(f"[train accum] {TRAIN_ARCH} B=8 S=128, grad_accum=2 vs 1, Adam's m, worst leaf: "
+          f"float32 {err32:.3e} ({where32}; bound {TRAIN_ACCUM_M}); bf16 {err16:.3e} "
+          f"({where16}; printed) in {time.perf_counter() - t0:.1f} s")
+
+
+def train_worker(mode: str, root: str) -> int:
+    """The resume children (``--train-worker cut|resume DIR``): the CLI's
+    default arch at its smoke config on the card, 4 steps, deterministic
+    algorithms.  ``cut``: an uninterrupted run checkpointing into DIR/whole,
+    then a run into DIR/cut that sends itself SIGTERM when step 2 has ended,
+    so `PreemptionHandler` stops the loop and the emergency checkpoint is
+    written.  ``resume``: a fresh process resuming DIR/cut to step 4."""
+    if not torch.cuda.is_available():
+        return 2
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import ft
+
+    class SigtermAfterStep2(ft.StepTimer):
+        def __exit__(self, *exc):
+            super().__exit__(*exc)
+            if self.step + 1 == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return False
+
+    argv = ["--smoke", "--steps", "4", "--ckpt-dir"]
+    if mode == "cut":
+        train_mod.main(argv + [os.path.join(root, "whole")])
+        train_mod.StepTimer = SigtermAfterStep2
+        try:
+            train_mod.main(argv + [os.path.join(root, "cut")])
+        finally:
+            train_mod.StepTimer = ft.StepTimer
+    else:
+        train_mod.main(argv + [os.path.join(root, "cut")])
+    return 0
+
+
+def train_resume(dev, tmp: str) -> None:
+    """11d: resume on the card, bit for bit.  Two children (this script with
+    ``--train-worker``), each with ``torch.use_deterministic_algorithms``
+    and ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: the embedding's and the
+    loss's gathers have scatter-add backwards, which are atomic on the card
+    otherwise.  The first trains 4 steps uninterrupted, then 4 steps that
+    receive SIGTERM after step 2 and write the emergency checkpoint; a
+    fresh one resumes from it to step 4.  Every leaf of the two final
+    states must be equal (torch.equal, on the card)."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import convert
+    from repro_torch.launch.train import parse_args
+    from repro_torch.models import decoder
+    from repro_torch.train import step as step_mod
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+
+    def child(mode: str) -> str:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-worker",
+                               mode, tmp], capture_output=True, text=True, timeout=600, env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"train worker exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        return proc.stdout
+
+    out = child("cut")
+    if "preemption: writing emergency checkpoint" not in out:
+        raise AssertionError(f"the preempted run wrote no emergency checkpoint:\n{out}")
+    whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
+    cut_steps = CheckpointManager(cut).valid_steps()
+    if cut_steps != [2]:
+        raise AssertionError(f"after SIGTERM at step 2 the checkpoints are {cut_steps}, want [2]")
+    out = child("resume")
+    if "resumed from checkpoint step 2" not in out:
+        raise AssertionError(f"the fresh worker did not resume from step 2:\n{out}")
+    cfg = get_config(parse_args([]).arch, smoke=True)
+    tc = step_mod.TrainConfig()
+    states = []
+    for d in (whole, cut):
+        model = decoder.init_params(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+        step, state, _ = CheckpointManager(d).restore_latest(step_mod.init_train_state(model, tc))
+        if step != 4:
+            raise AssertionError(f"{d}: latest step {step}, want 4")
+        states.append(state)
+    a, b = (convert.train_state_to_arrays(s) for s in states)
+    differ = [n for n in a if not torch.equal(a[n].to(dev), b[n].to(dev))]
+    if differ:
+        raise AssertionError(f"resumed run != uninterrupted run at {differ[:5]}")
+    print(f"[train resume] {cfg.name} on the card, deterministic algorithms: 4 steps "
+          f"uninterrupted == 2 steps, SIGTERM, emergency checkpoint at step 2, a fresh process "
+          f"resumed to step 4: all {len(a)} leaves equal (torch.equal) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_families(smi: str) -> None:
+    """11e: zamba2-1.2b and rwkv6-1.6b at full width and depth, 4 bf16
+    steps each through `launch.train.main`."""
+    from repro_torch.configs.registry import get_config
+
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--steps", "4", "--batch", "4", "--seq-len", "128",
+                "--lr", "3e-4", "--warmup", "2"]
+        t0 = time.perf_counter()
+        losses, ev, peak = train_cli(argv)
+        n_params = sum(p.numel() for p in ev.states[-1].params.parameters())
+        ev.states.clear()
+        step_ms = float(np.median(ev.step_ms[1:]))
+        print(f"[train {arch}] full width and depth ({cfg.num_layers} layers, {n_params:,} "
+              f"parameters), B=4 S=128, 4 bf16 steps: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; step {step_ms:.2f} ms (median of steps "
+              f"1-3), {512 / step_ms * 1e3:.0f} tokens/s; AdamW "
+              f"{float(np.median(ev.adamw_ms[1:])):.2f} ms; peak memory {peak:,} B in "
+              f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def train_smoke_archs(dev) -> None:
+    """11f: every other LM arch's smoke config: one float32 train step on
+    the card against the CPU (B=2, 32 positions)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS, get_config
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    worst = []
+    for arch in ARCHS:
+        if arch in ("ising-qmc", TRAIN_ARCH):
+            continue
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        text = 32 - cfg.vlm_patches
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, text)).astype(np.int32),
+                 "labels": rng.integers(0, cfg.vocab_size, (2, text)).astype(np.int32)}
+        if cfg.vlm_patches:
+            batch["visual_embeds"] = rng.standard_normal((2, cfg.vlm_patches, cfg.d_model),
+                                                         np.float32)
+        if cfg.encdec:
+            batch["frames"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model), np.float32)
+        loss_e, gn_e, m_e, where, _ = train_step_card_vs_cpu(cfg, dev, batch)
+        if not max(loss_e, gn_e, m_e) <= TRAIN_F32_GRAD_DEEP:
+            raise AssertionError(f"{arch} smoke float32 train step, card vs CPU: loss {loss_e}, "
+                                 f"grad norm {gn_e}, m {m_e} ({where}) > {TRAIN_F32_GRAD_DEEP}")
+        worst.append(f"{arch} {max(loss_e, gn_e, m_e):.2e}")
+    print(f"[train smoke archs] float32 train step card vs CPU (worst of loss, grad norm, "
+          f"clipped gradient; bound {TRAIN_F32_GRAD_DEEP:.3e}, 11a's): {'; '.join(worst)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_phase(dev, smi: str, profile: bool = False) -> None:
+    """Phase 11: LM training on the card (plain PyTorch: none of #1-#7)."""
+    train_float32_gate(dev)
+    train_main_path(smi, profile)
+    train_grad_accum(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_resume(dev, tmp)
+    train_families(smi)
+    train_smoke_archs(dev)
+
+
 def main(argv: list[str]) -> int:
     if "--kill-worker" in argv:
         return kill_worker(argv[argv.index("--kill-worker") + 1])
+    if "--train-worker" in argv:
+        at = argv.index("--train-worker")
+        return train_worker(argv[at + 1], argv[at + 2])
     quick = "--quick" in argv
     profile = "--profile" in argv
     if not torch.cuda.is_available():
@@ -3177,6 +3659,13 @@ def main(argv: list[str]) -> int:
     if any(ops.launches.values()):
         raise AssertionError(f"the LM families launched {dict(ops.launches)}; they have no kernel")
     end_phase("LM families")
+    # -- 11. LM training ------------------------------------------------------
+    ops.reset_launches()
+    train_phase(dev, smi, profile)
+    if any(ops.launches.values()):
+        raise AssertionError(f"LM training launched {dict(ops.launches)}; it has no kernel")
+    print(f"[train] phase 11 launched none of #1-#7: {dict(ops.launches)}")
+    end_phase("LM training")
 
     if profile:
         profile_serve("cb")

@@ -12,22 +12,34 @@ Fault-tolerance contract:
   raises ``CheckpointCorruptError`` instead of silently resuming from
   garbage.  ``restore_latest_named`` treats a corrupt snapshot as absent:
   it deletes the bad directory and falls back to the newest *valid* one.
-* Async — ``save_named(..., blocking=False)`` writes on a background
-  thread; serving continues.  One save is in flight at a time.
+* Async — ``save``/``save_named(..., blocking=False)`` write on a
+  background thread; training or serving continues.  One save is in
+  flight at a time; ``save`` takes its host copies before it returns.
 * Keep-N garbage collection, and a ``valid_steps`` scan that ignores —
   and removes — incomplete or corrupt directories.
 
-The payload is a flat ``{name: ndarray}`` dict whose names and dtypes are
-recorded in the manifest, restorable with no prior knowledge of the
-structure (the server-snapshot API: the restorer learns the job and slot
-layout *from* the checkpoint).
+Two payload shapes are supported:
+
+* ``save``/``restore``/``restore_latest`` — a tree checkpoint restored
+  into the structure of a caller-provided ``like_tree`` (the training-loop
+  API).  A tree is nested dicts, tuples, lists and NamedTuples of tensors
+  or numpy arrays, its leaves taken in JAX's ``tree_flatten`` order (a
+  dict's values by sorted key, None no leaves); a `train.step.TrainState`
+  is written as the reference's TrainState (`core.convert.train_state_names`),
+  so each package restores the other's steps, and is restored in place.
+* ``save_named``/``restore_named`` — a flat ``{name: ndarray}`` dict
+  whose names and dtypes are recorded in the manifest, restorable with
+  no prior knowledge of the structure (the server-snapshot API: the
+  restorer learns the job and slot layout *from* the checkpoint).
 
 The on-disk format is the JAX reference package's (``step_%010d``
 directories; ``manifest.json`` with ``shards``, ``checksums``,
 ``raw_dtypes``, ``dtypes``, ``shapes``, ``names`` and ``extra``; one npy
 file per array; dtypes numpy does not treat as numeric stored as a uint8
-view with the true dtype recorded), byte for byte: a directory written by
-either package's manager reads back in the other.
+view with the true dtype recorded: bfloat16 tensors are written through
+``tensor.view(torch.uint8)`` and read back the same way, so no
+``ml_dtypes`` is needed), byte for byte: a directory written by either
+package's manager reads back in the other.
 """
 
 from __future__ import annotations
@@ -40,9 +52,10 @@ import re
 import shutil
 import threading
 import time
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
+import torch
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -51,19 +64,98 @@ class CheckpointCorruptError(RuntimeError):
     """A shard failed its checksum / a step dir is unreadable."""
 
 
-def _serialize(arr: np.ndarray) -> tuple[bytes, Optional[str]]:
+def _dtype_name(arr) -> str:
+    return "bfloat16" if isinstance(arr, torch.Tensor) else str(arr.dtype)
+
+
+def _serialize(arr) -> tuple[bytes, Optional[str]]:
     """npy-encode one host array; returns (bytes, raw_dtype_or_None).
 
     Non-numpy-native dtypes (bf16 etc.) are stored as a uint8 view with
-    the true dtype recorded so restore can view them back.
+    the true dtype recorded so restore can view them back.  A bfloat16
+    leaf comes as a CPU tensor (`_host`).
     """
     raw = None
-    if arr.dtype.kind not in "biufc":
+    if isinstance(arr, torch.Tensor):
+        raw = "bfloat16"
+        arr = arr.contiguous().view(torch.uint8).numpy()
+    elif arr.dtype.kind not in "biufc":
         raw = str(arr.dtype)
         arr = arr.view(np.uint8)
     buf = io.BytesIO()
     np.save(buf, arr)
     return buf.getvalue(), raw
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's ``tree_flatten`` order: a dict's
+    values by sorted key, a tuple's, list's or NamedTuple's in order; None
+    has none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for child in tree for leaf in _tree_leaves(child)]
+    return [tree]
+
+
+def _tree_unflatten(like, leaves):
+    """``like``'s structure over the iterator ``leaves`` (`_tree_leaves` order)."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _tree_unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (tuple, list)):
+        children = [_tree_unflatten(child, leaves) for child in like]
+        if isinstance(like, list):
+            return children
+        return type(like)(*children) if hasattr(like, "_fields") else tuple(children)
+    return next(leaves)
+
+
+def _train_state(tree):
+    """``tree`` if it is a `train.step.TrainState`, else None."""
+    if not hasattr(tree, "_fields"):
+        return None
+    from repro_torch.train.step import TrainState
+
+    return tree if isinstance(tree, TrainState) else None
+
+
+def _host(leaf):
+    """A host copy of one leaf: a numpy array, or a CPU tensor for
+    bfloat16 (which numpy cannot hold without ``ml_dtypes``)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+    return np.array(leaf)
+
+
+def _host_leaves(tree) -> list:
+    state = _train_state(tree)
+    if state is not None:
+        from repro_torch.core import convert
+
+        return [_host(t) for t in convert.train_state_to_arrays(state).values()]
+    return [_host(leaf) for leaf in _tree_leaves(tree)]
+
+
+def _as_like(arr, like):
+    """A restored leaf as ``like``: a tensor of its dtype on its device,
+    or a numpy array of its dtype."""
+    if isinstance(like, torch.Tensor):
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
+        return t.to(device=like.device, dtype=like.dtype)
+    if isinstance(arr, torch.Tensor):
+        arr = arr.float().numpy()
+    like_dtype = np.asarray(like).dtype
+    return arr.astype(like_dtype) if arr.dtype != like_dtype else arr
+
+
+def _check_count(manifest: dict, count: int, d: str) -> None:
+    if manifest["num_leaves"] != count:
+        raise ValueError(f"{d} holds {manifest['num_leaves']} leaves, the tree {count}")
 
 
 class CheckpointManager:
@@ -117,7 +209,8 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     # ---- save ----
-    def _write_payload(self, step: int, items: list, extra: dict | None, names: list):
+    def _write_payload(self, step: int, items: list, extra: dict | None,
+                       names: Optional[list] = None):
         """Stage shards + manifest under .tmp, fsync, rename into place."""
         # One process writes: the reference's names for process 0.
         tmp = self._step_dir(step) + ".tmp0"
@@ -129,7 +222,7 @@ class CheckpointManager:
         shapes = {}
         for i, arr in enumerate(items):
             fname = f"leaf_0_{i:05d}.npy"
-            dtypes[str(i)] = str(arr.dtype)
+            dtypes[str(i)] = _dtype_name(arr)
             shapes[str(i)] = list(arr.shape)
             data, raw = _serialize(arr)
             if raw is not None:
@@ -151,8 +244,9 @@ class CheckpointManager:
             "treedef": "",
             "time": time.time(),
             "extra": extra or {},
-            "names": names,
         }
+        if names is not None:
+            manifest["names"] = names
         mpath = os.path.join(tmp, "manifest.json")
         with open(mpath, "w") as f:
             json.dump(manifest, f)
@@ -164,6 +258,21 @@ class CheckpointManager:
         os.rename(tmp, final)
         self._gc()
 
+    def save(self, step: int, tree: Any, *, blocking: bool = True, extra: dict | None = None):
+        """Checkpoint a tree (a `train.step.TrainState` as the reference's
+        TrainState) at ``step``.  Host copies are taken before this
+        returns, so the caller may update its tensors in place at once."""
+        host = _host_leaves(tree)
+        self._start(lambda: self._write_payload(step, host, extra), blocking)
+
+    def _start(self, write, blocking: bool):
+        self.wait()  # one save in flight at a time (async OR blocking)
+        if blocking:
+            write()
+        else:
+            self._async_thread = threading.Thread(target=write, daemon=True)
+            self._async_thread.start()
+
     def save_named(self, step: int, arrays: dict, *, blocking: bool = True,
                    extra: dict | None = None):
         """Checkpoint a flat ``{name: array}`` dict; names go in the manifest
@@ -173,16 +282,7 @@ class CheckpointManager:
         copies)."""
         names = list(arrays.keys())
         host = [np.asarray(arrays[k]) for k in names]
-
-        def _write():
-            self._write_payload(step, host, extra, names)
-
-        self.wait()  # one save in flight at a time (async OR blocking)
-        if blocking:
-            _write()
-        else:
-            self._async_thread = threading.Thread(target=_write, daemon=True)
-            self._async_thread.start()
+        self._start(lambda: self._write_payload(step, host, extra, names), blocking)
 
     def wait(self):
         if self._async_thread is not None:
@@ -227,6 +327,47 @@ class CheckpointManager:
                 return d, json.load(f)
         except (OSError, ValueError) as e:
             raise CheckpointCorruptError(f"unreadable manifest in {d}: {e}") from e
+
+    def _load_leaf(self, d: str, manifest: dict, i: int):
+        """Shard ``i`` in its recorded dtype: a numpy array, or a CPU
+        tensor for bfloat16."""
+        arr = self._load_shard(d, manifest, i)
+        raw = manifest.get("raw_dtypes", {}).get(str(i))
+        if raw == "bfloat16":
+            return torch.from_numpy(arr).view(torch.bfloat16).reshape(manifest["shapes"][str(i)])
+        return arr if raw is None else arr.view(np.dtype(raw))
+
+    def restore(self, step: int, like_tree: Any) -> tuple[Any, dict]:
+        """Load ``step`` into the structure of ``like_tree``; returns
+        ``(tree, extra)``.  Each leaf takes the like leaf's dtype (and, for
+        a tensor, its device).  A `train.step.TrainState` is restored in
+        place (`core.convert.train_state_from_arrays`), after every shard
+        has been read and verified."""
+        d, manifest = self._manifest(step)
+        state = _train_state(like_tree)
+        if state is not None:
+            from repro_torch.core import convert
+
+            names = convert.train_state_names(state)
+            _check_count(manifest, len(names), d)
+            arrays = {n: self._load_leaf(d, manifest, i) for i, n in enumerate(names)}
+            return convert.train_state_from_arrays(arrays, state), manifest.get("extra", {})
+        likes = _tree_leaves(like_tree)
+        _check_count(manifest, len(likes), d)
+        out = [_as_like(self._load_leaf(d, manifest, i), like) for i, like in enumerate(likes)]
+        return _tree_unflatten(like_tree, iter(out)), manifest.get("extra", {})
+
+    def restore_latest(self, like_tree: Any):
+        """Restore the newest *valid* snapshot as ``(step, tree, extra)``,
+        falling back past corrupt ones (each failed candidate is deleted so
+        later scans skip it); ``(None, None, {})`` when there is none."""
+        for step in reversed(self.valid_steps()):
+            try:
+                tree, extra = self.restore(step, like_tree)
+                return step, tree, extra
+            except CheckpointCorruptError:
+                shutil.rmtree(self._step_dir(step), ignore_errors=True)
+        return None, None, {}
 
     def restore_named(self, step: int) -> tuple[dict, dict]:
         """Load a ``save_named`` checkpoint as ``({name: ndarray}, extra)``,

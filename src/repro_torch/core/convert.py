@@ -4,6 +4,8 @@ A model, a carry or a multi-tenant engine's slot tables written by
 another program (or by the JAX reference package this port mirrors)
 crosses into the port as a dict of numpy arrays: that keeps the port free of any other framework, and the bytes
 are exactly the same on both sides.  MT19937 state travels as uint32.
+A language model's weights travel as the reference's value tree, and a
+whole train state as its leaves in the reference's order.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.core import ising
 from repro_torch.core.engine import SweepCarry
+from repro_torch.nn.param import STACKS, leaf_groups
 
 MODEL_KEYS = ("n", "L", "h", "space_nbr", "space_J", "tau_J", "beta")
 
@@ -105,10 +108,6 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-#: The reference's layer stacks: a leading layer axis, one module a layer in the port.
-STACKS = ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
-
-
 def lm_params_from_arrays(values: dict, cfg, device="cuda"):
     """The port's model for ``cfg`` holding ``values``: the reference's
     value tree (``split_tree(init_params(key, cfg))[0]``, of
@@ -145,24 +144,102 @@ def lm_params_to_arrays(model) -> dict:
     """The inverse of `lm_params_from_arrays`: the reference's value tree
     (nested dicts of float32 numpy arrays, each of `STACKS` stacked on a
     leading layer axis)."""
+    named = dict(model.named_parameters())
     tree: dict = {}
-    stacks: dict = {}
-    for name, p in model.named_parameters():
-        arr = host_copy(p.float())
-        head, _, tail = name.partition(".")
-        if head in STACKS:
-            layer, rest = tail.split(".", 1)
-            stacks.setdefault((head, rest), {})[int(layer)] = arr
-            continue
+    for ref, names in leaf_groups(named):
+        arrays = [host_copy(named[n].float()) for n in names]
         node = tree
-        *path, leaf = name.split(".")
+        *path, leaf = ref.split(".")
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = arr
-    for (stack, rest), layers in stacks.items():
-        node = tree.setdefault(stack, {})
-        *path, leaf = rest.split(".")
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = np.stack([layers[i] for i in range(len(layers))])
+        node[leaf] = np.stack(arrays) if _stacked(ref) else arrays[0]
     return tree
+
+
+def _stacked(ref: str) -> bool:
+    return ref.split(".", 1)[0] in STACKS
+
+
+# -- a whole train state ----------------------------------------------------------------
+
+
+def train_state_names(state) -> list:
+    """The reference's leaf names of ``state`` (a `train.step.TrainState`)
+    in JAX's ``tree_flatten`` order on the reference's TrainState:
+    ``step``; then ``params.<leaf>``, ``opt.m.<leaf>`` and ``opt.v.<leaf>``,
+    each over the reference's value tree in sorted-key order with the
+    layers stacked (`nn.param.leaf_groups`); then ``ef_residual.<leaf>``
+    where the state has error-feedback buffers (None has no leaves)."""
+    refs = [ref for ref, _ in leaf_groups(n for n, _ in state.params.named_parameters())]
+    trees = ["params", "opt.m", "opt.v"] + (["ef_residual"] if state.ef_residual is not None
+                                            else [])
+    return ["step"] + [f"{tree}.{ref}" for tree in trees for ref in refs]
+
+
+def _train_state_tensors(state) -> dict:
+    """``{tree: {port parameter name: tensor}}`` for the trees of `train_state_names`."""
+    out = {"params": dict(state.params.named_parameters()), "opt.m": state.opt.m,
+           "opt.v": state.opt.v}
+    if state.ef_residual is not None:
+        out["ef_residual"] = state.ef_residual
+    return out
+
+
+def train_state_to_arrays(state) -> dict:
+    """``{name: host tensor}`` in the order of `train_state_names`: host
+    copies, each leaf in its own dtype (bfloat16 m and v included, which
+    numpy cannot hold without ``ml_dtypes``), each layer stack stacked on a
+    leading axis; ``step`` an int32 scalar.  What the reference's
+    ``tree_flatten`` of its TrainState gives, leaf for leaf."""
+    tensors = _train_state_tensors(state)
+    groups = leaf_groups(tensors["params"])
+    out = {"step": state.step.detach().to("cpu", torch.int32, copy=True)}
+    for tree, named in tensors.items():
+        for ref, names in groups:
+            if _stacked(ref):
+                out[f"{tree}.{ref}"] = torch.stack([named[n].detach().cpu() for n in names])
+            else:
+                out[f"{tree}.{ref}"] = named[names[0]].detach().to("cpu", copy=True)
+    return out
+
+
+def to_tensor(a) -> torch.Tensor:
+    """A CPU tensor of ``a`` (a tensor, or a numpy array: a bfloat16 one,
+    ``ml_dtypes``', through its 16-bit pattern)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+@torch.no_grad()
+def train_state_from_arrays(arrays: dict, state):
+    """Write ``arrays`` (``{name: array}`` as `train_state_to_arrays`
+    gives, numpy or tensors, e.g. a reference TrainState's leaves) into
+    ``state`` in place: the model's parameters, m, v, the error-feedback
+    buffers and the step, each cast to the dtype it holds.  Every name and
+    shape is checked before anything is written.  Returns ``state``."""
+    want = train_state_names(state)
+    if set(arrays) != set(want):
+        raise ValueError(f"train state names differ: missing {sorted(set(want) - set(arrays))}, "
+                         f"unknown {sorted(set(arrays) - set(want))}")
+    tensors = _train_state_tensors(state)
+    writes = [(state.step, to_tensor(arrays["step"]))]
+    for tree, named in tensors.items():
+        for ref, names in leaf_groups(tensors["params"]):
+            src = to_tensor(arrays[f"{tree}.{ref}"])
+            parts = list(src) if _stacked(ref) else [src]
+            if len(parts) != len(names):
+                raise ValueError(f"{tree}.{ref}: {len(parts)} layers, want {len(names)}")
+            for n, part in zip(names, parts):
+                if tuple(part.shape) != tuple(named[n].shape):
+                    raise ValueError(f"{tree}.{ref}: shape {tuple(part.shape)}, "
+                                     f"want {tuple(named[n].shape)}")
+                writes.append((named[n], part))
+    if tuple(writes[0][1].shape) != ():
+        raise ValueError(f"step: shape {tuple(writes[0][1].shape)}, want ()")
+    for dst, src in writes:
+        dst.copy_(src)
+    return state

@@ -25,11 +25,14 @@ prompts are consumed by decode steps).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn import attention as attn
@@ -41,6 +44,34 @@ from repro_torch.nn.moe import MoE
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
 
 f32 = torch.float32
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    """Save the products with no batch dimension (JAX's
+    ``dots_with_no_batch_dims_saveable``: ``mm``, ``addmm``, and the
+    ``bmm`` of one batch that an einsum without batch dims becomes);
+    recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_save_dots_policy)
+
+
+def remat_call(enabled: bool, policy: str, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward when
+    ``enabled`` (the reference's ``jax.checkpoint`` of a block): ``"full"``
+    saves only the block's inputs, ``"dots"`` also the products (a
+    selective checkpoint).  Memory changes, never the numbers.  Without
+    autograd recording (serving) the call is plain."""
+    if not enabled or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_save_dots)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def _norm(cfg: ModelConfig, device):
@@ -235,19 +266,21 @@ class Decoder(ParamModule):
             x = torch.cat([visual_embeds.to(x.dtype), x], dim=1)
         positions = _positions(x.shape[0], x.shape[1], x.device)
         aux = torch.zeros((), dtype=f32, device=x.device)
-        if cfg.rwkv is not None:
-            for blk in self.blocks:
-                x = blk(x)
-        elif cfg.mamba is not None:
+        remat = functools.partial(remat_call, cfg.remat, cfg.remat_policy)
+        if cfg.mamba is not None and cfg.hybrid_attn_every:
             # The shared attention block runs before every hybrid_attn_every-th
-            # mamba layer, the first included.
+            # mamba layer, the first included (a plain loop: the reference
+            # scans, and remats, the other families' blocks only).
             for l, blk in enumerate(self.blocks):
                 if self._shared_here(l):
                     x = self.shared_attn(x, positions)[0]
                 x = blk(x)
+        elif cfg.rwkv is not None or cfg.mamba is not None:
+            for blk in self.blocks:
+                x = remat(blk, x)
         else:
             for blk in self._attn_blocks():
-                x, _, aux_l = blk(x, positions)
+                x, _, aux_l = remat(blk, x, positions)
                 aux = aux + aux_l
         return self._head(x), aux
 

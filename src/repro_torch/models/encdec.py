@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.decoder import remat_call
 from repro_torch.nn import attention as attn
 from repro_torch.nn.basic import MLP, Embedding, LayerNorm, hold_in
 from repro_torch.nn.param import ParamModule
@@ -140,7 +141,9 @@ class EncDec(ParamModule):
         x = frames.to(self.cfg.compute_dtype) + self._positions(S, frames.device)
         positions = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
         for blk in self.enc_blocks:
-            x = blk(x, positions)
+            # The reference checkpoints its encoder and decoder blocks whole
+            # whatever remat_policy says.
+            x = remat_call(self.cfg.remat, "full", blk, x, positions)
         return self.enc_norm(x)
 
     def forward(self, tokens, frames):
@@ -150,7 +153,7 @@ class EncDec(ParamModule):
         x = self.embed(tokens) + self._positions(S, tokens.device)
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         for blk in self.dec_blocks:
-            x = blk(x, positions, enc_out)
+            x = remat_call(self.cfg.remat, "full", blk, x, positions, enc_out)
         return self.embed.logits(self.final_norm(x)), torch.zeros((), dtype=f32, device=x.device)
 
     def init_decode_caches(self, frames, max_len: int) -> "EncDecCaches":

@@ -112,7 +112,11 @@ def _ssd_chunked(xdt, dA, B, C, chunk: int):
     Lexp = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (b,nc,i,j,h)
     idx = torch.arange(q, device=xdt.device)
     mask = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
-    L = torch.where(mask, torch.exp(Lexp), torch.zeros((), dtype=Lexp.dtype, device=xdt.device))
+    # exp of the masked upper triangle (cs_i - cs_j > 0) can overflow; its
+    # gradient is then 0 * inf = NaN, so the exp sees 0 there (the forward
+    # is unchanged: those entries are masked to 0).
+    zero = torch.zeros((), dtype=Lexp.dtype, device=xdt.device)
+    L = torch.where(mask, torch.exp(torch.where(mask, Lexp, zero)), zero)
     scores = torch.einsum("bcihn,bcjhn->bcijh", C, B) * L
     y = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt)
 

@@ -8,6 +8,11 @@ logical-axes tree, as the sharding rules need.  A `ParamModule` is an
 ``nn.Parameter`` and its axes stay readable through ``logical_axes()``.
 
 Random draws take an explicit ``torch.Generator``; values are float32.
+
+`leaf_groups` names the reference's leaves: its layer stacks (`STACKS`)
+hold one leaf per parameter name with a leading layer axis, where the
+port has one module a layer, and its leaves come in JAX's flatten order
+(the keys sorted level by level).
 """
 
 from __future__ import annotations
@@ -63,10 +68,11 @@ def fan_in_init(generator: torch.Generator, shape, fan_in, dtype=torch.float32, 
 class ParamModule(nn.Module):
     """An ``nn.Module`` over a flat ``{name: Param}`` tree.
 
-    Each Param becomes a parameter of the module (no gradients: this
-    package serves; training is still to come) and its logical axes are
-    kept.  ``params()`` gives the ``{name: tensor}`` dict the functional
-    ``*_apply`` layers take.
+    Each Param becomes a parameter of the module and its logical axes are
+    kept.  Parameters are made without gradients, so serving builds no
+    autograd graph; training asks for them (`train.step.init_train_state`
+    calls ``requires_grad_()``).  ``params()`` gives the ``{name: tensor}``
+    dict the functional ``*_apply`` layers take.
     """
 
     def __init__(self, tree: dict):
@@ -92,3 +98,25 @@ class ParamModule(nn.Module):
             for name, axes in getattr(mod, "_logical", {}).items():
                 out[f"{prefix}.{name}" if prefix else name] = axes
         return out
+
+
+#: The reference's layer stacks: a leading layer axis, one module a layer in the port.
+STACKS = ("blocks", "dense_blocks", "enc_blocks", "dec_blocks")
+
+
+def leaf_groups(names) -> list:
+    """The reference's leaves for the port's parameter ``names`` (dotted,
+    as ``named_parameters`` gives them), in JAX's ``tree_flatten`` order:
+    ``[(reference name, [port names])]``.  A name under one of `STACKS`
+    (``blocks.3.attn.wq``) belongs to the stacked leaf ``blocks.attn.wq``,
+    its port names in layer order; any other name is a leaf of its own."""
+    groups: dict = {}
+    for name in names:
+        head, _, tail = name.partition(".")
+        if head in STACKS:
+            layer, rest = tail.split(".", 1)
+            groups.setdefault(f"{head}.{rest}", {})[int(layer)] = name
+        else:
+            groups[name] = {0: name}
+    order = sorted(groups, key=lambda ref: tuple(ref.split(".")))
+    return [(ref, [groups[ref][i] for i in sorted(groups[ref])]) for ref in order]

@@ -1,2 +1,3 @@
 """Fault-tolerance runtime: `ft.PreemptionHandler` (SIGTERM -> graceful
-drain) and `ft.StragglerMonitor` (EMA step-time anomalies)."""
+drain or emergency checkpoint), `ft.StragglerMonitor` and `ft.StepTimer`
+(EMA step-time anomalies) and `ft.elastic_plan` (a mesh after node loss)."""

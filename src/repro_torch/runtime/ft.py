@@ -1,14 +1,20 @@
-"""Fault-tolerance runtime: preemption handling and straggler detection.
+"""Fault-tolerance runtime: preemption handling, straggler detection,
+elastic re-meshing.
 
 Preemption / planned maintenance — SIGTERM arrives with a grace window.
 ``PreemptionHandler`` flips a flag that the serving loop checks between
-chunks (`SampleServer.drain` with ``preemption=``); the server then
-finishes the chunk, writes a blocking snapshot and returns, and a later
-`SampleServer.restore` continues bit-exactly.
+chunks (`SampleServer.drain` with ``preemption=``) and the train loop
+after each step (`launch.train`); the server finishes the chunk, writes a
+blocking snapshot and returns, the trainer writes an emergency
+checkpoint, and a later restore continues bit-exactly.
 
 Stragglers — ``StragglerMonitor`` is an EMA anomaly detector over one
-series of step (launch) times; `obs.skew.LaunchSkewMonitor` runs one per
-mesh device.  Detection only: mitigation is an orchestration action.
+series of step (launch) times, fed by ``StepTimer`` in the train loop;
+`obs.skew.LaunchSkewMonitor` runs one per mesh device.  Detection only:
+mitigation is an orchestration action.
+
+Node loss — ``elastic_plan`` recomputes a mesh shape from the surviving
+device count, keeping the model axis.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import dataclasses
 import math
 import signal
 import threading
+import time
 from typing import Optional
 
 
@@ -110,3 +117,39 @@ class StragglerMonitor:
             self.mean += self.alpha * delta
             self.var = (1 - self.alpha) * (self.var + self.alpha * delta * delta)
         return is_straggler
+
+
+def elastic_plan(num_devices: int, *, model_parallel: int = 16, prefer_pods: bool = True):
+    """Recompute a mesh shape after node loss.
+
+    Keeps the model axis intact (TP degree is a property of the model
+    sharding) and shrinks data/pod parallelism to the surviving devices.
+    Returns (shape, axes), or raises ValueError if impossible.
+    """
+    if num_devices % model_parallel != 0:
+        raise ValueError(
+            f"{num_devices} devices cannot keep model_parallel={model_parallel}"
+        )
+    rest = num_devices // model_parallel
+    if prefer_pods and rest % 16 == 0 and rest // 16 >= 2:
+        return (rest // 16, 16, model_parallel), ("pod", "data", "model")
+    return (rest, model_parallel), ("data", "model")
+
+
+class StepTimer:
+    """Context manager feeding the straggler monitor (host clock).  The
+    train loop reads the step's loss inside it (``float(loss)``), which
+    waits for the device: the time is the step's, not its enqueue's."""
+
+    def __init__(self, monitor: StragglerMonitor, step: int):
+        self.monitor = monitor
+        self.step = step
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        self.is_straggler = self.monitor.record(self.step, self.seconds)
+        return False

@@ -832,3 +832,67 @@ def test_lm_family_server_cli_on_the_card(arch, capsys):
     finished = serve.main(["--arch", arch, "--requests", "5", "--slots", "2", "--max-new", "6"])
     assert len(finished) == 5 and all(len(r.out) == 6 for r in finished)
     assert "served 5 requests, 30 tokens" in capsys.readouterr().out
+
+
+# -- LM training (chip_smoke.py phase 11's twins, at the smoke sizes) ---------------
+
+LM_ARCHS = LM_DENSE + LM_RECURRENT + ["deepseek-v3-671b", "llama4-scout-17b-a16e",
+                                      "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_float32_train_step_on_the_card_equals_the_cpu(arch):
+    """One float32 train step (TF32 off) on the card and on the CPU from
+    the same weights: loss, gradient norm and Adam's m within
+    `F32_GRAD_DEEP` (ROADMAP §3aa)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import decoder, encdec
+    from repro_torch.train import step as tstep
+    from test_torch_lm_trap import F32_GRAD_DEEP, scaled_error
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    rng = np.random.default_rng(0)
+    text = 32 - cfg.vlm_patches
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, text)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, text)).astype(np.int32)}
+    if cfg.vlm_patches:
+        batch["visual_embeds"] = rng.standard_normal((2, cfg.vlm_patches, cfg.d_model), np.float32)
+    if cfg.encdec:
+        batch["frames"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model), np.float32)
+    init = (encdec if cfg.encdec else decoder).init_params
+    tc = tstep.TrainConfig()
+    out = []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            model = init(torch.Generator().manual_seed(0), cfg, device="cpu").to(dev)
+            state, m = tstep.make_train_step(cfg, tc)(
+                tstep.init_train_state(model, tc),
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            out.append((m, {n: t.cpu() for n, t in state.opt.m.items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (mc, mcard), (mh, mcpu) = out
+    for k in ("loss", "grad_norm"):
+        assert scaled_error(float(mh[k]), float(mc[k])) <= F32_GRAD_DEEP, k
+    for n, want in mcpu.items():
+        assert scaled_error(want.numpy(), mcard[n].numpy()) <= F32_GRAD_DEEP, n
+
+
+def test_lm_train_cli_on_the_card_resumes(tmp_path, capsys):
+    """`launch.train` on the card at the smoke config: finite losses,
+    periodic checkpoints, a restart resuming at the last step."""
+    _need_card()
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.launch import train
+
+    losses = train.main(["--smoke", "--steps", "4", "--ckpt-dir", str(tmp_path),
+                         "--ckpt-every", "2"])
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert CheckpointManager(str(tmp_path)).valid_steps() == [2, 4]
+    assert train.main(["--smoke", "--steps", "6", "--ckpt-dir", str(tmp_path)]) != []
+    assert "resumed from checkpoint step 4" in capsys.readouterr().out

@@ -13,6 +13,7 @@ from repro.configs.registry import ARCHS as JARCHS
 from repro.configs.registry import get_config as jget
 from repro_torch.configs import base
 from repro_torch.configs.registry import ARCHS, get_config, get_module
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LM_ARCHS = [a for a in ARCHS if a != "ising-qmc"]
 

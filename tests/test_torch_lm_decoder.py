@@ -26,6 +26,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core import convert
 from repro_torch.models import decoder
 from test_torch_lm_trap import BF16_LOGITS, F32_LOGITS, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DENSE = ["qwen2.5-14b", "deepseek-coder-33b", "gemma-2b", "command-r-35b", "internvl2-26b"]
 LM_ARCHS = DENSE + ["deepseek-v3-671b", "llama4-scout-17b-a16e", "zamba2-1.2b", "rwkv6-1.6b",

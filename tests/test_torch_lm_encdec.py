@@ -23,6 +23,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core import convert
 from repro_torch.models import encdec
 from test_torch_lm_trap import BF16_LOGITS, F32_LOGITS, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCH = "whisper-tiny"
 BOUND = {"float32": F32_LOGITS, "bfloat16": BF16_LOGITS}

@@ -31,6 +31,7 @@ from repro_torch.models import decoder
 from repro_torch.nn import moe
 from test_torch_lm_trap import (BF16_HYBRID_LOGITS, BF16_LOGITS, BF16_ROUTE_TIE, F32_LOGITS,
                                 scaled_error)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FAMILIES = ["deepseek-v3-671b", "llama4-scout-17b-a16e", "zamba2-1.2b", "rwkv6-1.6b",
             "whisper-tiny"]

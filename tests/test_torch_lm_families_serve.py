@@ -14,6 +14,7 @@ import pytest
 from repro.launch import serve as jserve
 from repro_torch.launch import serve
 from test_torch_lm_serve import _engines, _lockstep
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FAMILIES = ["deepseek-v3-671b", "llama4-scout-17b-a16e", "zamba2-1.2b", "rwkv6-1.6b",
             "whisper-tiny"]

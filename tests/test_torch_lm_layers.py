@@ -21,6 +21,7 @@ from repro_torch.nn import attention as tattn
 from repro_torch.nn import basic as tb
 from repro_torch.nn.param import Param, ParamModule, is_param, split_tree
 from test_torch_lm_trap import BF16_LAYER, F32_LAYER, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DT = {"float32": (jnp.float32, torch.float32, F32_LAYER),
       "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_LAYER)}

@@ -17,6 +17,7 @@ from repro.nn.param import split_tree as jsplit
 from repro_torch.configs.base import MLASpec
 from repro_torch.nn import mla
 from test_torch_lm_trap import BF16_LAYER, F32_LAYER, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DT = {"float32": (jnp.float32, torch.float32, F32_LAYER),
       "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_LAYER)}

@@ -17,6 +17,7 @@ from repro.nn import moe as jmoe
 from repro.nn.param import split_tree as jsplit
 from repro_torch.nn import moe
 from test_torch_lm_trap import BF16_LAYER, F32_LAYER, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 #: The reference's layer, compiled once a config (eager JAX compiles op by op).
 japply = jax.jit(jmoe.moe_apply, static_argnames=("cfg", "mlp_kind", "dtype"))

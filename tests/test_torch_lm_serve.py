@@ -23,6 +23,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core import convert
 from repro_torch.launch import serve
 from test_torch_lm_trap import F32_LOGITS, F32_TOP2_GAP, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _capture(engine, store, to_numpy):

@@ -18,6 +18,7 @@ from repro.sharding import ShardingCtx as JCtx
 from repro.sharding.ctx import DEFAULT_RULES as JRULES
 from repro_torch.sharding import ShardingCtx, current_ctx, set_ctx, shard_constraint, use_ctx
 from repro_torch.sharding.ctx import DEFAULT_RULES
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def fake_mesh(shape=(2, 2), axes=("data", "model")):

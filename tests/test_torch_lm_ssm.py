@@ -21,6 +21,7 @@ from repro.nn.param import split_tree as jsplit
 from repro_torch.nn import mamba2 as mb
 from repro_torch.nn import rwkv6 as rk
 from test_torch_lm_trap import BF16_LAYER, F32_LAYER, F32_SCAN_EXP, scaled_error
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DT = {"float32": (jnp.float32, torch.float32, F32_LAYER),
       "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_LAYER)}
