@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device; ~8 minutes
+    python3 chip_smoke.py            # needs one CUDA device; ~13 minutes
     python3 chip_smoke.py --quick    # build + kernel-vs-plain checks only
     python3 chip_smoke.py --profile  # also trace the serving runs, LM decode steps and a train step
+    python3 chip_smoke.py --dryrun-table DIR  # every dry-run cell, rows in DIR (not the smoke)
 
 (``--kill-worker DIR`` is the SIGKILL child of phase 6c: the script runs
 itself with it; it serves, snapshots into DIR and kills itself.
-``--train-worker cut|resume DIR`` are the children of phase 11d.)
+``--train-worker cut|resume DIR`` are the children of phase 11d,
+``--mesh-worker dryrun ARGS...``, ``--mesh-worker rank0 ARCH SHAPE``
+and ``--mesh-worker nccl`` those of phase 12.  ``--dryrun-table DIR``, not part of the
+smoke, runs the dry run of every (arch x shape x mesh) cell on the card,
+one child an arch, and writes each arch's rows to DIR.)
 
 The port's kernels (src/repro_torch/kernels/csrc/):
 
@@ -231,6 +236,23 @@ its final ok line; no phase catches an exception):
      zamba2-1.2b and rwkv6-1.6b at full width and depth, 4 bf16 steps each
      through `launch.train.main`; f. every other LM arch's smoke config,
      one float32 train step card against CPU within a.'s bound.
+  12. the LM over a device mesh (plain PyTorch on the card: none of
+     #1-#7; every piece runs in a child, which zeroes its counts before
+     its work and prints them after, and the sum must be 0): a.
+     `launch.dryrun` at full width and depth on the card's device type,
+     one child a cell, all at once (`MESH_CELLS`: gemma-2b train_4k on
+     16x16 and 2x16x16 with int8_ef, qwen2.5-14b prefill_32k and
+     decode_32k, deepseek-v3 train_4k (experts over 16) and decode_32k,
+     whisper-tiny decode_32k, rwkv6-1.6b long_500k, qwen2.5-14b
+     long_500k): each row `ok` or the reference's `skipped`, qwen's decode
+     with collectives and temp bytes, each row and its seconds printed; c.
+     beside them, a child on a one-rank NCCL world (every axis of size
+     1): expert parallelism (both combines) == the local path and the
+     int8_ef step on a (1, 1, 1) pod mesh == one device, bit for bit; b.
+     then rank 0's share of gemma-2b train_4k and deepseek-v3 decode_32k,
+     its blocks real tensors drawn from a seed, one step each in a fake
+     world (no value printed: its collectives do nothing): the card's
+     peak beside the dry run's arguments + temp bytes, the step's ms.
 
 The last three lines of standard output are the nvidia-smi line, one JSON
 line ``{"kernels": [...]}`` (#1-#4 also carry ``recovery_launches``, their
@@ -3384,12 +3406,348 @@ def train_phase(dev, smi: str, profile: bool = False) -> None:
     train_smoke_archs(dev)
 
 
+# -- the LM over a device mesh (phase 12) ---------------------------------------------
+
+#: Phase 12a's dry-run cells (arch, shape, multi-pod) and the status each
+#: must have: the reference skips quadratic attention at long_500k.
+MESH_CELLS = [
+    ("gemma-2b", "train_4k", False, "ok"),
+    ("gemma-2b", "train_4k", True, "ok"),
+    ("qwen2.5-14b", "prefill_32k", False, "ok"),
+    ("qwen2.5-14b", "decode_32k", False, "ok"),
+    ("deepseek-v3-671b", "train_4k", False, "ok"),
+    ("deepseek-v3-671b", "decode_32k", False, "ok"),
+    ("whisper-tiny", "decode_32k", False, "ok"),
+    ("rwkv6-1.6b", "long_500k", False, "ok"),
+    ("qwen2.5-14b", "long_500k", False, "skipped"),
+]
+#: Phase 12b: rank 0's share of these cells, run for real on the card.
+RANK0_CELLS = [("gemma-2b", "train_4k"), ("deepseek-v3-671b", "decode_32k")]
+
+
+def _last_json(text: str, back: int = 1) -> dict:
+    """The ``back``-th JSON row from the end of ``text``."""
+    rows = [line for line in text.splitlines() if line.startswith("{")]
+    if len(rows) < back:
+        raise AssertionError(f"no JSON row in:\n{text[-2000:]}")
+    return json.loads(rows[-back])
+
+
+def _child_launches(stdout: str) -> dict:
+    """The kernel launches a phase-12 child counted itself (its last JSON row)."""
+    return _last_json(stdout)["launches"]
+
+
+def _children(cmds: dict, timeout: float) -> dict:
+    """Run the commands (``{key: argv}``) at once; ``{key: (rc, stdout, stderr, s)}``.
+    Every child is waited for, or killed when the time is up."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for key, argv in cmds.items():
+            procs[key] = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True, env=env, cwd=str(ROOT))
+        for key, proc in procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            stdout, stderr = proc.communicate(timeout=left)
+            out[key] = (proc.returncode, stdout, stderr, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def mesh_dryrun(smi: str, extra: dict, launches: dict) -> tuple[dict, dict]:
+    """12a: `launch.dryrun`'s CLI at full width and depth, one child a cell,
+    all at once (a fake world of 256 or 512 ranks each; fake tensors on the
+    card's device type), with the ``extra`` children beside them.  Each
+    child's kernel launches are added to ``launches``.  Returns the rows
+    and the extra children's results."""
+    cmds = dict(extra)
+    for arch, shape, mp, _ in MESH_CELLS:
+        cmds[arch, shape, mp] = [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                                 "dryrun", "--device", "cuda", "--arch", arch, "--shape", shape,
+                                 "--no-analyze"] + (["--multi-pod"] if mp else [])
+    results = _children(cmds, timeout=420)
+    rows = {}
+    for arch, shape, mp, want in MESH_CELLS:
+        rc, stdout, stderr, done_s = results[arch, shape, mp]
+        if rc != 0:
+            raise AssertionError(f"dry run {arch} {shape} exited {rc}:\n{stderr[-3000:]}")
+        for name, n in _child_launches(stdout).items():
+            launches[name] += n
+        row = _last_json(stdout, back=2)
+        if row["status"] != want:
+            raise AssertionError(f"dry run {arch} {shape} {'2x16x16' if mp else '16x16'}: "
+                                 f"{row['status']}, not {want}: {row}\n{stderr[-4000:]}")
+        rows[arch, shape, mp] = row
+        mesh = "x".join(str(n) for n in row.get("mesh", {}).values()) or (
+            "2x16x16" if mp else "16x16")
+        if want == "skipped":
+            print(f"[dryrun] {arch} {shape} {mesh}: skipped ({row['reason'][:60]}...) "
+                  f"{row['seconds']:.1f} s")
+            continue
+        mem, coll = row["memory"], row["collectives"]
+        print(f"[dryrun] {arch} {shape} {mesh}: ok in {row['seconds']:.1f} s (build "
+              f"{row['lower_s']} s, step {row['compile_s']} s); rank 0 arguments "
+              f"{mem['argument_bytes'] / 1e9:.3f} GB, temp {mem['temp_bytes'] / 1e9:.3f} GB, "
+              f"output {mem['output_bytes'] / 1e9:.3f} GB; {row['xla_cost']['flops_body_once']:.4g}"
+              f" flops; collectives {coll['counts']} ({sum(coll['bytes_once'].values()) / 1e9:.3f}"
+              f" GB)")
+    qwen = rows["qwen2.5-14b", "decode_32k", False]
+    if not (sum(qwen["collectives"]["counts"].values()) > 0 and qwen["memory"]["temp_bytes"] > 0
+            and qwen["mesh"] == {"data": 16, "model": 16}):
+        raise AssertionError(f"qwen2.5-14b decode_32k: {qwen}")
+    print(f"[dryrun] {len(MESH_CELLS)} cells in "
+          f"{max(r[3] for r in results.values()):.1f} s of wall time (children in parallel); {smi}")
+    return rows, {k: results[k] for k in extra}
+
+
+def mesh_rank0(rows: dict, smi: str, launches: dict) -> None:
+    """12b: rank 0's share of each of `RANK0_CELLS`, its local blocks real
+    tensors on the card drawn from a seeded generator, one step in the fake
+    world (whose collectives do nothing: no value is printed).  The card's
+    peak beside the dry run's argument + temp bytes.  Each child's kernel
+    launches are added to ``launches``."""
+    for arch, shape in RANK0_CELLS:
+        res = _children({0: [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+                             "rank0", arch, shape]}, timeout=420)[0]
+        rc, stdout, stderr, _ = res
+        if rc != 0:
+            raise AssertionError(f"rank 0's {arch} {shape} exited {rc}:\n{stderr[-3000:]}")
+        got = _last_json(stdout)
+        for name, n in got["launches"].items():
+            launches[name] += n
+        mem = rows[arch, shape, False]["memory"]
+        dry = mem["argument_bytes"] + mem["temp_bytes"]
+        print(f"[rank0] {arch} {shape}: one step {got['step_ms']:.1f} ms on the card "
+              f"(build {got['build_s']:.1f} s); peak {got['peak_bytes'] / 1e9:.3f} GB "
+              f"(arguments {got['argument_bytes'] / 1e9:.3f} GB) against the dry run's "
+              f"arguments + temp {dry / 1e9:.3f} GB: ratio {got['peak_bytes'] / dry:.3f}; "
+              f"{got['microbatches']} microbatches; {smi}")
+        if got["argument_bytes"] != mem["argument_bytes"]:
+            raise AssertionError(f"{arch} {shape}: rank 0's arguments {got['argument_bytes']} B "
+                                 f"on the card, {mem['argument_bytes']} B in the dry run")
+
+
+def mesh_worker_dryrun(args: list[str]) -> int:
+    """A child of 12a: `launch.dryrun`'s CLI on ``args``, its kernel
+    launches counted from 0 and printed as the last JSON row."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    ops.reset_launches()
+    dryrun.main(args)
+    print(json.dumps({"launches": dict(ops.launches)}))
+    return 0
+
+
+def mesh_worker_rank0(arch: str, shape: str) -> int:
+    """The child of 12b: rank 0's share of (arch, shape), run for real."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    dev = torch.device("cuda:0")
+    dryrun.init_fake_world(False)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cell = dryrun.build_cell(arch, shape, False, "cuda",
+                             generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    arg_bytes = dryrun.local_bytes(cell.args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dryrun.run_step(cell, fake=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"arch": arch, "shape": shape, "build_s": build_s, "step_ms": step_ms,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "argument_bytes": arg_bytes,
+                      "microbatches": cell.meta.get("microbatches_run", 1),
+                      "launches": dict(ops.launches)}))
+    return 0
+
+
+def mesh_worker_nccl() -> int:
+    """The child of 12c: a one-rank NCCL world on the card, every mesh axis
+    of size 1.  Expert parallelism (both combines) through the mesh path
+    equals the local path bit for bit (one MoE layer, and deepseek-v3's and
+    llama4-scout's smoke models, float32 and bfloat16); the int8_ef train
+    step on a ``(1, 1, 1)`` ``("pod", "data", "model")`` mesh equals the
+    one-device step (a mesh shape, no device mesh) bit for bit: every
+    parameter, m, v and residual after two steps."""
+    import dataclasses as dc
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import decoder
+    from repro_torch.nn import moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding import ShardingCtx, use_ctx
+    from repro_torch.train import step as tstep
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    ops.reset_launches()
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        ctx = ShardingCtx.over(mesh)
+        g = torch.Generator(device=dev).manual_seed(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            for combine in ("psum", "gather"):
+                cfg = moe.MoEConfig(num_experts=16, top_k=4, d_ff_expert=256, capacity_factor=1.0,
+                                    routing="sigmoid", norm_topk=True, num_shared_experts=1,
+                                    combine=combine)
+                layer = moe.MoE(g, 512, cfg, dtype=dtype, device=dev)
+                x = torch.randn((4, 64, 512), generator=g, device=dev).to(dtype)
+                with torch.no_grad():
+                    y0, a0 = layer(x)
+                    with use_ctx(ctx):
+                        assert moe._ep_mesh(cfg) is mesh
+                        y1, a1 = layer(x)
+                if not (torch.equal(y0, y1) and torch.equal(a0, a1)):
+                    raise AssertionError(f"EP {combine} {dtype}: not the local path")
+                print(f"[nccl] one MoE layer (16 experts, top-4, d 512), {combine}, {dtype}: "
+                      f"the mesh path == the local path bit for bit")
+            for arch in ("deepseek-v3-671b", "llama4-scout-17b-a16e"):
+                cfg = dc.replace(get_config(arch, smoke=True), dtype="bfloat16"
+                                 if dtype == torch.bfloat16 else "float32")
+                model = decoder.init_params(torch.Generator(device=dev).manual_seed(1), cfg, dev)
+                toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g, device=dev)
+                with torch.no_grad():
+                    l0, _ = decoder.apply(model, toks, cfg)
+                    with use_ctx(ctx):
+                        l1, _ = decoder.apply(model, toks, cfg)
+                if not torch.equal(l0, l1):
+                    raise AssertionError(f"{arch} {dtype}: the mesh logits differ")
+                print(f"[nccl] {arch} smoke {dtype}: logits on the mesh == one device")
+        cfg = dc.replace(get_config("gemma-2b", smoke=True), dtype="float32")
+        tc = tstep.TrainConfig(optimizer=AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=10),
+                               grad_compression="int8_ef")
+        pods = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        states = []
+        for c in (ShardingCtx({"pod": 1, "data": 1, "model": 1}), ShardingCtx.over(pods)):
+            model = decoder.init_params(torch.Generator(device=dev).manual_seed(2), cfg, dev)
+            state = tstep.init_train_state(model, tc)
+            step = tstep.make_train_step(cfg, tc)
+            gb = torch.Generator(device=dev).manual_seed(3)
+            with use_ctx(c):
+                for _ in range(2):
+                    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=gb, device=dev)
+                    state, _ = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+            states.append(state)
+        a, b = states
+        for name, p in a.params.named_parameters():
+            q = dict(b.params.named_parameters())[name]
+            for what, x, y in (("param", p, q), ("m", a.opt.m[name], b.opt.m[name]),
+                               ("v", a.opt.v[name], b.opt.v[name]),
+                               ("residual", a.ef_residual[name], b.ef_residual[name])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"int8_ef on the (1, 1, 1) mesh: {what} {name} differs")
+        print(f"[nccl] int8_ef train step on a (1, 1, 1) pod mesh == one device bit for bit "
+              f"(2 steps, {len(a.opt.m)} leaves: parameters, m, v, residuals)")
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"ok": True, "launches": dict(ops.launches)}))
+    return 0
+
+
+def dryrun_table(out_dir: str) -> int:
+    """``--dryrun-table DIR`` (not part of the smoke): the dry run of every
+    (arch x shape x mesh) cell, ``launch.dryrun --arch A --both-meshes`` a
+    child an arch, all at once; each child's rows in DIR/A.json, and one
+    line a row here."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing to test", file=sys.stderr)
+        return 2
+    from repro_torch.launch.dryrun import LM_ARCHS
+
+    os.makedirs(out_dir, exist_ok=True)
+    smi = nvidia_smi_line()
+    cmds = {a: [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda",
+                "--arch", a, "--both-meshes", "--no-analyze",
+                "--out", os.path.join(out_dir, f"{a}.json")] for a in LM_ARCHS}
+    results = _children(cmds, timeout=1800)
+    print(smi)
+    print("arch | shape | mesh | status | seconds | argument GB | temp GB | collectives | "
+          "collective GB | flops")
+    failed = 0
+    for a in LM_ARCHS:
+        rc, stdout, stderr, _ = results[a]
+        if rc != 0:
+            print(f"{a}: exited {rc}: {stderr[-1500:]}")
+            failed += 1
+            continue
+        with open(os.path.join(out_dir, f"{a}.json")) as f:
+            for row in json.load(f):
+                mesh = "2x16x16" if row["multi_pod"] else "16x16"
+                if row["status"] != "ok":
+                    why = row.get("reason") or row.get("error", "")
+                    print(f"{a} | {row['shape']} | {mesh} | {row['status']} | "
+                          f"{row['seconds']} | {why[:100]}")
+                    failed += row["status"] == "error"
+                    continue
+                mem, coll = row["memory"], row["collectives"]
+                print(f"{a} | {row['shape']} | {mesh} | ok | {row['seconds']} | "
+                      f"{mem['argument_bytes'] / 1e9:.3f} | {mem['temp_bytes'] / 1e9:.3f} | "
+                      f"{sum(coll['counts'].values())} | "
+                      f"{sum(coll['bytes_once'].values()) / 1e9:.3f} | "
+                      f"{row['xla_cost']['flops_body_once']:.4g}")
+    print(f"[dryrun table] {failed} cells failed; "
+          f"{max(r[3] for r in results.values()):.1f} s of wall time")
+    return 1 if failed else 0
+
+
+def lm_mesh_phase(smi: str) -> dict:
+    """Phase 12: the LM over a device mesh (plain PyTorch: none of #1-#7).
+    12a's children and 12c's run at once; 12b's after them, one at a time,
+    so that their step times have the host to themselves.  Every piece of
+    the phase runs in a child, which counts its own kernel launches from 0;
+    returns their sum."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the children
+    launches = dict.fromkeys(ops.launches, 0)
+    nccl = [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker", "nccl"]
+    rows, extra = mesh_dryrun(smi, {"nccl": nccl}, launches)
+    rc, stdout, stderr, done_s = extra["nccl"]
+    if rc != 0:
+        raise AssertionError(f"the NCCL child exited {rc}:\n{stderr[-3000:]}")
+    for name, n in _child_launches(stdout).items():
+        launches[name] += n
+    print("\n".join(line for line in stdout.splitlines() if line.startswith("[nccl]")))
+    print(f"[nccl] {done_s:.1f} s")
+    mesh_rank0(rows, smi, launches)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     if "--kill-worker" in argv:
         return kill_worker(argv[argv.index("--kill-worker") + 1])
     if "--train-worker" in argv:
         at = argv.index("--train-worker")
         return train_worker(argv[at + 1], argv[at + 2])
+    if "--dryrun-table" in argv:
+        return dryrun_table(argv[argv.index("--dryrun-table") + 1])
+    if "--mesh-worker" in argv:
+        at = argv.index("--mesh-worker")
+        if argv[at + 1] == "dryrun":
+            return mesh_worker_dryrun(argv[at + 2:])
+        if argv[at + 1] == "rank0":
+            return mesh_worker_rank0(*argv[at + 2:at + 4])
+        return mesh_worker_nccl()
     quick = "--quick" in argv
     profile = "--profile" in argv
     if not torch.cuda.is_available():
@@ -3666,6 +4024,15 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"LM training launched {dict(ops.launches)}; it has no kernel")
     print(f"[train] phase 11 launched none of #1-#7: {dict(ops.launches)}")
     end_phase("LM training")
+    # -- 12. the LM over a device mesh ------------------------------------------
+    ops.reset_launches()
+    mesh_launches = lm_mesh_phase(smi)
+    if any(ops.launches.values()) or any(mesh_launches.values()):
+        raise AssertionError(f"phase 12 launched {mesh_launches} in its children, "
+                             f"{dict(ops.launches)} here; it has no kernel")
+    print(f"[mesh] phase 12 launched none of #1-#7 (its children's own counts, summed): "
+          f"{mesh_launches}")
+    end_phase("LM over a mesh")
 
     if profile:
         profile_serve("cb")

@@ -17,6 +17,17 @@ Fault-tolerance contract:
   flight at a time; ``save`` takes its host copies before it returns.
 * Keep-N garbage collection, and a ``valid_steps`` scan that ignores —
   and removes — incomplete or corrupt directories.
+* Multi-process — ``process_index`` namespaces the files
+  (``leaf_<process>_<i>.npy``, staged under ``<step>.tmp<process>``).  A
+  process that commits a step another process already committed adds its
+  files to the directory and unions the manifests: the top level stays
+  the lowest process's (a single-process reader sees its tree), and
+  ``"processes"`` holds each process's entries.  Each manager restores
+  its own process's leaves.  (The reference's manager replaces the
+  directory, so there the last process to commit a step wins.)
+* Resharding restore — ``restore(..., shardings=)`` places each loaded
+  leaf with the current mesh's placements (``distribute_tensor``), so a
+  run restarted on another layout restores transparently.
 
 Two payload shapes are supported:
 
@@ -153,15 +164,77 @@ def _as_like(arr, like):
     return arr.astype(like_dtype) if arr.dtype != like_dtype else arr
 
 
+def _shardings_like(like_tree, shardings) -> list:
+    """The leaves of ``shardings`` in ``like_tree``'s leaf order; a None
+    in ``shardings`` stands for one unplaced leaf."""
+    likes = _tree_leaves(like_tree)
+    flat = _tree_leaves(_none_as_leaf(shardings))
+    if len(flat) != len(likes):
+        raise ValueError(f"shardings has {len(flat)} leaves, the tree {len(likes)}")
+    return [None if s is _NONE else s for s in flat]
+
+
+_NONE = object()
+
+
+def _none_as_leaf(tree):
+    if tree is None:
+        return _NONE
+    if isinstance(tree, dict):
+        return {k: _none_as_leaf(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_none_as_leaf(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_none_as_leaf(v) for v in tree)
+    return tree
+
+
+def _place(leaf, sharding):
+    """``leaf`` (a tensor or an array) as a DTensor of ``sharding``'s placements."""
+    if sharding is None:
+        return leaf
+    from torch.distributed.tensor import distribute_tensor
+
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(leaf))
+    return distribute_tensor(t.to(sharding.mesh.device_type), sharding.mesh, sharding.placements)
+
+
 def _check_count(manifest: dict, count: int, d: str) -> None:
     if manifest["num_leaves"] != count:
         raise ValueError(f"{d} holds {manifest['num_leaves']} leaves, the tree {count}")
 
 
+_PROCESS_KEYS = ("num_leaves", "shards", "raw_dtypes", "checksums", "dtypes", "shapes",
+                 "treedef", "names", "extra")
+_SHARD_RE = re.compile(r"^leaf_(\d+)_\d+\.npy$")
+
+
+def _process_of(manifest: dict) -> int:
+    """The process that wrote a one-process manifest (from its file names)."""
+    for fname in manifest["shards"].values():
+        m = _SHARD_RE.match(fname)
+        if m:
+            return int(m.group(1))
+    return 0
+
+
+def _union(old: dict, new: dict, proc: int) -> dict:
+    """The manifest of a step directory holding ``old``'s processes and ``new``'s."""
+    procs = dict(old.get("processes") or {str(_process_of(old)): old})
+    procs[str(proc)] = new
+    procs = {k: {f: v[f] for f in _PROCESS_KEYS if f in v} for k, v in procs.items()}
+    first = procs[min(procs, key=int)]
+    out = {k: v for k, v in new.items() if k not in _PROCESS_KEYS}
+    out.update(first)
+    out["processes"] = procs
+    return out
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, process_index: int = 0):
         self.dir = directory
         self.keep = keep
+        self.proc = int(process_index)
         os.makedirs(directory, exist_ok=True)
         self._async_thread: Optional[threading.Thread] = None
 
@@ -175,9 +248,10 @@ class CheckpointManager:
         try:
             with open(os.path.join(full, "manifest.json")) as f:
                 manifest = json.load(f)
-            for fname in manifest["shards"].values():
-                if not os.path.exists(os.path.join(full, fname)):
-                    return False
+            for entry in (manifest.get("processes") or {"": manifest}).values():
+                for fname in entry["shards"].values():
+                    if not os.path.exists(os.path.join(full, fname)):
+                        return False
         except (OSError, ValueError, KeyError, TypeError):
             return False
         return True
@@ -212,8 +286,7 @@ class CheckpointManager:
     def _write_payload(self, step: int, items: list, extra: dict | None,
                        names: Optional[list] = None):
         """Stage shards + manifest under .tmp, fsync, rename into place."""
-        # One process writes: the reference's names for process 0.
-        tmp = self._step_dir(step) + ".tmp0"
+        tmp = self._step_dir(step) + f".tmp{self.proc}"
         os.makedirs(tmp, exist_ok=True)
         shards = {}
         raw_dtypes = {}
@@ -221,7 +294,7 @@ class CheckpointManager:
         dtypes = {}
         shapes = {}
         for i, arr in enumerate(items):
-            fname = f"leaf_0_{i:05d}.npy"
+            fname = f"leaf_{self.proc}_{i:05d}.npy"
             dtypes[str(i)] = _dtype_name(arr)
             shapes[str(i)] = list(arr.shape)
             data, raw = _serialize(arr)
@@ -247,16 +320,35 @@ class CheckpointManager:
         }
         if names is not None:
             manifest["names"] = names
+        final = self._step_dir(step)
+        other = self._other_processes(final)
+        if other is not None:
+            manifest = _union(other, manifest, self.proc)
         mpath = os.path.join(tmp, "manifest.json")
         with open(mpath, "w") as f:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
-        final = self._step_dir(step)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        if other is not None:  # join the other processes' files
+            for name in os.listdir(tmp):
+                os.replace(os.path.join(tmp, name), os.path.join(final, name))
+            os.rmdir(tmp)
+        else:
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
         self._gc()
+
+    def _other_processes(self, final: str) -> Optional[dict]:
+        """The manifest of ``final`` when other processes (not this one)
+        committed it, else None."""
+        try:
+            with open(os.path.join(final, "manifest.json")) as f:
+                old = json.load(f)
+        except (OSError, ValueError):
+            return None
+        procs = set(old.get("processes") or {str(_process_of(old))}) - {str(self.proc)}
+        return old if procs and self._is_valid(os.path.basename(final)) else None
 
     def save(self, step: int, tree: Any, *, blocking: bool = True, extra: dict | None = None):
         """Checkpoint a tree (a `train.step.TrainState` as the reference's
@@ -321,12 +413,28 @@ class CheckpointManager:
             raise CheckpointCorruptError(f"unreadable shard {path}: {e}") from e
 
     def _manifest(self, step: int) -> tuple[str, dict]:
+        """The step's manifest as this process reads it: its own entries
+        where several processes wrote the step."""
         d = self._step_dir(step)
         try:
             with open(os.path.join(d, "manifest.json")) as f:
-                return d, json.load(f)
+                manifest = json.load(f)
         except (OSError, ValueError) as e:
             raise CheckpointCorruptError(f"unreadable manifest in {d}: {e}") from e
+        procs = manifest.get("processes")
+        if procs is not None:
+            if str(self.proc) not in procs:
+                raise CheckpointCorruptError(
+                    f"{d} holds processes {sorted(procs, key=int)}, not {self.proc}")
+            manifest = {k: v for k, v in manifest.items() if k not in _PROCESS_KEYS}
+            manifest.update(procs[str(self.proc)])
+        return d, manifest
+
+    def processes(self, step: int) -> list[int]:
+        """The process indices whose leaves ``step`` holds."""
+        with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
+            manifest = json.load(f)
+        return sorted(int(p) for p in (manifest.get("processes") or {_process_of(manifest): 0}))
 
     def _load_leaf(self, d: str, manifest: dict, i: int):
         """Shard ``i`` in its recorded dtype: a numpy array, or a CPU
@@ -337,14 +445,19 @@ class CheckpointManager:
             return torch.from_numpy(arr).view(torch.bfloat16).reshape(manifest["shapes"][str(i)])
         return arr if raw is None else arr.view(np.dtype(raw))
 
-    def restore(self, step: int, like_tree: Any) -> tuple[Any, dict]:
+    def restore(self, step: int, like_tree: Any, shardings: Any = None) -> tuple[Any, dict]:
         """Load ``step`` into the structure of ``like_tree``; returns
         ``(tree, extra)``.  Each leaf takes the like leaf's dtype (and, for
         a tensor, its device).  A `train.step.TrainState` is restored in
         place (`core.convert.train_state_from_arrays`), after every shard
-        has been read and verified."""
+        has been read and verified.  ``shardings``: a tree of the same
+        structure of `sharding.NamedSharding`s (None leaves for none);
+        each loaded leaf becomes a DTensor of its placements."""
         d, manifest = self._manifest(step)
         state = _train_state(like_tree)
+        if state is not None and shardings is not None:
+            raise ValueError("restore(shardings=) takes a tree of tensors; a TrainState is "
+                             "restored in place into its own tensors")
         if state is not None:
             from repro_torch.core import convert
 
@@ -355,15 +468,17 @@ class CheckpointManager:
         likes = _tree_leaves(like_tree)
         _check_count(manifest, len(likes), d)
         out = [_as_like(self._load_leaf(d, manifest, i), like) for i, like in enumerate(likes)]
+        if shardings is not None:
+            out = [_place(leaf, sh) for leaf, sh in zip(out, _shardings_like(like_tree, shardings))]
         return _tree_unflatten(like_tree, iter(out)), manifest.get("extra", {})
 
-    def restore_latest(self, like_tree: Any):
+    def restore_latest(self, like_tree: Any, shardings: Any = None):
         """Restore the newest *valid* snapshot as ``(step, tree, extra)``,
         falling back past corrupt ones (each failed candidate is deleted so
         later scans skip it); ``(None, None, {})`` when there is none."""
         for step in reversed(self.valid_steps()):
             try:
-                tree, extra = self.restore(step, like_tree)
+                tree, extra = self.restore(step, like_tree, shardings)
                 return step, tree, extra
             except CheckpointCorruptError:
                 shutil.rmtree(self._step_dir(step), ignore_errors=True)

@@ -41,3 +41,8 @@ def smoke_config() -> ModelConfig:
         kv_chunk=16,
     )
 
+
+def input_specs(shape, cfg=None):
+    from repro_torch.configs import common
+
+    return common.input_specs(cfg or CONFIG, shape)

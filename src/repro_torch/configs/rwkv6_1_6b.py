@@ -40,3 +40,8 @@ def smoke_config() -> ModelConfig:
         rwkv=RWKV6Config(d_model=64, d_ff=128, head_dim=16, lora_mix=8, lora_decay=16, chunk=8),
     )
 
+
+def input_specs(shape, cfg=None):
+    from repro_torch.configs import common
+
+    return common.input_specs(cfg or CONFIG, shape, allow_long=True)

@@ -50,3 +50,8 @@ def smoke_config() -> ModelConfig:
         max_target_length=64,
     )
 
+
+def input_specs(shape, cfg=None):
+    from repro_torch.configs import common
+
+    return common.input_specs(cfg or CONFIG, shape)

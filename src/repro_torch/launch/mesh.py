@@ -1,4 +1,16 @@
-"""The slot mesh: the devices a `SweepEngine`'s slot pool is laid out over.
+"""Meshes: the LM's production and host meshes, and the slot mesh.
+
+The LM's meshes are ``torch.distributed`` ``DeviceMesh``es over the world
+the caller initialised (``init_process_group``): a fake world for the dry
+run, a gloo world for the CPU tests, one NCCL rank on the card.  They are
+functions, never module-level values, and none initialises a world.
+Production target (the reference's): 16x16 = 256 chips a pod,
+``("data", "model")``; the multi-pod mesh adds a leading ``"pod"`` axis
+(2 pods = 512 chips).  Batch shards over ``("pod", "data")``;
+tensor/expert parallelism over ``"model"``; ``"pod"`` also carries the
+compressed gradient sync (`train.step`).
+
+The slot mesh is the devices a `SweepEngine`'s slot pool is laid out over.
 
 A `SlotMesh` is a frozen tuple of `torch.device` with one axis, "data"
 (``mesh.shape == {"data": D}``, the reference's slot-mesh shape): replica
@@ -21,6 +33,41 @@ always built by the caller; nothing falls back to one.
 from __future__ import annotations
 
 import torch
+
+
+def make_mesh(shape, axes, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first ranks of
+    the initialised world."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise ValueError(f"a {shape} mesh needs an initialised process group "
+                         f"(torch.distributed.init_process_group) of at least {shape} ranks")
+    n = 1
+    for k in shape:
+        n *= k
+    if dist.get_world_size() < n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks; the world has {dist.get_world_size()}")
+    return DeviceMesh(torch.device(device).type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """``(16, 16)`` ``("data", "model")``, or ``(2, 16, 16)`` ``("pod",
+    "data", "model")`` with ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, device="cpu"):
+    """A small ``("data", "model")`` mesh over the first ``data * model`` ranks."""
+    return make_mesh((data, model), ("data", "model"), device)
+
+
+def mesh_devices_required(multi_pod: bool) -> int:
+    return 512 if multi_pod else 256
 
 
 class SlotMesh(tuple):

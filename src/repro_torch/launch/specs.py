@@ -2,10 +2,11 @@
 
 Parameters carry logical axes (`nn.param`, ``ParamModule.logical_axes``);
 batches and decode caches get logical axes assigned here by structural
-rules, then the active ``ShardingCtx`` maps logical -> physical with the
-divisibility fallback.  The port has no ``NamedSharding``: each function
-returns partition specs (`ShardingCtx.spec`: one entry a dimension, None
-for replicated), which on one device are all replicated.
+rules, then the ``ShardingCtx`` maps logical -> physical with the
+divisibility fallback.  Over a ``DeviceMesh`` (``ShardingCtx.over(mesh)``)
+each function returns `NamedSharding`s, in the reference's trees; over a
+mesh shape alone it returns the partition specs (`ShardingCtx.spec`: one
+entry a dimension, None for replicated).
 """
 
 from __future__ import annotations
@@ -22,19 +23,26 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _resolve(ctx: ShardingCtx, logical, shape):
+    """The sharding (a mesh ctx) or the spec (a mesh-shape ctx) of ``logical``."""
+    if ctx.mesh is not None:
+        return ctx.sharding(logical, tuple(shape))
+    return ctx.spec(logical, tuple(shape))
+
+
 def param_shardings(ctx: ShardingCtx, values_tree, logical_tree):
-    """The spec of each parameter: ``values_tree`` and ``logical_tree`` are
-    nested dicts of the same keys (or flat ``{name: tensor}`` and
+    """The sharding of each parameter: ``values_tree`` and ``logical_tree``
+    are nested dicts of the same keys (or flat ``{name: tensor}`` and
     ``ParamModule.logical_axes()``)."""
-    return _map(lambda v, lg: ctx.spec(lg, tuple(v.shape)), values_tree, logical_tree)
+    return _map(lambda v, lg: _resolve(ctx, lg, v.shape), values_tree, logical_tree)
 
 
 def batch_shardings(ctx: ShardingCtx, batch_tree):
     def one(x):
         if x.ndim == 0:
-            return ()
+            return scalar_sharding(ctx)
         logical = ("batch",) + (None,) * (x.ndim - 1)
-        return ctx.spec(logical, tuple(x.shape))
+        return _resolve(ctx, logical, x.shape)
 
     return _map(one, batch_tree)
 
@@ -64,7 +72,7 @@ def cache_shardings(ctx: ShardingCtx, caches_tree):
         logical = _CACHE_RULES.get(name, {}).get(x.ndim)
         if logical is None:
             logical = ("layers", "batch") + (None,) * (x.ndim - 2)
-        return ctx.spec(logical, tuple(x.shape))
+        return _resolve(ctx, logical, x.shape)
 
     def walk(tree, name):
         if tree is None:
@@ -81,7 +89,7 @@ def cache_shardings(ctx: ShardingCtx, caches_tree):
 
 
 def scalar_sharding(ctx: ShardingCtx):
-    return ()
+    return ctx.spec_sharding(()) if ctx.mesh is not None else ()
 
 
 def tree_size_bytes(tree) -> int:

@@ -9,9 +9,10 @@ emergency on preemption) -> straggler monitor -> auto-resume.
       --ckpt-dir /tmp/ckpt
 
 The flags are the reference's, plus ``--device``.  One device trains:
-``--data`` / ``--model`` other than 1 are refused (meshes over several
-devices are not ported yet), and every parameter's partition spec on the
-1x1 mesh is replicated, so nothing is placed.  Without ``--smoke`` the
+``--data`` / ``--model`` other than 1 are refused (the CLI initialises no
+process group; a mesh over several devices runs from Python, through
+``sharding.ShardingCtx.over``), and every parameter's partition spec on
+the 1x1 mesh is replicated, so nothing is placed.  Without ``--smoke`` the
 arch's full config trains.  The checkpoints are the reference's format
 (each package resumes the other's).
 
@@ -55,8 +56,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.data != 1 or args.model != 1:
-        raise ValueError(f"--data {args.data} --model {args.model}: the port trains on one "
-                         f"device; a mesh over several devices is not ported yet")
+        raise ValueError(f"--data {args.data} --model {args.model}: the CLI trains on one "
+                         f"device; a mesh over several devices runs from Python "
+                         f"(sharding.ShardingCtx.over)")
     return args
 
 

@@ -42,6 +42,8 @@ from repro_torch.nn.basic import MLP, Embedding, LayerNorm, RMSNorm, hold_in
 from repro_torch.nn.mla import MLA, MLACache
 from repro_torch.nn.moe import MoE
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
+from repro_torch.sharding import current_ctx, shard_constraint, use_ctx
+from repro_torch.sharding.ctx import gather_on_use
 
 f32 = torch.float32
 
@@ -66,12 +68,20 @@ def remat_call(enabled: bool, policy: str, fn, *args):
     ``enabled`` (the reference's ``jax.checkpoint`` of a block): ``"full"``
     saves only the block's inputs, ``"dots"`` also the products (a
     selective checkpoint).  Memory changes, never the numbers.  Without
-    autograd recording (serving) the call is plain."""
+    autograd recording (serving) the call is plain.  The recompute runs
+    under the forward's sharding context: on the card the backward runs
+    on autograd's device thread, which does not see the caller's."""
     if not enabled or not torch.is_grad_enabled():
         return fn(*args)
+    ctx = current_ctx()
+
+    def block(*a):
+        with use_ctx(ctx):
+            return fn(*a)
+
     if policy == "dots":
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=_save_dots)
-    return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(block, *args, use_reentrant=False, context_fn=_save_dots)
+    return checkpoint(block, *args, use_reentrant=False)
 
 
 def _norm(cfg: ModelConfig, device):
@@ -168,7 +178,13 @@ class RWKVBlock(nn.Module):
         self.cm = rk.ChannelMix(generator, cfg.rwkv, dtype=dtype, device=device)
 
     def forward(self, x):
-        x = x + self.tm(self.ln1(x))
+        # The residual stream held batch-sharded at each mixer's input (not
+        # in the reference): a constraint's cotangent takes its placements,
+        # so a partial-sum gradient from one mixer is summed before the
+        # other's gates, whose backward DTensor would scatter it over the
+        # sequence.  No-ops without a mesh.
+        x = shard_constraint(x, ("batch", "seq", None))
+        x = shard_constraint(x + self.tm(self.ln1(x)), ("batch", "seq", None))
         return x + self.cm(self.ln2(x))
 
     def decode(self, x, cache: rk.RWKVCache):
@@ -252,11 +268,16 @@ class Decoder(ParamModule):
         return self.embed(tokens) * self.embed_scale
 
     def _head(self, x):
-        x = self.final_norm(x)
+        # Not in the reference: the head's input is held replicated over
+        # "model", so its cotangent (a partial sum over the vocab shards) is
+        # summed here before it runs back through the blocks, where DTensor
+        # would scatter it over the sequence.
+        x = shard_constraint(self.final_norm(x), ("batch", "seq", None))
         if self.cfg.tie_embeddings:
             return self.embed.logits(x)
         dtype = self.cfg.compute_dtype
-        return torch.matmul(x.to(dtype), self.lm_head.to(dtype))
+        logits = torch.matmul(x.to(dtype), gather_on_use(self.lm_head).to(dtype))
+        return shard_constraint(logits, ("batch", "seq", "vocab"))
 
     def forward(self, tokens, visual_embeds: Optional[torch.Tensor] = None):
         """Full forward; returns (logits (B, S, vocab), aux_loss)."""
@@ -265,6 +286,7 @@ class Decoder(ParamModule):
         if visual_embeds is not None:
             x = torch.cat([visual_embeds.to(x.dtype), x], dim=1)
         positions = _positions(x.shape[0], x.shape[1], x.device)
+        x = shard_constraint(x, ("batch", "seq", None))
         aux = torch.zeros((), dtype=f32, device=x.device)
         remat = functools.partial(remat_call, cfg.remat, cfg.remat_policy)
         if cfg.mamba is not None and cfg.hybrid_attn_every:
@@ -294,6 +316,7 @@ class Decoder(ParamModule):
         caches = init_decode_caches(cfg, B, max_len, device=tokens.device)
         x = self._embed(tokens)
         positions = _positions(B, S, x.device)
+        x = shard_constraint(x, ("batch", "seq", None))
         for l, blk in enumerate(self._attn_blocks()):
             x, kv, _ = blk(x, positions)
             if cfg.attn_kind == "mla":
@@ -307,7 +330,7 @@ class Decoder(ParamModule):
 
     def decode(self, token, caches: DecodeCaches, cur_len: int):
         cfg = self.cfg
-        x = self._embed(token)
+        x = shard_constraint(self._embed(token), ("batch", None, None))
         if cfg.rwkv is not None or cfg.mamba is not None:
             for l, blk in enumerate(self.blocks):
                 if self._shared_here(l):

@@ -34,6 +34,7 @@ from repro_torch.models.decoder import remat_call
 from repro_torch.nn import attention as attn
 from repro_torch.nn.basic import MLP, Embedding, LayerNorm, hold_in
 from repro_torch.nn.param import ParamModule
+from repro_torch.sharding import shard_constraint
 
 f32 = torch.float32
 
@@ -139,6 +140,7 @@ class EncDec(ParamModule):
         """frames: (B, enc_seq, d) stub conv output -> encoded (B, enc_seq, d)."""
         B, S, _ = frames.shape
         x = frames.to(self.cfg.compute_dtype) + self._positions(S, frames.device)
+        x = shard_constraint(x, ("batch", "seq", None))
         positions = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
         for blk in self.enc_blocks:
             # The reference checkpoints its encoder and decoder blocks whole

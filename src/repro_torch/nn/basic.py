@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
+from repro_torch.sharding import shard_constraint
+from repro_torch.sharding.ctx import is_dtensor, replicate_dims, replicated_like
 
 f32 = torch.float32
 
@@ -65,7 +67,10 @@ def rmsnorm_init(dim: int, logical=("embed",), device=None):
 
 
 def rmsnorm_apply(p, x, eps: float = 1e-6, zero_centered: bool = False):
-    xf = x.to(f32)
+    # A norm reduces its last dim: over a mesh it is gathered first (a mean
+    # over a sharded dim is a partial sum, which DTensor's next add would
+    # scatter over the sequence).
+    xf = replicate_dims(x, (-1,)).to(f32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     scale = p["scale"].to(f32)
@@ -80,7 +85,7 @@ def layernorm_init(dim: int, logical=("embed",), device=None):
 
 
 def layernorm_apply(p, x, eps: float = 1e-5):
-    xf = x.to(f32)
+    xf = replicate_dims(x, (-1,)).to(f32)  # the reduced dim whole, as `rmsnorm_apply`
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
@@ -98,12 +103,18 @@ def embedding_init(generator, vocab: int, dim: int, scale_by_dim: bool = False, 
 
 def embedding_lookup(p, tokens, dtype=torch.bfloat16):
     # Rows first, then the cast: the same values as casting the whole table.
-    return p["table"][tokens.long()].to(dtype)
+    # Over a mesh, F.embedding: DTensor has a vocab-parallel rule for it
+    # (the rows each device holds, summed), and indexing's backward
+    # (index_put) has none on every PyTorch the port runs on.
+    table = p["table"]
+    rows = F.embedding(tokens.long(), table) if is_dtensor(table) else table[tokens.long()]
+    return shard_constraint(rows.to(dtype), ("batch", "seq", None))
 
 
 def embedding_logits(p, x, dtype=torch.bfloat16):
     """Tied decode head: (..., embed) @ (embed, vocab)."""
-    return torch.matmul(x.to(dtype), p["table"].to(dtype).t())
+    logits = torch.matmul(x.to(dtype), p["table"].to(dtype).t())
+    return shard_constraint(logits, ("batch", "seq", "vocab"))
 
 
 # --- rotary ----------------------------------------------------------------------
@@ -124,8 +135,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
     # Made once a device (read-only): on the card, no copy and no host sync a call.
     freqs = _rope_frequencies_on(hd, float(theta), str(x.device))
     angles = positions[..., :, None].to(f32) * freqs  # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    cos = replicated_like(torch.cos(angles)[..., :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[..., :, None, :], x)
     x1, x2 = torch.chunk(x.to(f32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -161,7 +172,11 @@ def mlp_apply(p, x, kind: str = "swiglu", dtype=torch.bfloat16):
         h = torch.square(F.relu(h))
     else:
         raise ValueError(kind)
-    return torch.matmul(h, p["wo"].to(dtype))
+    h = shard_constraint(h, ("batch", "seq", "mlp"))
+    # The product is a partial sum over "model"; summed here (not in the
+    # reference), or DTensor's residual add scatters it over the sequence,
+    # whose gradient its products cannot shard (ROADMAP §3).
+    return shard_constraint(torch.matmul(h, p["wo"].to(dtype)), ("batch", "seq", None))
 
 
 # --- modules ------------------------------------------------------------------------

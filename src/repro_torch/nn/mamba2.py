@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.nn.basic import RMSNorm, rmsnorm_apply
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
+from repro_torch.sharding import shard_constraint
+from repro_torch.sharding.ctx import blockwise, reshape
 
 f32 = torch.float32
 
@@ -79,7 +81,8 @@ def mamba2_init(generator, cfg: Mamba2Config, device=None):
 
 def _causal_conv(x, w, b, width: int):
     """Depthwise causal conv over seq: x (B,S,C), w (width,C)."""
-    pads = F.pad(x, (0, 0, width - 1, 0))
+    # (zeros concatenated, not F.pad: the same values, and a rule DTensor has)
+    pads = torch.cat([x.new_zeros((x.shape[0], width - 1, x.shape[2])), x], dim=1)
     S = x.shape[1]
     y = pads[:, 0:S, :] * w[0]
     for i in range(1, width):
@@ -135,6 +138,23 @@ def _ssd_chunked(xdt, dA, B, C, chunk: int):
     return (y + y_inter).reshape(b, s, h, p)
 
 
+_HEADS4 = ("batch", None, "ssm_heads", None)
+#: The scan over each device's (batch, head) block under a mesh ctx.
+_ssd_blocks = blockwise(_ssd_chunked, (_HEADS4, ("batch", None, "ssm_heads"), _HEADS4, _HEADS4,
+                                       None))
+
+
+def _ssm_step(ssm, decay, Bm, xdt, Cm):
+    """One recurrent SSM step: (y (B,H,P) before the skip, new ssm (B,H,N,P))."""
+    ssm = ssm * decay[..., None, None] + Bm[..., :, None] * xdt[..., None, :]
+    return torch.einsum("bhn,bhnp->bhp", Cm, ssm), ssm
+
+
+_STEP3 = ("batch", "ssm_heads", None)
+_ssm_step_blocks = blockwise(_ssm_step, (("batch", "ssm_heads", None, None),
+                                         ("batch", "ssm_heads"), _STEP3, _STEP3, _STEP3), (2, 0))
+
+
 def _project(p, x, cfg: Mamba2Config, dtype):
     di, G, N = cfg.d_inner, cfg.n_groups, cfg.d_state
     zxbcdt = torch.matmul(x.to(dtype), p["in_proj"].to(dtype))
@@ -156,19 +176,22 @@ def mamba2_apply(p, x, cfg: Mamba2Config, dtype=torch.bfloat16):
     z, xBC, dt_raw = _project(p, x, cfg, dtype)
     xBC = F.silu(_causal_conv(xBC, p["conv_w"].to(dtype), p["conv_b"].to(dtype), cfg.conv_width))
     xs, Bm, Cm = _split_xbc(xBC, cfg)
-    xs = xs.reshape(Bsz, S, H, P_)
+    xs = reshape(xs, (Bsz, S, H, P_))
     rep = H // G
-    Bm = torch.repeat_interleave(Bm.reshape(Bsz, S, G, N), rep, dim=2)
-    Cm = torch.repeat_interleave(Cm.reshape(Bsz, S, G, N), rep, dim=2)
+    Bm = torch.repeat_interleave(reshape(Bm, (Bsz, S, G, N)), rep, dim=2)
+    Cm = torch.repeat_interleave(reshape(Cm, (Bsz, S, G, N)), rep, dim=2)
     dt = softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))  # (B,S,H)
     A = -torch.exp(p["A_log"].to(f32))  # (H,)
     dA = dt * A
     xdt = xs.to(f32) * dt[..., None]
-    y = _ssd_chunked(xdt, dA, Bm.to(f32), Cm.to(f32), cfg.chunk)
+    y = _ssd_blocks(xdt, dA, Bm.to(f32), Cm.to(f32), cfg.chunk)
     y = y + p["D"].to(f32)[None, None, :, None] * xs.to(f32)
-    y = y.reshape(Bsz, S, di).to(dtype)
+    y = reshape(y, (Bsz, S, di)).to(dtype)
+    y = shard_constraint(y, ("batch", "seq", "ssm_heads"))
     y = rmsnorm_apply(p["norm"], y * F.silu(z))
-    return torch.matmul(y.to(dtype), p["out_proj"].to(dtype))
+    # Summed over "model" here (not in the reference), as `basic.mlp_apply`'s output.
+    return shard_constraint(torch.matmul(y.to(dtype), p["out_proj"].to(dtype)),
+                            ("batch", "seq", None))
 
 
 class MambaCache(NamedTuple):
@@ -195,17 +218,17 @@ def mamba2_decode_apply(p, x, cache: MambaCache, cfg: Mamba2Config, dtype=torch.
                 + p["conv_b"].to(dtype))[:, None, :]
     xBC = F.silu(conv_out)
     xs, Bm, Cm = _split_xbc(xBC, cfg)
-    xs = xs.reshape(Bsz, H, P_)
+    xs = reshape(xs, (Bsz, H, P_))
     rep = H // G
-    Bm = torch.repeat_interleave(Bm.reshape(Bsz, G, N), rep, dim=1).to(f32)
-    Cm = torch.repeat_interleave(Cm.reshape(Bsz, G, N), rep, dim=1).to(f32)
+    Bm = torch.repeat_interleave(reshape(Bm, (Bsz, G, N)), rep, dim=1).to(f32)
+    Cm = torch.repeat_interleave(reshape(Cm, (Bsz, G, N)), rep, dim=1).to(f32)
     dt = softplus(dt_raw[:, 0].to(f32) + p["dt_bias"].to(f32))  # (B,H)
     A = -torch.exp(p["A_log"].to(f32))
     decay = torch.exp(dt * A)  # (B,H)
     xdt = xs.to(f32) * dt[..., None]  # (B,H,P)
-    ssm = cache.ssm * decay[..., None, None] + Bm[..., :, None] * xdt[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", Cm, ssm) + p["D"].to(f32)[None, :, None] * xs.to(f32)
-    y = y.reshape(Bsz, 1, di).to(dtype)
+    y, ssm = _ssm_step_blocks(cache.ssm, decay, Bm, xdt, Cm)
+    y = y + p["D"].to(f32)[None, :, None] * xs.to(f32)
+    y = reshape(y, (Bsz, 1, di)).to(dtype)
     y = rmsnorm_apply(p["norm"], y * F.silu(z))
     out = torch.matmul(y.to(dtype), p["out_proj"].to(dtype))
     return out, MambaCache(conv=window[:, 1:], ssm=ssm)

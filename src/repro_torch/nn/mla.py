@@ -15,11 +15,12 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.nn.attention import NEG_INF, chunked_attention
+from repro_torch.nn.attention import NEG_INF, chunked_attention, write_position
 from repro_torch.nn.basic import RMSNorm, apply_rope, rmsnorm_apply
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
+from repro_torch.sharding import shard_constraint
+from repro_torch.sharding.ctx import reshape
 
 f32 = torch.float32
 
@@ -49,7 +50,7 @@ def mla_init(generator, d_model: int, num_heads: int, *, q_lora_rank: int = 1536
 def _up(x, w):
     """einsum("bsr,rhk->bshk") as one matmul."""
     r, h, k = w.shape
-    return torch.matmul(x, w.reshape(r, h * k)).reshape(*x.shape[:-1], h, k)
+    return reshape(torch.matmul(x, reshape(w, (r, h * k))), (*x.shape[:-1], h, k))
 
 
 def _latents(p, x, positions, rope_theta, dtype, kv_lora_rank, dr):
@@ -64,6 +65,7 @@ def _latents(p, x, positions, rope_theta, dtype, kv_lora_rank, dr):
     c_kv = rmsnorm_apply(p["kv_norm"], ckv_full[..., :kv_lora_rank])
     k_rope = ckv_full[..., kv_lora_rank:][:, :, None, :]  # (B,S,1,dr) shared head
     k_rope = apply_rope(k_rope, positions, rope_theta)
+    c_kv = shard_constraint(c_kv, ("batch", "seq", None))
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -80,13 +82,14 @@ def mla_apply(p, x, positions, *, num_heads: int, kv_lora_rank: int = 512,
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], dr)], dim=-1)
     # v head dim may differ from qk head dim; pad for the shared kernel then slice.
     dv, dq = v.shape[-1], q.shape[-1]
-    v_p = F.pad(v, (0, dq - dv)) if dv < dq else v
+    # (zeros concatenated, not F.pad: the same values, and a rule DTensor has)
+    v_p = torch.cat([v, v.new_zeros((*v.shape[:-1], dq - dv))], dim=-1) if dv < dq else v
     out = chunked_attention(q, k, v_p, causal=True, q_chunk=q_chunk, kv_chunk=kv_chunk,
                             skip_masked_chunks=skip_masked_chunks)[..., :dv]
     wo = p["wo"].to(dtype)
     h, k_, d = wo.shape
-    y = torch.matmul(out.reshape(*out.shape[:2], h * k_), wo.reshape(h * k_, d))
-    return y, (c_kv, k_rope)
+    y = torch.matmul(reshape(out, (*out.shape[:2], h * k_)), reshape(wo, (h * k_, d)))
+    return shard_constraint(y, ("batch", "seq", None)), (c_kv, k_rope)
 
 
 class MLACache(NamedTuple):
@@ -108,8 +111,8 @@ def mla_decode_apply(p, x, cache: MLACache, cur_len: int, *, num_heads: int,
     q_nope, q_rope, c_new, kr_new = _latents(p, x, positions, rope_theta, dtype, kv_lora_rank, dr)
     S_max = cache.c_kv.shape[1]
     at = min(max(cur_len, 0), S_max - 1)
-    cache.c_kv[:, at:at + 1] = c_new.to(cache.c_kv.dtype)
-    cache.k_rope[:, at:at + 1] = kr_new[:, :, 0, :].to(cache.k_rope.dtype)
+    write_position(cache.c_kv, c_new, at, ("batch", "cache_seq", "cache_head_dim"))
+    write_position(cache.k_rope, kr_new[:, :, 0, :], at, ("batch", "cache_seq", "cache_head_dim"))
     c_kv, k_rope = cache.c_kv.to(dtype), cache.k_rope.to(dtype)
     wk_b = p["wk_b"].to(dtype)
     # Absorb wk_b into the query: q_eff (B,1,H,rank).
@@ -124,7 +127,7 @@ def mla_decode_apply(p, x, cache: MLACache, cur_len: int, *, num_heads: int,
     o_lat = torch.einsum("bhst,btr->bshr", w.to(dtype), c_kv)
     out = torch.einsum("bshr,rhk->bshk", o_lat, p["wv_b"].to(dtype))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(dtype))
-    return y, cache
+    return shard_constraint(y, ("batch", None, None)), cache
 
 
 class MLA(ParamModule):

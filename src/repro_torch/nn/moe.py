@@ -22,10 +22,23 @@ Order and determinism, where the reference's semantics fix them:
   compute dtype, never with atomics: served tokens do not vary from run
   to run on the card.
 
-The reference's expert-parallel paths (``shard_map`` over a "model" mesh
-axis, ``combine="psum"|"gather"``) compute the same function as the local
-path and reduce to it on one device; the port runs the local path (its
-``shard_map`` belongs with the dry run's meshes, ROADMAP item 5).
+Expert parallelism (the reference's): when the active `ShardingCtx` has a
+``DeviceMesh`` with a ``"model"`` axis that divides the experts,
+``moe_apply`` runs through ``shard_map``: tokens are batch-sharded and
+replicated over ``"model"``, expert weights sharded over it.  Each device
+routes its (replicated) token block over all E experts, runs only its own
+``e_local = E / model`` experts, starting at ``axis_index("model") *
+e_local``, and combines:
+
+* ``combine="psum"``: each device's partial output (its experts' terms, in
+  ascending expert order) is summed over ``"model"``;
+* ``combine="gather"``: the devices' compact expert outputs are
+  all-gathered in expert order and each device combines locally, as the
+  local path does (the same sums in the same order).
+
+``aux`` is averaged over the batch axes and ``"model"``.  Without such a
+mesh the local path runs (the same function: on one device, and with
+``"gather"``, the same bits).
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.nn.basic import MLP, mlp_apply
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
+from repro_torch.sharding import P, all_gather, axis_index, current_ctx, pmean, psum, shard_map
+from repro_torch.sharding.ctx import is_dtensor
 
 f32 = torch.float32
 
@@ -119,31 +134,38 @@ def capacity(T: int, cfg: MoEConfig) -> int:
     return max(8, int(T * cfg.top_k * cfg.capacity_factor) // cfg.num_experts)
 
 
-def _assign(ids, T: int, cfg: MoEConfig):
-    """Sort-based fixed-capacity bookkeeping for ids (T, k).  Returns
-    ``(order, dest_sorted, dest, C)``: the stable sort of the flattened
-    assignments by expert, each sorted assignment's row of the expert
-    buffer, the same rows in the order of the flattened ``ids``, and the
-    capacity.  A row is ``E*C`` (the spare row) where the expert was full."""
+def _assign(ids, T: int, cfg: MoEConfig, e_start: int = 0, e_local: int | None = None):
+    """Sort-based fixed-capacity bookkeeping for ids (T, k), for the experts
+    ``[e_start, e_start + e_local)`` (default: all E).  Returns ``(order,
+    dest_sorted, dest, C)``: the stable sort of the flattened assignments by
+    expert, each sorted assignment's row of the experts' buffer, the same
+    rows in the order of the flattened ``ids``, and the capacity.  A row is
+    ``e_local*C`` (the spare row) where the expert was full or is not one
+    of these.  The counts are a scatter-add, not ``bincount``, whose output
+    size depends on the data."""
     k, E = cfg.top_k, cfg.num_experts
+    e_local = E if e_local is None else e_local
     C = capacity(T, cfg)
     flat_e = ids.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=ids.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=ids.device) - start[se]
-    dest_sorted = torch.where(pos < C, se * C + pos, torch.full_like(se, E * C))
+    keep = (pos < C) & (se >= e_start) & (se < e_start + e_local)
+    dest_sorted = torch.where(keep, (se - e_start) * C + pos, torch.full_like(se, e_local * C))
     dest = torch.empty_like(dest_sorted)
     dest[order] = dest_sorted
     return order, dest_sorted, dest, C
 
 
-def _dispatch(x2d, ids, cfg: MoEConfig, dtype):
-    """The experts' input buffer: ``(buf (E*C, d), dest (T*k,), C)``."""
+def _dispatch(x2d, ids, cfg: MoEConfig, dtype, e_start: int = 0, e_local: int | None = None):
+    """The experts' input buffer: ``(buf (e_local*C, d), dest (T*k,), C)``."""
     T, d = x2d.shape
-    order, dest_sorted, dest, C = _assign(ids, T, cfg)
-    buf = torch.zeros((cfg.num_experts * C + 1, d), dtype=dtype, device=x2d.device)
+    e_local = cfg.num_experts if e_local is None else e_local
+    order, dest_sorted, dest, C = _assign(ids, T, cfg, e_start, e_local)
+    buf = torch.zeros((e_local * C + 1, d), dtype=dtype, device=x2d.device)
     buf[dest_sorted] = x2d.to(dtype)[order // cfg.top_k]  # sorted assignment -> its token
     return buf[:-1], dest, C
 
@@ -169,16 +191,14 @@ def _expert_ffn(h, wi, wg, wo, E: int, C: int, dtype):
     return torch.bmm(act, wo.to(dtype)).reshape(E * C, d)
 
 
-def _dispatch_compute_combine(x2d, w, ids, wi, wg, wo, cfg: MoEConfig, dtype):
-    """Fixed-capacity gather -> grouped GEMM -> weighted combine.
-
-    The reference scatter-adds each sorted assignment's weighted output
-    into its token's row of zeros; a token's k outputs are therefore added
-    in ascending expert order.  Here they are gathered to (T, k, d) in
-    that order and added one at a time: the same sums, no atomics."""
-    T, d = x2d.shape
-    buf, dest, C = _dispatch(x2d, ids, cfg, dtype)
-    out = _expert_ffn(buf, wi, wg, wo, cfg.num_experts, C, dtype)
+def _combine(out, dest, w, ids, cfg: MoEConfig, dtype):
+    """Weighted combine of the experts' outputs ``out`` (rows as ``dest``
+    numbers them).  The reference scatter-adds each sorted assignment's
+    weighted output into its token's row of zeros; a token's k outputs are
+    therefore added in ascending expert order.  Here they are gathered to
+    (T, k, d) in that order and added one at a time: the same sums, no
+    atomics.  An assignment on the spare row adds zero."""
+    T, d = ids.shape[0], out.shape[-1]
     out_flat = torch.cat([out, torch.zeros((1, d), dtype=dtype, device=out.device)])
     contrib = (out_flat[dest] * w.reshape(-1, 1).to(dtype)).reshape(T, cfg.top_k, d)
     by_expert = torch.argsort(ids, dim=1, stable=True)
@@ -189,14 +209,93 @@ def _dispatch_compute_combine(x2d, w, ids, wi, wg, wo, cfg: MoEConfig, dtype):
     return y
 
 
+def _dispatch_compute_combine(x2d, w, ids, wi, wg, wo, cfg: MoEConfig, dtype,
+                              e_start: int = 0, e_local: int | None = None):
+    """Fixed-capacity gather -> grouped GEMM -> weighted combine over the
+    experts ``[e_start, e_start + e_local)`` (default: all)."""
+    e_local = cfg.num_experts if e_local is None else e_local
+    buf, dest, C = _dispatch(x2d, ids, cfg, dtype, e_start, e_local)
+    out = _expert_ffn(buf, wi, wg, wo, e_local, C, dtype)
+    return _combine(out, dest, w, ids, cfg, dtype)
+
+
+def _ep_mesh(cfg: MoEConfig):
+    """The active mesh when expert parallelism applies, else None."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None or "model" not in ctx.mesh_shape:
+        return None
+    return ctx.mesh if cfg.num_experts % ctx.mesh_shape["model"] == 0 else None
+
+
+def _moe_ep(p, x, cfg: MoEConfig, mesh, dtype):
+    """The reference's ``shard_map`` over ``"model"``: (y, aux)."""
+    import torch.distributed.tensor as dt
+
+    d = x.shape[-1]
+    E = cfg.num_experts
+    axes = tuple(mesh.mesh_dim_names)
+    e_local = E // int(mesh.mesh.shape[axes.index("model")])
+    batch_axes = tuple(a for a in ("pod", "data") if a in axes)
+    plain = not is_dtensor(x)
+
+    def as_dtensor(t):
+        # A plain tensor on a mesh is the same full tensor on every device.
+        if t is None or is_dtensor(t):
+            return t
+        return dt.DTensor.from_local(t, mesh, [dt.Replicate()] * len(axes), run_check=False)
+
+    rb = p.get("router_bias")
+
+    def shard_fn(router, wi, wg, wo, xblk, *bias):
+        midx = axis_index(mesh, "model")
+        x2d = xblk.reshape(-1, d)
+        pp = {"router": router}
+        if bias:
+            pp["router_bias"] = bias[0]
+        w, ids, aux = _route(pp, x2d, cfg)
+        if cfg.combine == "gather":
+            # all-gather compact expert outputs, combine locally:
+            # payload k*cf*T*d vs psum's 2*T*d ring bytes.
+            buf, _, C = _dispatch(x2d, ids, cfg, dtype, midx * e_local, e_local)
+            out_local = _expert_ffn(buf, wi, wg, wo, e_local, C, dtype)
+            out_all = all_gather(out_local, mesh, "model", 0)
+            _, _, dest_global, _ = _assign(ids, x2d.shape[0], cfg)
+            y = _combine(out_all, dest_global, w, ids, cfg, dtype)
+        else:
+            y = _dispatch_compute_combine(x2d, w, ids, wi, wg, wo, cfg, dtype,
+                                          midx * e_local, e_local)
+            y = psum(y, mesh, "model")
+        aux = pmean(aux, mesh, batch_axes + ("model",))
+        return y.reshape(xblk.shape), aux
+
+    args = [p["router"], p["wi"], p["wg"], p["wo"], x]
+    in_specs = [P(None, None), P("model", None, None), P("model", None, None),
+                P("model", None, None), P(batch_axes, None, None)]
+    if rb is not None:
+        args.append(rb)
+        in_specs.append(P(None))
+    y, aux = shard_map(shard_fn, mesh, in_specs=tuple(in_specs),
+                       out_specs=(P(batch_axes, None, None), P()))(
+        *(as_dtensor(t) for t in args))
+    if plain:
+        return y.full_tensor(), aux.full_tensor()
+    return y, aux
+
+
 def moe_apply(p, x, cfg: MoEConfig, *, mlp_kind: str = "swiglu", dtype=torch.bfloat16):
     """x (B, S, d) -> (y, aux_loss).  ``p`` is the reference's tree, the
-    shared expert under ``"shared"`` where the config has one."""
-    d = x.shape[-1]
-    x2d = x.reshape(-1, d)
-    w, ids, aux = _route(p, x2d, cfg)
-    y = _dispatch_compute_combine(x2d, w, ids, p["wi"], p["wg"], p["wo"], cfg, dtype)
-    y = y.reshape(x.shape)
+    shared expert under ``"shared"`` where the config has one.  Runs
+    expert-parallel when a mesh ctx with a ``"model"`` axis that divides
+    the experts is active, the local path otherwise."""
+    mesh = _ep_mesh(cfg)
+    if mesh is not None:
+        y, aux = _moe_ep(p, x, cfg, mesh, dtype)
+    else:
+        d = x.shape[-1]
+        x2d = x.reshape(-1, d)
+        w, ids, aux = _route(p, x2d, cfg)
+        y = _dispatch_compute_combine(x2d, w, ids, p["wi"], p["wg"], p["wo"], cfg, dtype)
+        y = y.reshape(x.shape)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, mlp_kind, dtype)
     return y, aux

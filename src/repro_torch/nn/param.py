@@ -23,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.sharding.ctx import gather_on_use
+
 
 class Param:
     """A model parameter annotated with logical axis names."""
@@ -72,7 +74,8 @@ class ParamModule(nn.Module):
     kept.  Parameters are made without gradients, so serving builds no
     autograd graph; training asks for them (`train.step.init_train_state`
     calls ``requires_grad_()``).  ``params()`` gives the ``{name: tensor}``
-    dict the functional ``*_apply`` layers take.
+    dict the functional ``*_apply`` layers take (a DTensor parameter
+    gathered over the batch axes, `sharding.ctx.gather_on_use`).
     """
 
     def __init__(self, tree: dict):
@@ -88,7 +91,7 @@ class ParamModule(nn.Module):
         self._logical[name] = leaf.logical
 
     def params(self) -> dict:
-        return {name: p for name, p in self.named_parameters(recurse=False)}
+        return {name: gather_on_use(p) for name, p in self.named_parameters(recurse=False)}
 
     def logical_axes(self) -> dict:
         """``{parameter name: logical axes}`` of this module and every

@@ -30,6 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.nn.basic import LayerNorm, layernorm_apply
 from repro_torch.nn.param import Param, ParamModule, fan_in_init
+from repro_torch.sharding import shard_constraint
+from repro_torch.sharding.ctx import blockwise, reshape
 
 f32 = torch.float32
 LOGW_CLAMP = 4.0  # |log decay| per step; exp(4*16) ~ 6e27 << f32 max
@@ -83,7 +85,7 @@ def _ddlerp(p, x, x_shift):
     xx = x_shift - x
     xxx = x + xx * p["maa_x"].to(x.dtype)
     lora = torch.tanh(torch.matmul(xxx, p["maa_w1"].to(x.dtype)))
-    lora = lora.reshape(*lora.shape[:2], len(MIX_NAMES), -1)
+    lora = reshape(lora, (*lora.shape[:2], len(MIX_NAMES), -1))
     deltas = torch.einsum("bscm,cmd->bscd", lora, p["maa_w2"].to(x.dtype))
     base = p["maa_base"].to(x.dtype)
     return [x + xx * (base[c] + deltas[:, :, c]) for c in range(len(MIX_NAMES))]
@@ -139,10 +141,10 @@ def _wkv_chunked(r, k, v, logw, u, chunk: int):
 
 def _project(p, xs, dtype, shape):
     xw, xk, xv, xr, xg = xs
-    logw = _decay_log(p, xw).reshape(shape)
-    r = torch.matmul(xr, p["wr"].to(dtype)).reshape(shape).to(f32)
-    k = torch.matmul(xk, p["wk"].to(dtype)).reshape(shape).to(f32)
-    v = torch.matmul(xv, p["wv"].to(dtype)).reshape(shape).to(f32)
+    logw = reshape(_decay_log(p, xw), shape)
+    r = reshape(torch.matmul(xr, p["wr"].to(dtype)), shape).to(f32)
+    k = reshape(torch.matmul(xk, p["wk"].to(dtype)), shape).to(f32)
+    v = reshape(torch.matmul(xv, p["wv"].to(dtype)), shape).to(f32)
     g = F.silu(torch.matmul(xg, p["wg"].to(dtype)))
     return logw, r, k, v, g
 
@@ -155,9 +157,11 @@ def rwkv6_time_mix_apply(p, x, cfg: RWKV6Config, dtype=torch.bfloat16, shift_sta
     x_shift = torch.cat([prev, x[:, :-1]], dim=1)
     xs = _ddlerp(p, x.to(dtype), x_shift.to(dtype))
     logw, r, k, v, g = _project(p, xs, dtype, (B, S, H, N))
-    y = _wkv_chunked(r, k, v, logw, p["bonus_u"].to(f32), cfg.chunk)
-    y = layernorm_apply(p["ln_x"], y.reshape(B, S, d).to(dtype))
-    return torch.matmul(y * g, p["wo"].to(dtype))
+    y = _wkv_blocks(r, k, v, logw, p["bonus_u"].to(f32), cfg.chunk)
+    y = layernorm_apply(p["ln_x"], reshape(y, (B, S, d)).to(dtype))
+    y = shard_constraint(y, ("batch", "seq", None))
+    # Summed over "model" here (not in the reference), as `basic.mlp_apply`'s output.
+    return shard_constraint(torch.matmul(y * g, p["wo"].to(dtype)), ("batch", "seq", None))
 
 
 class RWKVCache(NamedTuple):
@@ -176,6 +180,23 @@ def rwkv6_init_cache(batch: int, cfg: RWKV6Config, dtype=torch.bfloat16,
     )
 
 
+_HEADS4 = ("batch", None, "heads", None)
+#: The scan over each device's (batch, head) block under a mesh ctx.
+_wkv_blocks = blockwise(_wkv_chunked, (_HEADS4,) * 4 + (("heads", None), None))
+
+
+def _wkv_step(r, k, v, logw, u, wkv):
+    """One recurrent WKV step: y = r . (S + u*k (x) v);  S' = diag(exp(logw)) S + k (x) v."""
+    kv = k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", r, wkv + u[None, :, :, None] * kv)
+    return y, torch.exp(logw)[..., None] * wkv + kv
+
+
+_STEP3 = ("batch", "heads", None)
+_wkv_step_blocks = blockwise(_wkv_step, (_STEP3,) * 4 + (("heads", None),
+                                                          ("batch", "heads", None, None)), (0, 5))
+
+
 def rwkv6_time_mix_decode(p, x, cache_tm, wkv, cfg: RWKV6Config, dtype=torch.bfloat16):
     """One recurrent step. x: (B,1,d); returns (y, new_tm_shift, new_wkv)."""
     B, _, d = x.shape
@@ -184,12 +205,8 @@ def rwkv6_time_mix_decode(p, x, cache_tm, wkv, cfg: RWKV6Config, dtype=torch.bfl
     xs = _ddlerp(p, x.to(dtype), x_shift)
     logw, r, k, v, g = _project(p, xs, dtype, (B, H, N))
     g = g[:, 0]
-    u = p["bonus_u"].to(f32)
-    # y = r . (S + u*k (x) v);  S' = diag(exp(logw)) S + k (x) v.
-    kv = k[..., :, None] * v[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", r, wkv + u[None, :, :, None] * kv)
-    new_wkv = torch.exp(logw)[..., None] * wkv + kv
-    y = layernorm_apply(p["ln_x"], y.reshape(B, d).to(dtype))
+    y, new_wkv = _wkv_step_blocks(r, k, v, logw, p["bonus_u"].to(f32), wkv)
+    y = layernorm_apply(p["ln_x"], reshape(y, (B, d)).to(dtype))
     out = torch.matmul(y * g, p["wo"].to(dtype))
     return out[:, None, :], x[:, 0], new_wkv
 
@@ -219,7 +236,11 @@ def rwkv6_channel_mix_apply(p, x, dtype=torch.bfloat16, shift_state=None):
     xr = xd + xx * p["maa_r"].to(dtype)
     rgate = torch.sigmoid(torch.matmul(xr, p["wr"].to(dtype)))
     h = torch.square(F.relu(torch.matmul(xk, p["wk"].to(dtype))))
-    return rgate * torch.matmul(h, p["wv"].to(dtype))
+    h = shard_constraint(h, ("batch", "seq", "mlp"))
+    # The product summed over "model" before the gate (not in the reference),
+    # as `basic.mlp_apply`'s output: a partial sum's gradient reaching the
+    # gate's sigmoid would be scattered over the sequence by DTensor.
+    return rgate * shard_constraint(torch.matmul(h, p["wv"].to(dtype)), ("batch", "seq", None))
 
 
 def rwkv6_channel_mix_decode(p, x, cache_cm, dtype=torch.bfloat16):

@@ -55,7 +55,7 @@ class OptState(NamedTuple):
 def init_opt_state(params: dict, state_dtype=f32) -> OptState:
     """Zeroed m and v of ``state_dtype`` for ``{name: parameter}``."""
     def z(p):
-        return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=state_dtype)
 
     return OptState({n: z(p) for n, p in params.items()}, {n: z(p) for n, p in params.items()})
 

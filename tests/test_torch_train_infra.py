@@ -203,7 +203,8 @@ def test_int8_ef_compression_roundtrip():
 def test_int8_ef_needs_a_pod_axis():
     """The reference asserts; the port raises ValueError naming the axis.
     On a one-pod context the step runs and carries the residual; several
-    pods need the cross-pod sync, not ported yet."""
+    pods need the context's device mesh to sum over (a mesh shape alone is
+    refused by name; `test_torch_train_int8_pods.py` runs the sync)."""
     tc = tstep.TrainConfig(grad_compression="int8_ef")
     state = tstep.init_train_state(_model(), tc)
     assert state.ef_residual is not None and set(state.ef_residual) == set(
@@ -213,7 +214,7 @@ def test_int8_ef_needs_a_pod_axis():
         step(state, _t(_batch()))
     with use_ctx(ShardingCtx({"data": 1, "model": 1})), pytest.raises(ValueError, match="'pod'"):
         step(state, _t(_batch()))
-    with use_ctx(ShardingCtx({"pod": 2, "data": 1})), pytest.raises(NotImplementedError):
+    with use_ctx(ShardingCtx({"pod": 2, "data": 1})), pytest.raises(ValueError, match="mesh"):
         step(state, _t(_batch()))
     with use_ctx(ShardingCtx({"pod": 1, "data": 1, "model": 1})):
         state, metrics = step(state, _t(_batch()))
