@@ -78,8 +78,9 @@ its final ok line; no phase catches an exception):
      bit-identical to the same jobs served with the plain version on the
      card, and the rung's kernel must have been launched once per served
      chunk (launch counts are zeroed just before each run and read just
-     after); the drain's wall split into admission, launches and the rest
-     of each step, from the server's telemetry events;
+     after); the drain's wall split into admission, the launches'
+     enqueue, the wait for the card before retiring and the rest of each
+     step, from the server's telemetry spans;
   5. multi-tenant serving, once per rung: `SampleServer(multi_tenant=True)`
      at the same width, 8 slots, chunks of 8, 16 anneal jobs (constants and
      ramps, 64-256 sweeps), job i on tenant i % 8 of 8 reseeded tenants,
@@ -1372,32 +1373,33 @@ def serve_checked(rung: str) -> tuple:
 
 def host_split(what: str, server, seconds: float) -> None:
     """Print where a served drain's wall time went, as shares of it, from
-    the server's own telemetry events: admission (the `sched.admit`
-    spans), the launches (`engine.launch`: enqueue to the card's finish),
-    the rest of each step (retire, finalize, gauges: `sched.step` less
-    those two) and the time outside the steps (the drain loop)."""
+    the server's own telemetry spans: admission (`sched.admit`), the
+    launches' enqueue (`sched.launch`), the host waiting for the card
+    before retiring (`sched.wait`), the rest of each step (segment hooks,
+    retire, finalize, gauges: `sched.step` less those three) and the time
+    outside the steps (the drain loop)."""
     tel = server.telemetry
     if tel.dropped_events:
         raise AssertionError(f"{what}: the telemetry ring dropped {tel.dropped_events} events")
-    total = {"sched.step": 0.0, "sched.admit": 0.0, "engine.launch": 0.0}
+    total = {"sched.step": 0.0, "sched.admit": 0.0, "sched.launch": 0.0, "sched.wait": 0.0}
     opened, steps = {}, 0
     for ev in tel.events():
         name = ev["name"]
-        if name not in total:
+        if name not in total or ev["tid"] != 0:
             continue
         if ev["ph"] == "B":
             opened[name] = ev["ts"]
         elif ev["ph"] == "E":
             total[name] += ev["ts"] - opened.pop(name)
             steps += name == "sched.step"
-        elif ev["ph"] == "X":
-            total[name] += ev["dur"]
     wall = seconds * 1e6
-    step, admit, launch = total["sched.step"], total["sched.admit"], total["engine.launch"]
+    step, admit, launch, wait = (total[k] for k in ("sched.step", "sched.admit", "sched.launch",
+                                                    "sched.wait"))
     print(f"[host split {what}] {steps} steps in {seconds:.3f} s, shares of the wall: admit "
-          f"{admit / wall:.3f}, launch {launch / wall:.3f} (enqueue to the card's finish), the "
-          f"rest of the step (retire, finalize) {(step - admit - launch) / wall:.3f}, outside the "
-          f"steps {(wall - step) / wall:.3f} (telemetry on)")
+          f"{admit / wall:.3f}, launch {launch / wall:.3f} (the enqueue), wait {wait / wall:.3f} "
+          f"(the host waiting for the card before retiring), the rest of the step (hooks, "
+          f"retire, finalize) {(step - admit - launch - wait) / wall:.3f}, outside the steps "
+          f"{(wall - step) / wall:.3f} (telemetry on)")
 
 
 def multi_job_specs(base, tenant_models) -> list:

@@ -60,13 +60,30 @@ def _kernel(name: str):
     return fn
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+#: The timing events of the engine launch in progress, ``[start, end,
+#: recorded]``, or None: set by the server around `SweepEngine.run` (one
+#: CUDA device).  Each kernel entry records ``start`` right before the
+#: first C call under it and ``end`` right after each, on the launching
+#: stream, so the pair spans the kernels and not the Python before them.
+launch_timing: list | None = None
 
 
-def _raise_if_failed(name: str, err: int) -> None:
+def _launch(entry: str, dev: torch.device, *args, what: str | None = None) -> None:
+    """Call C entry ``entry`` with ``args`` and ``dev``'s current stream
+    (its last argument), recording an armed `launch_timing` pair right
+    around the call; raise, naming ``what`` (default ``entry``), if the
+    launch failed."""
+    fn, stream = _kernel(entry), torch.cuda.current_stream(dev)
+    handle = ctypes.c_void_p(stream.cuda_stream)
+    timing = launch_timing
+    if timing is not None and not timing[2]:
+        timing[0].record(stream)
+        timing[2] = True
+    err = fn(*args, handle)
+    if timing is not None:
+        timing[1].record(stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what or entry} launch failed: CUDA error {err}")
 
 
 def _sweeps(num_sweeps) -> int:
@@ -315,14 +332,14 @@ def make_colored_multisweep(
         t = tables(dev)
         k = t["kernel"]
         with torch.cuda.device(dev):
-            err = _kernel("colored_multisweep")(
+            _launch(
+                "colored_multisweep", dev,
                 _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
                 _ptr(k["off"]), _ptr(k["row"]), _ptr(k["h"]), _ptr(k["J"]), _ptr(k["tgt"]),
                 _ptr(k["tau"]), _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]),
                 B, rows, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS, flavour,
-                *_EXP_CONSTS, _stream(dev),
+                *_EXP_CONSTS,
             )
-        _raise_if_failed("colored_multisweep", err)
         launches["colored_multisweep"] += 1
         return tuple(out)
 
@@ -376,15 +393,15 @@ def make_colored_multisweep_multi(
         _same_device(dev, h_b=h_b, base_J_b=base_J_b, tau_J_b=tau_J_b)
         k = tables(dev)["kernel"]
         with torch.cuda.device(dev):
-            err = _kernel("colored_multisweep_multi")(
+            _launch(
+                "colored_multisweep_multi", dev,
                 _ptr(spins), _ptr(rng), _ptr(beta), *(_ptr(o) for o in out), _ptr(scratch),
                 _ptr(k["off"]), _ptr(k["row"]), _ptr(k["site"]), _ptr(k["tgt"]),
                 _ptr(k["down"]), _ptr(k["up"]), _ptr(k["roll"]), _ptr(h_b), _ptr(base_J_b),
                 _ptr(tau_J_b),
                 B, rows, n, sd, len(classes), num_sweeps, COLORED_WARP_GROUPS, flavour,
-                *_EXP_CONSTS, _stream(dev),
+                *_EXP_CONSTS,
             )
-        _raise_if_failed("colored_multisweep_multi", err)
         launches["colored_multisweep_multi"] += 1
         return tuple(out)
 
@@ -535,13 +552,12 @@ def _a4_fused(name, per_slot, spins, h_space, h_tau, rng, base_nbr, base_J2, tau
     scratch = (torch.empty((B, 2, rows, LANES), dtype=torch.float32, device=spins.device)
                if num_sweeps > 0 else None)
     with torch.cuda.device(spins.device):
-        err = _kernel(name)(
+        _launch(
+            name, spins.device,
             _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(rng), _ptr(base_nbr),
             _ptr(base_J2), _ptr(tau_J2), _ptr(beta), *(_ptr(t) for t in out), _ptr(scratch),
             B, rows, n, sd, num_sweeps, MAX_SMEM, tile, flavour, *_EXP_CONSTS,
-            _stream(spins.device),
         )
-    _raise_if_failed(name, err)
     launches[name] += 1
     return out
 
@@ -639,12 +655,12 @@ def metropolis_sweep(
     spins, h_space, h_tau, u = (_aligned(t) for t in (spins, h_space, h_tau, u))
     out = [torch.empty_like(spins), torch.empty_like(h_space), torch.empty_like(h_tau)]
     with torch.cuda.device(dev):
-        err = _kernel("metropolis_sweep")(
+        _launch(
+            "metropolis_sweep", dev,
             _ptr(spins), _ptr(h_space), _ptr(h_tau), _ptr(u), _ptr(base_nbr), _ptr(base_J2),
             _ptr(tau_J2), _ptr(beta), *(_ptr(t) for t in out), B, rows, n, sd, MAX_SMEM,
-            flavour, *_EXP_CONSTS, _stream(dev),
+            flavour, *_EXP_CONSTS,
         )
-    _raise_if_failed("metropolis_sweep", err)
     launches["metropolis_sweep"] += 1
     return tuple(out)
 
@@ -668,10 +684,8 @@ def _mt_block(state: torch.Tensor, uniforms: bool):
     new = torch.empty_like(state)
     out = torch.empty(state.shape, dtype=torch.float32 if uniforms else torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _kernel("mt_next_block")(
-            _ptr(state), _ptr(new), _ptr(out), V, int(uniforms), _stream(dev)
-        )
-    _raise_if_failed(name, err)
+        _launch("mt_next_block", dev, _ptr(state), _ptr(new), _ptr(out), V, int(uniforms),
+                what=name)
     launches["mt_next_block"] += 1
     return new, out
 
@@ -740,11 +754,11 @@ def fastexp(x: torch.Tensor, flavor: str = "fast") -> torch.Tensor:
     if x.numel() == 0:
         return out
     with torch.cuda.device(dev):
-        err = _kernel("fastexp_2d")(
+        _launch(
+            "fastexp_2d", dev,
             _ptr(x), _ptr(out), x.numel(), _FASTEXP_DTYPES[x.dtype], int(flavor == "accurate"),
-            *_EXP_CONSTS, _stream(dev),
+            *_EXP_CONSTS,
         )
-    _raise_if_failed("fastexp_2d", err)
     launches["fastexp_2d"] += 1
     return out
 
@@ -759,9 +773,8 @@ def _sweep_exp_check(x: torch.Tensor, exp_flavor: str) -> torch.Tensor:
     _check(x, "x", torch.float32, x.shape)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _kernel("sweep_exp_check")(
-            _ptr(x), _ptr(out), x.numel(), flavour, *_EXP_CONSTS, _stream(x.device))
-    _raise_if_failed("sweep_exp_check", err)
+        _launch("sweep_exp_check", x.device, _ptr(x), _ptr(out), x.numel(), flavour,
+                *_EXP_CONSTS)
     return out
 
 

@@ -1,9 +1,13 @@
 """Observability for the SampleServer stack.
 
     telemetry  one metrics registry (counters/gauges/histograms, with
-               labels) + one bounded ring of Chrome-trace events; spans
-               for scheduler phases, complete events for engine launches,
-               async spans for job lifecycles.
+               labels) + one bounded ring of Chrome-trace events, held as
+               tuples and built into dicts on export; slotted spans for
+               scheduler phases (mirrored into a recording
+               `torch.profiler`'s trace as ``record_function`` ranges),
+               complete events for launches timed on the host, a device
+               track of launches timed by CUDA events and resolved
+               without blocking, async spans for job lifecycles.
     trace      Chrome-trace-event JSON exporter (+ the schema validator).
     metrics    JSON snapshot + Prometheus text exposition of the registry.
     stream     opt-in per-chunk observable tap (energy / magnetization /

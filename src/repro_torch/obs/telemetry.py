@@ -17,16 +17,30 @@ Metrics take optional LABELS (``counter("serve.launches", chunk=8)``):
 each distinct label set is its own series, exactly the Prometheus data
 model the exporter renders (`repro_torch.obs.metrics`).
 
-Events are Chrome-trace-event dicts (name/ph/ts/pid/tid + args) appended
-to a ``deque(maxlen=...)`` — a long-lived server can trace forever and
-hold only the most recent window; ``dropped_events`` counts what the ring
-evicted so truncation is visible, never silent.  Three event shapes:
+Events are Chrome-trace events, held in a ``deque(maxlen=...)`` as
+tuples ``(ph, name, ts, tid, cat, args, extra)`` and turned into the
+trace's dicts only by `events` / `chrome_trace` — a long-lived server can
+trace forever and hold only the most recent window; ``dropped_events``
+counts what the ring evicted so truncation is visible, never silent.
+Four event shapes:
 
   * sync spans   (`span` -> ph "B"/"E"): scheduler phases on one track;
-                 properly nested per tid by construction (a context
-                 manager owns the B/E pairing).
-  * complete     (`complete` -> ph "X" with ``dur``): engine launches —
-                 one event per fused launch with its measured wall time.
+                 properly nested per tid by construction (a slotted
+                 context manager owns the B/E pairing).  While a
+                 `torch.profiler` records (``torch.autograd.profiler.
+                 _is_profiler_enabled``), each span also enters
+                 ``torch.profiler.record_function(<name>)``, so the spans
+                 sit in the profiler's own trace as ``user_annotation``
+                 ranges, on the kernels' clock; with no profiler
+                 recording none is entered.
+  * complete     (`complete` -> ph "X" with ``dur``): one box of a
+                 measured duration (an engine launch timed on the host).
+  * device track (`device_interval` -> ph "X" on tid `DEVICE_TID`): an
+                 interval between two CUDA timing events (an engine
+                 launch on the card), queued without waiting and resolved
+                 by `poll_device` once its end event has completed; its
+                 ``ts`` is the device start, put on the registry's clock
+                 through an anchor event (`anchor_device`).
   * async spans  (`async_begin`/`async_instant`/`async_end` -> ph
                  "b"/"n"/"e" with an ``id``): job lifecycles, which
                  overlap arbitrarily and so cannot live on a sync stack.
@@ -52,13 +66,20 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 #: Reservoir size per histogram: enough for stable p50/p95 over recent
 #: traffic, bounded so a resident server never grows it.
 HIST_WINDOW = 1024
+
+#: The track of intervals timed on the card (`Telemetry.device_interval`).
+DEVICE_TID = 1
+
+#: The kind-specific field of each phase's trace event.
+_EXTRA_KEY = {"X": "dur", "i": "s", "b": "id", "n": "id", "e": "id"}
 
 
 def _label_key(labels: dict) -> tuple:
@@ -160,11 +181,15 @@ class Telemetry:
         self._counters: dict[tuple, Counter] = {}
         self._gauges: dict[tuple, Gauge] = {}
         self._histograms: dict[tuple, Histogram] = {}
-        # Per-tid open sync spans: `span` pushes on B and pops on E, so a
-        # well-formed program cannot emit crossing B/E pairs (the schema
-        # validator in tests re-checks the invariant on the output side).
-        self._span_stacks: dict[int, list] = {}
+        # Sync spans of a name with no args on track 0, made once; and the
+        # `record_function` ranges that open spans entered, innermost last.
+        self._plain_spans: dict[str, _Span] = {}
+        self._ranges: list = []
         self._thread_names: dict[int, str] = {}
+        # Device intervals queued by `device_interval`, oldest first, and
+        # the anchor (event, trace us) that places them on this clock.
+        self._pending: deque = deque()
+        self._anchor = None
         self._lock = threading.Lock()  # registry creation only; updates
         # are single-writer (the scheduler loop) by design.
 
@@ -226,22 +251,9 @@ class Telemetry:
         """Events evicted by the bounded ring (visible truncation)."""
         return max(0, self._appended - len(self._events))
 
-    def _emit(self, ev: dict) -> None:
+    def _emit(self, ph, name, ts, tid, cat, args, extra=None) -> None:
         self._appended += 1
-        self._events.append(ev)
-
-    def _base(self, name, ph, tid, cat, ts, args) -> dict:
-        ev = {
-            "name": name,
-            "ph": ph,
-            "ts": self.now_us() if ts is None else ts,
-            "pid": self.pid,
-            "tid": int(tid),
-            "cat": cat,
-        }
-        if args:
-            ev["args"] = args
-        return ev
+        self._events.append((ph, name, ts, tid, cat, args, extra))
 
     def name_thread(self, tid: int, name: str) -> None:
         """Label a tid's track in the exported trace (metadata event)."""
@@ -249,11 +261,8 @@ class Telemetry:
 
     def instant(self, name: str, tid: int = 0, cat: str = "serve", **args):
         """Thread-scoped instant event (ph "i")."""
-        if not self.enabled:
-            return
-        ev = self._base(name, "i", tid, cat, None, args)
-        ev["s"] = "t"
-        self._emit(ev)
+        if self.enabled:
+            self._emit("i", name, self.now_us(), int(tid), cat, args, "t")
 
     def complete(self, name: str, dur_us: float, tid: int = 0,
                  cat: str = "serve", ts: float = None, **args):
@@ -264,57 +273,103 @@ class Telemetry:
             return
         if ts is None:
             ts = self.now_us() - dur_us
-        ev = self._base(name, "X", tid, cat, ts, args)
-        ev["dur"] = dur_us
-        self._emit(ev)
+        self._emit("X", name, ts, int(tid), cat, args, dur_us)
 
-    @contextmanager
     def span(self, name: str, tid: int = 0, cat: str = "serve", **args):
-        """Sync span (ph "B"/"E") on track ``tid``; nests by construction."""
+        """Sync span (ph "B"/"E") on track ``tid``, a context manager (a
+        ``with`` statement nests it by construction), mirrored into a
+        recording profiler's trace (module docstring)."""
         if not self.enabled:
-            yield
-            return
-        self._span_stacks.setdefault(tid, []).append(name)
-        self._emit(self._base(name, "B", tid, cat, None, args))
-        try:
-            yield
-        finally:
-            top = self._span_stacks[tid].pop()
-            assert top == name, f"span stack corrupted: {top} != {name}"
-            self._emit(self._base(name, "E", tid, cat, None, None))
+            return _NULL_SPAN
+        if args or tid or cat != "serve":
+            return _Span(self, name, int(tid), cat, args)
+        span = self._plain_spans.get(name)
+        if span is None:
+            span = self._plain_spans[name] = _Span(self, name, 0, "serve", None)
+        return span
 
     # Async (id-keyed) spans: job lifecycles overlap arbitrarily, so they
     # cannot share a sync stack — Chrome's b/n/e events pair by (cat, id).
 
     def async_begin(self, name: str, id, tid: int = 0, cat: str = "job",
                     **args):
-        if not self.enabled:
-            return
-        ev = self._base(name, "b", tid, cat, None, args)
-        ev["id"] = str(id)
-        self._emit(ev)
+        if self.enabled:
+            self._emit("b", name, self.now_us(), int(tid), cat, args, str(id))
 
     def async_instant(self, name: str, id, tid: int = 0, cat: str = "job",
                       **args):
-        if not self.enabled:
-            return
-        ev = self._base(name, "n", tid, cat, None, args)
-        ev["id"] = str(id)
-        self._emit(ev)
+        if self.enabled:
+            self._emit("n", name, self.now_us(), int(tid), cat, args, str(id))
 
     def async_end(self, name: str, id, tid: int = 0, cat: str = "job",
                   **args):
-        if not self.enabled:
-            return
-        ev = self._base(name, "e", tid, cat, None, args)
-        ev["id"] = str(id)
-        self._emit(ev)
+        if self.enabled:
+            self._emit("e", name, self.now_us(), int(tid), cat, args, str(id))
+
+    # -- the device track -------------------------------------------------------
+    #
+    # An interval on the card is a pair of recorded `torch.cuda.Event`s
+    # (``enable_timing=True``).  It is queued without waiting; `poll_device`
+    # resolves the queued pairs, oldest first, once their end events have
+    # completed (``query()``), or waits for them (``block=True``) where the
+    # host waits anyway.  The card's clock is tied to the registry's by an
+    # anchor: an event recorded on the stream, waited for and read against
+    # `now_us` the moment the wait returns.
+
+    def anchor_device(self, device) -> None:
+        """Record an anchor event on ``device``'s current stream, wait for
+        it and read the registry's clock: the device track's time origin.
+        Every interval resolved later is placed from the newest anchor, so
+        renewing it where the host waits anyway keeps the two clocks from
+        drifting apart."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        ev.synchronize()
+        self._anchor = (ev, self.now_us())
+
+    def device_interval(self, name: str, start, end, on_done=None,
+                        cat: str = "engine", **args) -> None:
+        """Queue the interval between two recorded timing events.  When it
+        is resolved, ``on_done(seconds)`` receives its device time (metrics
+        count whether or not events are enabled) and, with events enabled
+        and an anchor set, a complete event lands on `DEVICE_TID`."""
+        self._pending.append((name, start, end, on_done, cat, args))
+
+    def poll_device(self, block: bool = False) -> None:
+        """Resolve the queued device intervals whose end event has
+        completed, oldest first; with ``block`` wait for every one."""
+        pending = self._pending
+        while pending:
+            name, start, end, on_done, cat, args = pending[0]
+            if not end.query():
+                if not block:
+                    return
+                end.synchronize()
+            pending.popleft()
+            dur_ms = start.elapsed_time(end)
+            if on_done is not None:
+                on_done(dur_ms * 1e-3)
+            if self.enabled and self._anchor is not None:
+                anchor, t_us = self._anchor
+                ts = t_us + anchor.elapsed_time(start) * 1e3
+                self._emit("X", name, ts, DEVICE_TID, cat, args, dur_ms * 1e3)
 
     # -- export ---------------------------------------------------------------
 
     def events(self) -> list[dict]:
-        """The ring's current contents, oldest first (copies)."""
-        return [dict(ev) for ev in self._events]
+        """The ring's current contents as trace-event dicts, oldest first
+        (queued device intervals resolved first, waiting for them)."""
+        self.poll_device(block=True)
+        pid, extra_key = self.pid, _EXTRA_KEY
+        out = []
+        for ph, name, ts, tid, cat, args, extra in self._events:
+            ev = {"name": name, "ph": ph, "ts": ts, "pid": pid, "tid": tid, "cat": cat}
+            if args:
+                ev["args"] = args
+            if extra is not None:
+                ev[extra_key[ph]] = extra
+            out.append(ev)
+        return out
 
     def chrome_trace(self) -> dict:
         """A `chrome://tracing` / Perfetto-loadable trace object
@@ -333,6 +388,7 @@ class Telemetry:
         (`repro_torch.obs.metrics.snapshot`)."""
         from repro_torch.obs import metrics
 
+        self.poll_device(block=True)
         return metrics.snapshot(self)
 
     def prometheus_text(self, prefix: str = "repro") -> str:
@@ -340,4 +396,59 @@ class Telemetry:
         (`repro_torch.obs.metrics.prometheus_text`)."""
         from repro_torch.obs import metrics
 
+        self.poll_device(block=True)
         return metrics.prometheus_text(self, prefix=prefix)
+
+
+class _Span:
+    """One sync span: B on enter, E on exit; inside, a `record_function`
+    range of the same name while a profiler records.  The span of a name
+    with no args on the scheduler's track is made once and reused (it
+    holds no state of its own: a range it opened sits on the registry's
+    ``_ranges`` stack), so the hot path allocates nothing but its two
+    ring entries."""
+
+    __slots__ = ("tel", "name", "tid", "cat", "args")
+
+    def __init__(self, tel: Telemetry, name: str, tid: int, cat: str, args: dict | None):
+        self.tel = tel
+        self.name = name
+        self.tid = tid
+        self.cat = cat
+        self.args = args
+
+    def __enter__(self):
+        tel = self.tel
+        tel._appended += 1
+        tel._events.append(("B", self.name, (tel._clock() - tel._t0) * 1e6, self.tid,
+                            self.cat, self.args, None))
+        if _autograd_profiler._is_profiler_enabled:
+            rf = torch.profiler.record_function(self.name)
+            rf.__enter__()
+            tel._ranges.append((self, rf))
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        tel = self.tel
+        ranges = tel._ranges
+        if ranges and ranges[-1][0] is self:
+            ranges.pop()[1].__exit__(*exc)
+        tel._appended += 1
+        tel._events.append(("E", self.name, (tel._clock() - tel._t0) * 1e6, self.tid,
+                            self.cat, None, None))
+        return False
+
+
+class _NullSpan:
+    """The span of a registry with events off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NULL_SPAN = _NullSpan()

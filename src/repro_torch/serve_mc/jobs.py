@@ -483,6 +483,12 @@ class PTJob(_ScheduledJob):
         return self._energy_tables[key]
 
     def on_segment(self, server, carry, slots):
+        """The swap phase of the round just completed, in a ``pt.swap``
+        span of the server's telemetry."""
+        with server.telemetry.span("pt.swap"):
+            return self._swap(server, carry, slots)
+
+    def _swap(self, server, carry, slots):
         eng = server.engine
         parity = (self._seg - 1) % 2  # the round just completed: the standalone r % 2
         # A ladder whose slots span devices gathers only its R energies and

@@ -37,9 +37,29 @@ Scheduling decides WHEN a job runs, never what it computes.
 
 TELEMETRY: the server owns a `repro_torch.obs.Telemetry` registry that
 `stats()` reads, plus a bounded ring of Chrome-trace events (scheduler
-spans, one complete event per launch, async job lifecycles).  A timed
-launch ends in `torch.cuda.synchronize` on a CUDA engine, so its wall
-time covers the kernel, not just its enqueue.
+spans, one complete event per launch, async job lifecycles).  The spans
+of one step, all on tid 0 and nested under ``sched.step``:
+``sched.admit`` (``sched.admit.plan``: the policy's plan and a mesh's
+rebalance; ``sched.admit.park``; ``sched.admit.init``: admitted jobs'
+slot carries built on the host; ``sched.admit.splice``: splice, resume
+and tenant tables), ``sched.launch`` (the launch's enqueue),
+``sched.wait`` (the host waiting, on purpose, for the launch's end
+before retiring), ``sched.segment`` (the jobs' segment hooks; a ladder's
+swap phase is ``pt.swap`` inside) and ``sched.retire`` (finalize and the
+release of the slots).  Counters ``serve.slots_spliced`` (slots spliced
+or resumed by admission), ``serve.launch_device_s`` and
+``serve.launches_timed`` (the timed launches' device seconds and count).
+On one CUDA device with the kernels (``backend="cuda"``) and a static
+chunk, a launch is timed on the card by a pair of CUDA events that the
+kernel entries record right around their C calls (`ops.launch_timing`),
+resolved without blocking (at a later step, or where the host waits
+anyway: ``sched.wait``, the profiler's start and stop, `stats`, the end
+of `drain`, the exporters); its ``engine.launch`` box lands on the
+"device" track (tid 1) at its device start, and the step never calls
+`torch.cuda.synchronize`.  The mesh (the skew monitor's per-device ready
+times), the adaptive chunker (which needs each launch's time before the
+next), the plain version and CPU engines time a launch on the host, to
+its end, and keep ``engine.launch`` on tid 0.
 
 MULTI-TENANCY: ``multi_tenant=True`` builds a multi-tenant engine
 (``SweepEngine.create([model] * slots)``): every slot starts on the
@@ -104,7 +124,9 @@ import torch
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import ising
 from repro_torch.core.engine import SweepEngine, normalize_capacities
+from repro_torch.kernels import ops
 from repro_torch.obs import LaunchSkewMonitor, Telemetry
+from repro_torch.obs.telemetry import DEVICE_TID
 
 from repro_torch.serve_mc.jobs import JobResult
 
@@ -1013,6 +1035,11 @@ class SampleServer:
         self._c_migrations = tel.counter("sched.rebalance_migrations")
         self._c_swap_local = tel.counter("pt.swap_local")
         self._c_swap_cross = tel.counter("pt.swap_cross")
+        self._c_spliced = tel.counter("serve.slots_spliced")
+        # Timed launches: their device seconds (CUDA events on the card, the
+        # host wall of the launch elsewhere) and how many were timed.
+        self._c_launch_s = tel.counter("serve.launch_device_s")
+        self._c_timed = tel.counter("serve.launches_timed")
         # Chunk sizes already launched: the first launch at a size pays
         # one-time set-up, and its trace event says so (compile=True).
         self._warm_chunks: set[int] = set()
@@ -1023,6 +1050,18 @@ class SampleServer:
             capacities=self.engine.capacities,
         )
         self._skew = LaunchSkewMonitor(self.devices) if self.devices > 1 else None
+        # The kernels on one CUDA device with a static chunk: launches are
+        # timed by CUDA events on the card (module docstring), placed on the
+        # telemetry clock through an anchor taken now and renewed at
+        # `sched.wait`.
+        self._event_timing = (
+            self.engine.device.type == "cuda" and self.engine.backend == "cuda"
+            and self.engine.mesh is None and self._chunker is None
+        )
+        self._last_end = None  # the end event of the newest timed launch
+        if self._event_timing:
+            tel.name_thread(DEVICE_TID, "device")
+            tel.anchor_device(self.engine.device)
         # Queue-wait samples (user, priority, wait_s, wait_sweeps), taken
         # at FIRST admission; bounded so a resident server never grows it
         # without limit.
@@ -1130,21 +1169,23 @@ class SampleServer:
     def _admit(self) -> None:
         """One planning round at a chunk boundary: the policy decides, the
         server executes (park preempted jobs, place admitted ones)."""
+        tel = self.telemetry
         # Refresh the policy's sweep clock first: priority aging reads it.
         self.policy.clock = self.sweeps_elapsed
-        if self._pool.mode == "affine" and self.devices > 1:
-            self._rebalance()
-        planner = PlacementPlanner(
-            self._pool,
-            {id(j): slots for j, slots in self._active.values()},
-        )
-        free_before = planner.total_free
-        preempts, admits = self.policy.plan(planner, [j for j, _ in self._active.values()])
+        with tel.span("sched.admit.plan"):
+            if self._pool.mode == "affine" and self.devices > 1:
+                self._rebalance()
+            planner = PlacementPlanner(
+                self._pool,
+                {id(j): slots for j, slots in self._active.values()},
+            )
+            free_before = planner.total_free
+            preempts, admits = self.policy.plan(planner, [j for j, _ in self._active.values()])
         # Built-in policies return (job, slots) placements; custom
         # policies may return bare jobs — the server places those.
         admits = [e if isinstance(e, tuple) else (e, None) for e in admits]
         if preempts or admits:
-            self.telemetry.instant(
+            tel.instant(
                 "sched.plan",
                 policy=self.policy.name,
                 free=free_before,
@@ -1152,8 +1193,10 @@ class SampleServer:
                 admitted=[j.jid for j, _ in admits],
                 preempted=[j.jid for j in preempts],
             )
-        for job in preempts:
-            self._park(job)
+        if preempts:
+            with tel.span("sched.admit.park"):
+                for job in preempts:
+                    self._park(job)
         for job, slots in admits:
             self._place(job, slots)
 
@@ -1190,18 +1233,24 @@ class SampleServer:
                 "sched.placement", jid=job.jid, slots=list(taken), devices=devs,
                 affine=affine, mode=self._pool.mode,
             )
+        tel = self.telemetry
         if job.parked is not None:
             model = job.model_on(self) if self.multi_tenant else None
-            for b, parked in zip(taken, job.parked):
-                self.carry = self.engine.slot(b).resume(self.carry, parked, model=model)
+            with tel.span("sched.admit.splice"):
+                for b, parked in zip(taken, job.parked):
+                    self.carry = self.engine.slot(b).resume(self.carry, parked, model=model)
             job.parked = None
         else:
-            for b, slot_carry in zip(taken, job.init_carries(self)):
-                if self.multi_tenant:
-                    # The slot sweeps the job's model from now on; a job
-                    # without one resets the slot to the server's model.
-                    self.engine.set_slot_model(b, job.model_on(self))
-                self.carry = self.engine.slot(b).splice(self.carry, slot_carry)
+            with tel.span("sched.admit.init"):
+                carries = job.init_carries(self)
+            with tel.span("sched.admit.splice"):
+                for b, slot_carry in zip(taken, carries):
+                    if self.multi_tenant:
+                        # The slot sweeps the job's model from now on; a job
+                        # without one resets the slot to the server's model.
+                        self.engine.set_slot_model(b, job.model_on(self))
+                    self.carry = self.engine.slot(b).splice(self.carry, slot_carry)
+        self._c_spliced.add(len(taken))
         if job._admit_time is None:
             job._admit_time = time.perf_counter()
             job._admit_sweep = self.sweeps_elapsed
@@ -1328,6 +1377,7 @@ class SampleServer:
 
     def _start_profiler(self) -> None:
         p, tel = self._profiler, self.telemetry
+        tel.poll_device(block=True)  # earlier launches resolve outside the window
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.engine.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -1344,6 +1394,7 @@ class SampleServer:
     def _stop_profiler(self) -> None:
         p, tel = self._profiler, self.telemetry
         self._profiler = None
+        tel.poll_device(block=True)  # the window's launches resolve inside it
         path = os.path.join(p["logdir"], "trace.json")
         try:
             p["prof"].stop()
@@ -1355,25 +1406,54 @@ class SampleServer:
         tel.instant("profiler.stop", path=path)
 
     def _launch(self, chunk: int):
-        """Enqueue one engine launch; returns ``(t0, warm)`` when the launch
-        is to be timed (telemetry on, or an adaptive chunker), else None.
-        The step's Python bookkeeping then runs while the card computes;
-        `_settle_launch` synchronizes and records."""
+        """Enqueue one engine launch and count it.  On one CUDA device with
+        telemetry on and a static chunk, a pair of CUDA events around the
+        launch goes onto the telemetry's device track (resolved later,
+        without blocking) and None is returned.  Otherwise ``(t0, warm)``
+        when the launch is to be timed on the host (telemetry on, or an
+        adaptive chunker), which `_settle_launch` waits for and records,
+        else None."""
         tel = self.telemetry
         if self._profiler is not None and self._profiler["prof"] is None:
             self._start_profiler()
-        timed = self._chunker is not None or tel.enabled
-        pending = (time.perf_counter(), chunk in self._warm_chunks) if timed else None
-        self.carry = self.engine.run(self.carry, chunk)
+        warm = chunk in self._warm_chunks
+        pending = None
+        if self._event_timing and tel.enabled:
+            # The kernel entries record the pair right around their C calls
+            # (`ops.launch_timing`): the box is the kernel's, not the host's
+            # Python before it.
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            ops.launch_timing = [start, end, False]
+            try:
+                self.carry = self.engine.run(self.carry, chunk)
+            finally:
+                ops.launch_timing = None
+            self._last_end = end
+            tel.device_interval(
+                "engine.launch", start, end,
+                lambda dt: self._observe_launch(chunk, warm, dt),
+                chunk=chunk, jobs=len(self._active), devices=self.devices, compile=not warm,
+            )
+        else:
+            if self._chunker is not None or tel.enabled:
+                pending = (time.perf_counter(), warm)
+            self.carry = self.engine.run(self.carry, chunk)
         self._warm_chunks.add(chunk)
         self._c_launches.add(1)
         tel.counter("serve.launches_by_chunk", chunk=chunk).add(1)
         self._c_sweeps.add(chunk)
         return pending
 
+    def _observe_launch(self, chunk: int, warm: bool, dt: float) -> None:
+        """Count one timed launch of ``dt`` seconds."""
+        self._c_launch_s.add(dt)
+        self._c_timed.add(1)
+        self.telemetry.histogram("serve.launch_s", phase="steady" if warm else "compile").observe(dt)
+
     def _settle_launch(self, chunk: int, pending) -> None:
-        """Wait for the launch to finish and record its wall time; close an
-        armed profiler window after its last launch."""
+        """Record a launch timed on the host; close an armed profiler window
+        after its last launch."""
         if pending is not None:
             self._record_launch(chunk, pending)
         if self._profiler is not None and self._profiler["prof"] is not None:
@@ -1382,7 +1462,8 @@ class SampleServer:
                 self._stop_profiler()
 
     def _record_launch(self, chunk: int, pending) -> None:
-        """On a mesh with telemetry on, the launch's per-device ready times
+        """Wait for a launch timed on the host and record its wall time.  On
+        a mesh with telemetry on, the launch's per-device ready times
         (`SweepEngine.device_ready_times`) feed the skew monitor, so one
         straggling device is flagged, not averaged into the wall time."""
         t0, warm = pending
@@ -1404,7 +1485,7 @@ class SampleServer:
             dt = time.perf_counter() - t0
         if self._chunker is not None:
             self._chunker.observe(chunk, dt)
-        tel.histogram("serve.launch_s", phase="steady" if warm else "compile").observe(dt)
+        self._observe_launch(chunk, warm, dt)
         tel.complete(
             "engine.launch",
             dur_us=dt * 1e6,
@@ -1415,6 +1496,20 @@ class SampleServer:
             compile=not warm,
         )
 
+    def _wait_launch(self) -> None:
+        """The host waits, on purpose, for the newest launch's end event
+        (`sched.wait`) before retirement's first device-to-host copy, so
+        that `sched.retire` holds host work only; every queued launch is
+        resolved and the device track's clock anchor renewed meanwhile.
+        A launch timed on the host has been waited for already."""
+        tel = self.telemetry
+        with tel.span("sched.wait"):
+            end, self._last_end = self._last_end, None
+            if end is not None:
+                end.synchronize()
+                tel.poll_device(block=True)
+                tel.anchor_device(self.engine.device)
+
     def step(self) -> List[JobResult]:
         """One scheduling round: admit, one chunked launch, hooks, retire.
 
@@ -1422,6 +1517,7 @@ class SampleServer:
         """
         tel = self.telemetry
         with tel.span("sched.step"):
+            tel.poll_device()  # launches of earlier steps that have ended
             with tel.span("sched.admit"):
                 self._admit()
             tel.gauge("serve.active_jobs").set(len(self._active))
@@ -1437,7 +1533,8 @@ class SampleServer:
                 chunk = self._chunker.propose(len(self.policy), bound)
             else:
                 chunk = min(self.chunk_sweeps, bound)
-            pending = self._launch(chunk)
+            with tel.span("sched.launch"):
+                pending = self._launch(chunk)
             busy = sum(j.num_slots for j, _ in self._active.values())
             self._c_busy.add(chunk * busy)
             self._c_total.add(chunk * self.slots)
@@ -1451,19 +1548,30 @@ class SampleServer:
             if self.stream is not None:
                 self.stream.record(self)
             completed: List[JobResult] = []
-            for jid in boundary:
-                job, taken = self._active[jid]
-                self.carry = job.on_segment(self, self.carry, taken)
-                if job.done:
-                    completed.append(job.finalize(self, taken))
-                    self._pool.release_all(taken)  # raises on double-free
-                    del self._active[jid]
-                    self._retired.append(jid)
-                    self._c_completed.add(1)
-                    tel.async_end(
-                        "job", jid, sweeps_done=job.sweeps_done,
-                        chunks=job.chunks, preemptions=job.preemptions,
-                    )
+            if boundary:
+                # Every hook runs before any retirement: a job's hook and
+                # finalize touch its own slots only, so the order between
+                # jobs changes nothing.
+                retiring = [jid for jid in boundary if self._active[jid][0].done]
+                if retiring:
+                    self._wait_launch()
+                with tel.span("sched.segment"):
+                    for jid in boundary:
+                        job, taken = self._active[jid]
+                        self.carry = job.on_segment(self, self.carry, taken)
+                if retiring:
+                    with tel.span("sched.retire"):
+                        for jid in retiring:
+                            job, taken = self._active[jid]
+                            completed.append(job.finalize(self, taken))
+                            self._pool.release_all(taken)  # raises on double-free
+                            del self._active[jid]
+                            self._retired.append(jid)
+                            self._c_completed.add(1)
+                            tel.async_end(
+                                "job", jid, sweeps_done=job.sweeps_done,
+                                chunks=job.chunks, preemptions=job.preemptions,
+                            )
             if (
                 self.snapshot_every_sweeps
                 and self.sweeps_elapsed - self._last_snapshot_sweep >= self.snapshot_every_sweeps
@@ -1488,6 +1596,7 @@ class SampleServer:
         for _ in range(max_steps):
             if not len(self.policy) and not self._active:
                 self.wait_snapshots()  # no dangling writer past a drain
+                self.telemetry.poll_device(block=True)
                 return results
             if self.preemption is not None and self.preemption.should_exit:
                 self.telemetry.instant(
@@ -1499,6 +1608,7 @@ class SampleServer:
                 if self.snapshot_manager is not None:
                     self.snapshot(blocking=True)
                 self.preempted = True
+                self.telemetry.poll_device(block=True)
                 return results
             results.extend(self.step())
         raise RuntimeError(f"drain did not converge in {max_steps} steps")
@@ -1572,6 +1682,7 @@ class SampleServer:
         return out
 
     def stats(self) -> dict:
+        self.telemetry.poll_device(block=True)
         n = self.engine.model.num_spins
         # Utilization split: useful sweeps advanced a resident job; idle
         # resweeps advanced a free slot's stale state (wasted work, never
