@@ -23,6 +23,8 @@ The port's kernels (src/repro_torch/kernels/csrc/):
   metropolis_sweep             one a4 sweep on the caller's uniforms   (per-sweep path)
   mt_next_block                one MT19937 block, tempered or uniform  (per-sweep path)
   fastexp_2d                   the paper's bit-trick exp, "fast"/"accurate" (ops.fastexp)
+  pt_swap                      a PT ladder's swap phase: energies read in place, swaps decided
+                               on the card (ops.pt_swap; every PT round on one device)
 
 #1-#5 each take the exp flavour ("fast", "accurate", "exact") as a
 template parameter; sweep_exp_check.cu maps their exp over a buffer for
@@ -70,6 +72,14 @@ its final ok line; no phase catches an exception):
      "exact" and "accurate" against the plain exps over all 2^32 float32
      inputs, and "exact" on the card within 2 ulp of the correctly rounded
      exp (its distance from the CPU's printed);
+     the PT swap kernel #8 against its plain version (`ref.pt_swap_ref`)
+     on the same card tensors at every shape of `PT_SWAP_CHECKS` (the
+     paper's ladder of 115 replicas at n=96 L=256, its rows a permutation
+     of a 115-slot carry; an odd ladder of 7 on 8 slots), from each parity
+     and on every exp flavour, over `PT_SWAP_ROUNDS` chained rounds:
+     energies, betas, the swap generator and both counters bit-equal each
+     round, one launch a round; the plain version's energies on the card
+     against the CPU's;
   4. the serving paths: `anneal_serve.main` serves 12 anneal jobs
      (constants and ramps, 64-256 sweeps) at the paper's per-model width
      (96 spins x 256 layers) on 8 slots in chunks of 8 sweeps, once on
@@ -95,9 +105,10 @@ its final ok line; no phase catches an exception):
      parallel tempering at the paper's production shape (R=115 replicas,
      betas geometric from 0.1 to 3.0, n=96 L=256): `run_parallel_tempering`
      (32 rounds of 8 sweeps) on each rung with "fast" and "accurate",
-     backend "cuda" (one kernel launch a round, counts zeroed just before
-     and read just after) equal to backend "torch" on the card bit for
-     bit; the same ladder as a `PTJob` beside 8 anneal jobs on a 128-slot
+     backend "cuda" (one sweep kernel launch and one #8 launch a round,
+     counts zeroed just before and read just after) equal to backend
+     "torch" on the card bit for bit (both swap through #8 on the card;
+     phase 3 holds #8 against its plain version); the same ladder as a `PTJob` beside 8 anneal jobs on a 128-slot
      server, policy fair, chunks of 3 (rounds split across chunks), equal
      to the standalone run, each anneal job to its solo run; a `PTJob` on a
      tenant of a multi-tenant server (#4, #2) equal to its solo run; the
@@ -190,7 +201,7 @@ its final ok line; no phase catches an exception):
      3.35 TB/s), the served drain's tokens/s (host clock), the peak memory
      while serving.
      10b. the other LM families (plain PyTorch on the card too; they launch
-     none of #1-#7, counts zeroed just before and read just after), one
+     none of #1-#8, counts zeroed just before and read just after), one
      model at a time, random weights from a seeded generator on the card:
      a. zamba2-1.2b (Mamba2 with a shared attention block every 6 layers)
      and rwkv6-1.6b at full width and depth (38 and 24 layers), the main
@@ -215,7 +226,7 @@ its final ok line; no phase catches an exception):
      against the CPU; then served in bfloat16 as the server builds it (a
      dense decoder, as the reference's decoder builds an encoder-decoder
      config).  ``--profile`` adds `profile_lm` to each served model.
-  11. LM training (plain PyTorch on the card: it launches none of #1-#7,
+  11. LM training (plain PyTorch on the card: it launches none of #1-#8,
      counts zeroed just before and read just after): a. gemma-2b at full
      width and depth, one float32 `make_train_step` step (B=1, 16 tokens,
      TF32 off) on the card and on the CPU from the same weights and batch:
@@ -238,7 +249,7 @@ its final ok line; no phase catches an exception):
      through `launch.train.main`; f. every other LM arch's smoke config,
      one float32 train step card against CPU within a.'s bound.
   12. the LM over a device mesh (plain PyTorch on the card: none of
-     #1-#7; every piece runs in a child, which zeroes its counts before
+     #1-#8; every piece runs in a child, which zeroes its counts before
      its work and prints them after, and the sum must be 0): a.
      `launch.dryrun` at full width and depth on the card's device type,
      one child a cell, all at once (`MESH_CELLS`: gemma-2b train_4k on
@@ -261,8 +272,10 @@ launches in phase 6c's restored drains and nothing else, and
 ``mesh_launches``, those of phase 6d's served mesh drains; #1 also carries
 ``stream_launches``, those of the streamed drain, and ``smoke_launches``,
 those of the whole ``anneal_serve --smoke`` run, before and after its
-restore; a kernel the examples launch carries ``examples_launches``) and
-the final ``{"ok": true, "device": ...}``.
+restore; a kernel the examples launch carries ``examples_launches``; #8's
+entry counts the swap phases of the same drains where ladders swapped, and
+its ``launches`` are those of the standalone cb ladder) and the final
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -322,7 +335,7 @@ SERVE_ARGS = [
 ]
 
 CSRC = "src/repro_torch/kernels/csrc"
-#: Kernel -> the TPU kernel it replaces.
+#: Kernel -> the TPU kernel it replaces (None: the reference's code is jnp).
 KERNELS = {
     "colored_multisweep": "src/repro/kernels/metropolis_kernel.py:523",
     "colored_multisweep_multi": "src/repro/kernels/metropolis_kernel.py:642",
@@ -331,12 +344,13 @@ KERNELS = {
     "metropolis_sweep": "src/repro/kernels/metropolis_kernel.py:280",
     "mt_next_block": "src/repro/kernels/mt19937_kernel.py:55",
     "fastexp_2d": "src/repro/kernels/fastexp_kernel.py:54",
+    "pt_swap": None,  # src/repro/core/tempering.py:187 swap_phase
 }
 #: Check-only entries built beside the kernels: the sweep kernels' exp over
 #: a buffer (`check_sweep_exp_exhaustive`); no path launches them.
 CHECK_ENTRIES = ("sweep_exp_check",)
 #: The sweep and generator kernels, timed per batch of replicas.
-SWEEP_KERNELS = tuple(k for k in KERNELS if k != "fastexp_2d")
+SWEEP_KERNELS = tuple(k for k in KERNELS if k not in ("fastexp_2d", "pt_swap"))
 #: Rung -> the kernel of its serving path, single-model and multi-tenant.
 SERVE_KERNEL = {"cb": "colored_multisweep", "a4": "metropolis_multisweep"}
 MULTI_KERNEL = {"cb": "colored_multisweep_multi", "a4": "metropolis_multisweep_multi"}
@@ -389,6 +403,17 @@ PT_ROUNDS, PT_SWEEPS = 32, 8
 PT_SLOTS, PT_ANNEAL_JOBS, PT_CHUNK = 128, 8, 3
 #: Rounds of the multi-tenant ladder and of the CLI's.
 PT_MULTI_ROUNDS, PT_CLI_ROUNDS = 8, 8
+#: The swap kernel (#8) is held bit-equal at: (what, n, L, B slots, R
+#: replicas), the ladder's rows a random permutation of R of the B slots;
+#: `PT_SWAP_ROUNDS` chained rounds from each parity.
+PT_SWAP_CHECKS = (
+    ("the paper's ladder, rows scattered in a 115-slot carry", MAIN_N, MAIN_L, PT_R, PT_R),
+    ("an odd ladder of 7 on the serving shape's 8 slots", MAIN_N, MAIN_L, MAIN_SLOTS, 7),
+)
+PT_SWAP_ROUNDS = 12
+#: Rounds the examples' ladders swap on the card: parallel_tempering's
+#: standalone ladder, annealing_service's two `PTJob`s (6 + 2).
+EXAMPLE_PT_ROUNDS = {"parallel_tempering": 10, "annealing_service": 6 + 2}
 #: Multi-tenant serving: tenants, jobs; the per-slot table floats of a site
 #: each kernel reads (cb: h, J row, tau; a4: doubled J row and tau).
 TENANTS, MULTI_JOBS = 8, 16
@@ -1028,6 +1053,96 @@ def check_sweep_exp_exhaustive(dev, chunk: int = 2**28) -> None:
         raise AssertionError(f"sweep_exp<exact> on the card: {worst}")
 
 
+def pt_swap_case(n: int, L: int, B: int, R: int, device, seed: int):
+    """A (B, rows, 128) block of +-1 spins, the block's betas (the ladder's
+    geometric betas at its rows, others elsewhere), the ladder's R rows (a
+    random permutation of R of the B slots, so none is in replica order),
+    and the energy tables of a model of that shape, on ``device``."""
+    from repro_torch.core import ising, tempering
+
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(B, generator=g)[:R].to(torch.int32)
+    spins = torch.where(torch.rand(B, n * L // LANES, LANES, generator=g) < 0.5, -1.0, 1.0)
+    betas = 0.5 + torch.rand(B, generator=g)
+    betas[rows.long()] = torch.from_numpy(
+        np.geomspace(PT_BETA_MIN, PT_BETA_MAX, R).astype(np.float32))
+    m = ising.random_layered_model(n=n, L=L, seed=seed, beta=1.0)
+    return (spins.to(device), betas.to(device), rows.to(device),
+            tempering.model_energy_tables(m, device))
+
+
+def check_pt_swap(dev) -> float:
+    """#8 against `ref.pt_swap_ref` on the same card tensors at every shape
+    of `PT_SWAP_CHECKS`, from each parity, on every exp flavour:
+    `PT_SWAP_ROUNDS` chained rounds (a tenth of the spins flipped between
+    rounds; betas, generator and counters carried), each round's energies
+    and betas (bit patterns), generator words and counters equal, swaps
+    both accepted and refused, one launch a round (counts zeroed just
+    before, read just after).  The plain version's energies of the first
+    round on the card are also held against the CPU's.  Returns the
+    largest |difference| (0)."""
+    from repro_torch.core import mt19937 as mt
+    from repro_torch.kernels import ops, ref
+
+    n_flav = 1 + len(OTHER_FLAVOURS)
+    for what, n, L, B, R in PT_SWAP_CHECKS:
+        accepted = proposed = 0
+        for parity in (0, 1):
+            for flavor in ("fast", *OTHER_FLAVOURS):
+                spins, betas, rows, tables = pt_swap_case(n, L, B, R, dev, seed=B + R + parity)
+                zero = torch.zeros((), dtype=torch.int32, device=dev)
+                got = want = (betas, mt.mt_init(1000 + R + parity, dev), zero, zero)
+                flips = torch.Generator().manual_seed(R + parity)
+                ops.reset_launches()
+                for r in range(PT_SWAP_ROUNDS):
+                    p = (parity + r) % 2
+                    where = f"pt_swap {what}, parity {parity}, {flavor}, round {r}"
+                    if r == 0 and flavor == "fast":
+                        e_cpu = ref.pt_swap_ref(
+                            *(t.cpu() for t in (spins, want[0], rows, *want[1:], *tables)), n, p,
+                            flavor)[0]
+                    e_got, *got = ops.pt_swap(spins, got[0], rows, *got[1:], *tables, n, p, flavor)
+                    e_want, *want = ref.pt_swap_ref(spins, want[0], rows, *want[1:], *tables, n,
+                                                    p, flavor)
+                    same_bits(e_got, e_want, f"{where}: energies")
+                    if r == 0 and flavor == "fast":
+                        same_bits(e_want.cpu(), e_cpu, f"{where}: plain energies, card vs CPU")
+                    same_bits(got[0], want[0], f"{where}: betas")
+                    for name, a, b in zip(("generator", "accepted", "proposed"), got[1:], want[1:]):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"{where}: {name} differs")
+                    flip = torch.rand(spins.shape, generator=flips) < 0.1
+                    spins = torch.where(flip.to(dev), -spins, spins)
+                if ops.launches["pt_swap"] != PT_SWAP_ROUNDS or sum(ops.launches.values()) != \
+                        PT_SWAP_ROUNDS:
+                    raise AssertionError(f"pt_swap {what}: launches {dict(ops.launches)}")
+                accepted, proposed = accepted + int(got[2]), proposed + int(got[3])
+        if not 0 < accepted < proposed:
+            raise AssertionError(f"pt_swap {what}: {accepted} of {proposed} swaps accepted")
+        print(f"[check pt_swap] {what} (R={R} of B={B}, n={n} L={L}): {PT_SWAP_ROUNDS} chained "
+              f"rounds from each parity x {n_flav} flavours, energies, betas, generator and "
+              f"counters bit-equal to the plain version on the card each round, "
+              f"{PT_SWAP_ROUNDS} launches a chain; {accepted} of {proposed} swaps accepted")
+    return 0.0
+
+
+def time_pt_swap(dev) -> tuple:
+    """#8 at the paper's ladder (R=115 rows scattered in a 115-slot carry,
+    n=96 L=256), on the card alone, beside its plain version (CUDA events
+    around back-to-back calls) and its bound: the ladder's spins read once
+    (float64 arithmetic is under the read; the card's peak table gives no
+    float64 rate).  Returns (ms, plain ms, bound)."""
+    from repro_torch.core import mt19937 as mt
+    from repro_torch.kernels import ops, ref
+
+    spins, betas, rows, tables = pt_swap_case(MAIN_N, MAIN_L, PT_R, PT_R, dev, seed=7)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    args = (spins, betas, rows, mt.mt_init(7, dev), zero, zero, *tables, MAIN_N, 0, "fast")
+    t_k = cuda_ms_queued(lambda: ops.pt_swap(*args), reps=50)
+    t_p = cuda_ms(lambda: ref.pt_swap_ref(*args), reps=10)
+    return t_k, t_p, bound((4 * spins[:PT_R].numel(), 0, 0))
+
+
 def pt_model():
     from repro_torch.core import ising
 
@@ -1075,13 +1190,29 @@ def same_pt_state(got, want, what: str) -> None:
             raise AssertionError(f"{what}: {f} differs")
 
 
+def sweep_launches(launches: dict) -> int:
+    """Launches of every kernel but #8, which a ladder's swap phase
+    launches beside the sweep kernels, once a round."""
+    return sum(v for k, v in launches.items() if k != "pt_swap")
+
+
+def check_swaps(what: str, launches: dict, want: int, fused: int | None = None) -> None:
+    """Raise unless #8 was launched ``want`` times, one a round swapped on
+    one device, and the server counted as many (``fused``:
+    `stats()["placement"]["pt_swap_fused"]`; None for no server)."""
+    if launches["pt_swap"] != want or fused not in (None, want):
+        raise AssertionError(f"{what}: {launches['pt_swap']} pt_swap launches, server "
+                             f"pt_swap_fused {fused}, want {want}")
+
+
 def pt_standalone(dev) -> dict:
     """`run_parallel_tempering` at R=115, n=96 L=256, `PT_ROUNDS` rounds of
     `PT_SWEEPS` sweeps, on each rung and with the "fast" and "accurate"
-    exps: backend "cuda" (one launch of the rung's kernel a round, counts
-    zeroed just before and read just after) equal to backend "torch" on the
-    card, bit for bit.  Returns {(rung, flavor): (state, energies,
-    launches)}."""
+    exps: backend "cuda" (one launch of the rung's kernel and one of #8 a
+    round, counts zeroed just before and read just after) equal to backend
+    "torch" on the card, bit for bit.  Both backends swap through #8 on
+    the card; `check_pt_swap` holds #8 against its plain version.  Returns
+    {(rung, flavor): (state, energies, launches)}."""
     from repro_torch.core import tempering
     from repro_torch.kernels import ops
 
@@ -1098,9 +1229,10 @@ def pt_standalone(dev) -> dict:
             dt = time.perf_counter() - t0
             launches = dict(ops.launches)
             kernel = SERVE_KERNEL[rung]
-            if launches[kernel] != PT_ROUNDS or sum(launches.values()) != PT_ROUNDS:
+            if launches[kernel] != PT_ROUNDS or sweep_launches(launches) != PT_ROUNDS:
                 raise AssertionError(f"PT {rung} {flavor}: launches {launches}, want "
                                      f"{PT_ROUNDS} {kernel}")
+            check_swaps(f"PT {rung} {flavor}", launches, PT_ROUNDS)
             t0 = time.perf_counter()
             plain, plain_e = tempering.run_parallel_tempering(m, betas, PT_ROUNDS,
                                                               backend="torch", V=LANES, **kw)
@@ -1112,7 +1244,8 @@ def pt_standalone(dev) -> dict:
             check_pt_state(f"PT {rung} {flavor}", state, energies, m, betas, PT_ROUNDS)
             out[rung, flavor] = (state, energies, launches)
             print(f"[pt {rung}] {flavor}: R={PT_R} n={MAIN_N} L={MAIN_L}, {PT_ROUNDS} rounds of "
-                  f"{PT_SWEEPS} sweeps: {launches[kernel]} {kernel} launches, {dt:.3f} s; "
+                  f"{PT_SWEEPS} sweeps: {launches[kernel]} {kernel} + {launches['pt_swap']} "
+                  f"pt_swap launches, {dt:.3f} s; "
                   f"backend torch on the card {dt_plain:.3f} s; spins, fields, betas, generator "
                   f"state, swap generator and counts bit-equal ({int(state.swap_accept)} of "
                   f"{int(state.swap_propose)} swaps accepted); energies finite, == the spins'")
@@ -1124,7 +1257,8 @@ def pt_served(standalone: dict) -> None:
     `PT_ANNEAL_JOBS` anneal jobs on a `PT_SLOTS`-slot server, policy
     "fair", chunks of `PT_CHUNK` sweeps (rounds split across chunks), on
     each rung: the ladder equals the standalone run bit for bit, every
-    anneal job its solo run, and the rung's kernel ran every launch."""
+    anneal job its solo run, the rung's kernel ran every sweep launch and
+    #8 every round's swap phase."""
     from repro_torch.core import engine, reorder
     from repro_torch.kernels import ops
     from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
@@ -1148,8 +1282,10 @@ def pt_served(standalone: dict) -> None:
         dt = time.perf_counter() - t0
         launches = dict(ops.launches)
         kernel = SERVE_KERNEL[rung]
-        if launches[kernel] != server.launches or sum(launches.values()) != launches[kernel]:
+        if launches[kernel] != server.launches or sweep_launches(launches) != launches[kernel]:
             raise AssertionError(f"PT served {rung}: launches {launches} vs {server.launches}")
+        check_swaps(f"PT served {rung}", launches, PT_ROUNDS,
+                    server.stats()["placement"]["pt_swap_fused"])
         r = results[pt.jid]
         solo = np.stack([reorder.from_lane(s, m.n, m.L, LANES) for s in state.spins.cpu().numpy()])
         if not (np.array_equal(r.spins, solo)
@@ -1168,7 +1304,8 @@ def pt_served(standalone: dict) -> None:
         st = server.stats()
         print(f"[pt served {rung}] PTJob R={PT_R} ({PT_ROUNDS} rounds of {PT_SWEEPS}) + "
               f"{PT_ANNEAL_JOBS} anneal jobs on {PT_SLOTS} slots, policy fair, chunk {PT_CHUNK}: "
-              f"{st['launches']} launches == {launches[kernel]} {kernel} launches, the ladder in "
+              f"{st['launches']} launches == {launches[kernel]} {kernel} launches, "
+              f"{launches['pt_swap']} pt_swap launches == rounds, the ladder in "
               f"{r.chunks} chunks, {dt:.3f} s, {st['busy_slot_sweeps'] / dt:.0f} slot-sweeps/s; "
               f"the ladder == the standalone run, every anneal job == its solo run (bit-equal)")
 
@@ -1176,8 +1313,9 @@ def pt_served(standalone: dict) -> None:
 def pt_multi_tenant() -> None:
     """A PTJob on its own model (a tenant) beside anneal jobs on other
     tenants, on a multi-tenant server of `PT_SLOTS` slots, on each rung
-    (#4, #2; counts zeroed just before, read just after): the ladder
-    equals `run_parallel_tempering` of its model, bit for bit."""
+    (#4, #2, and #8 on the tenant's tables once a round; counts zeroed
+    just before, read just after): the ladder equals
+    `run_parallel_tempering` of its model, bit for bit."""
     from repro_torch.core import reorder, tempering
     from repro_torch.kernels import ops
     from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
@@ -1200,8 +1338,10 @@ def pt_multi_tenant() -> None:
         r = {r.jid: r for r in server.drain()}[pt.jid]
         launches = dict(ops.launches)
         kernel = MULTI_KERNEL[rung]
-        if launches[kernel] != server.launches or sum(launches.values()) != launches[kernel]:
+        if launches[kernel] != server.launches or sweep_launches(launches) != launches[kernel]:
             raise AssertionError(f"PT multi {rung}: launches {launches} vs {server.launches}")
+        check_swaps(f"PT multi {rung}", launches, PT_MULTI_ROUNDS,
+                    server.stats()["placement"]["pt_swap_fused"])
         solo = np.stack([reorder.from_lane(s, m.n, m.L, LANES) for s in state.spins.cpu().numpy()])
         if not (np.array_equal(r.spins, solo)
                 and np.array_equal(r.extras["betas"], state.betas.cpu().numpy())
@@ -1210,14 +1350,15 @@ def pt_multi_tenant() -> None:
                 and np.array_equal(r.energy.astype(np.float32), energies)):
             raise AssertionError(f"PT multi {rung}: the tenant's ladder != its solo run")
         print(f"[pt multi {rung}] PTJob R={PT_R} on a tenant + 3 anneal jobs on {PT_SLOTS} "
-              f"slots: {server.launches} launches == {launches[kernel]} {kernel} launches; the "
+              f"slots: {server.launches} launches == {launches[kernel]} {kernel} launches, "
+              f"{launches['pt_swap']} pt_swap launches; the "
               f"ladder == run_parallel_tempering of its model (bit-equal)")
 
 
 def pt_cli() -> None:
     """``anneal_serve --pt-replicas 115 --pt-rounds 8 --rung a4`` at n=96
     L=256 on `PT_SLOTS` slots: every job served, the ladder's result
-    whole, every launch the a4 kernel's."""
+    whole, every sweep launch the a4 kernel's and every round's swap #8's."""
     from repro_torch.core import observables
     from repro_torch.kernels import ops
     from repro_torch.launch import anneal_serve
@@ -1228,9 +1369,11 @@ def pt_cli() -> None:
         "--n", str(MAIN_N), "--L", str(MAIN_L), "--slots", str(PT_SLOTS), "--jobs", "8",
         "--chunk", str(MAIN_CHUNK), "--quiet"])
     launches = dict(ops.launches)
-    if launches["metropolis_multisweep"] != report.server.launches or sum(
-            launches.values()) != launches["metropolis_multisweep"]:
+    if launches["metropolis_multisweep"] != report.server.launches or sweep_launches(
+            launches) != launches["metropolis_multisweep"]:
         raise AssertionError(f"PT CLI: launches {launches} vs {report.server.launches}")
+    check_swaps("PT CLI", launches, PT_CLI_ROUNDS,
+                report.server.stats()["placement"]["pt_swap_fused"])
     pt = [r for r in report.results if r.spins.ndim == 2]
     if len(report.results) != 9 or len(pt) != 1 or pt[0].spins.shape != (PT_R, MAIN_N * MAIN_L):
         raise AssertionError(f"PT CLI: served {len(report.results)} jobs, {len(pt)} ladders")
@@ -1240,7 +1383,8 @@ def pt_cli() -> None:
         raise AssertionError("PT CLI: the ladder's result is not whole")
     print(f"[pt cli] anneal_serve --pt-replicas {PT_R} --pt-rounds {PT_CLI_ROUNDS} --rung a4 "
           f"--slots {PT_SLOTS} --jobs 8 (n={MAIN_N} L={MAIN_L}): 9 jobs served in "
-          f"{report.seconds:.3f} s, {report.server.launches} metropolis_multisweep launches, "
+          f"{report.seconds:.3f} s, {report.server.launches} metropolis_multisweep and "
+          f"{launches['pt_swap']} pt_swap launches, "
           f"the ladder {r.extras['swap_accept']} of {r.extras['swap_propose']} swaps accepted")
 
 
@@ -1276,7 +1420,7 @@ def time_pt(smi: str) -> dict:
     """PT rounds at R=115, n=96 L=256, `PT_SWEEPS` sweeps a round, on each
     rung and flavour: rounds/s and replica-sweeps/s over a steady window
     (host clock, synchronized), the card's time of the sweep launch and
-    of the swap phase (`lane_energy` + decide) from CUDA events around
+    of the swap phase (#8) from CUDA events around
     each, their shares of a round, and the round's host syncs, beside the
     card's name and power limit (``smi``).  Returns
     {(rung, flavor): (rounds/s, sweep ms, swap ms, round ms, syncs)}."""
@@ -1624,8 +1768,9 @@ def same_run(got: dict, server, want: tuple, what: str, done: frozenset = frozen
 def restore_and_drain(source, kernel: str, what: str, **overrides) -> tuple:
     """`SampleServer.restore` on the card and drain, counts zeroed just
     before and read just after; the restored path must launch ``kernel``
-    once a chunk and nothing else.  Returns (server, results by jid,
-    launches)."""
+    once a chunk, #8 once a round its ladders swap (`pt_swap_fused`, which
+    a restore starts from 0), and nothing else.  Returns (server, results
+    by jid, launches)."""
     from repro_torch.kernels import ops
     from repro_torch.serve_mc import SampleServer
 
@@ -1637,9 +1782,11 @@ def restore_and_drain(source, kernel: str, what: str, **overrides) -> tuple:
     launches = dict(ops.launches)
     if server.engine.device.type != "cuda" or server.engine.backend != "cuda":
         raise AssertionError(f"{what}: restored on {server.engine.device} / {server.engine.backend}")
-    if launches[kernel] == 0 or launches[kernel] != server.launches - before or sum(
-            launches.values()) != launches[kernel]:
+    if launches[kernel] == 0 or launches[kernel] != server.launches - before or sweep_launches(
+            launches) != launches[kernel]:
         raise AssertionError(f"{what}: launches {launches}, server {server.launches - before}")
+    fused = server.stats()["placement"]["pt_swap_fused"]
+    check_swaps(what, launches, fused, fused)
     return server, results, launches
 
 
@@ -1799,7 +1946,9 @@ def recovery_cpu_to_card(tmp: str) -> dict:
 def recovery_cli(tmp: str) -> dict:
     """``anneal_serve --smoke`` on the card: serve -> snapshot -> abandon ->
     restore -> finish on backend cuda; its ``smoke: resumed`` line is
-    required and every result whole."""
+    required and every result whole.  #8 runs every round of its ladder
+    (3) at least once, more where the restored server runs a round again,
+    and every swap of the restored server (`pt_swap_fused`)."""
     from repro_torch.core import observables
     from repro_torch.kernels import ops
     from repro_torch.launch import anneal_serve
@@ -1812,9 +1961,13 @@ def recovery_cli(tmp: str) -> dict:
     lines = [ln for ln in out.getvalue().splitlines() if ln.startswith(("serving", "smoke:", "served"))]
     if not any(ln.startswith("smoke: resumed") for ln in lines):
         raise AssertionError(f"--smoke printed no 'smoke: resumed' line:\n{out.getvalue()[-2000:]}")
-    if report.server.engine.backend != "cuda" or launches["colored_multisweep"] == 0 or sum(
-            launches.values()) != launches["colored_multisweep"]:
+    if report.server.engine.backend != "cuda" or launches["colored_multisweep"] == 0 or (
+            sweep_launches(launches) != launches["colored_multisweep"]):
         raise AssertionError(f"--smoke: backend {report.server.engine.backend}, launches {launches}")
+    fused = report.server.stats()["placement"]["pt_swap_fused"]
+    if launches["pt_swap"] < max(3, fused):
+        raise AssertionError(f"--smoke: {launches['pt_swap']} pt_swap launches for a ladder of 3 "
+                             f"rounds, {fused} swapped after the restore")
     if len(report.results) != 8 or any(
             not np.array_equal(r.energy, observables.energies(report.model, r.spins))
             for r in report.results):
@@ -2332,8 +2485,10 @@ def mesh_served(dev, smi: str, **kw) -> dict:
     affine (the rebalancer migrates; the ladder swaps on one device) and
     flat (the ladder spans devices and swaps from gathered energies), with
     telemetry on (the skew monitor fed for every launch).  Every result and
-    the retirement order equal one device's.  Returns the mesh drains'
-    launches (counts zeroed just before each, read just after)."""
+    the retirement order equal one device's; a round the ladder swaps on
+    one device is one launch of #8 (`pt_swap_local` == `pt_swap_fused`),
+    a round it spans devices none.  Returns the mesh drains' launches
+    (counts zeroed just before each, read just after)."""
     from repro_torch.kernels import ops
 
     launches = dict.fromkeys(KERNELS, 0)
@@ -2359,6 +2514,8 @@ def mesh_served(dev, smi: str, **kw) -> dict:
                     raise AssertionError(f"{what} affine: no migration / local swap: {st}")
                 if placement == "flat" and not (st["spanning"] >= 1 and st["pt_swap_cross"] > 0):
                     raise AssertionError(f"{what} flat: the ladder never spanned: {st}")
+                check_swaps(f"{what} {placement}", ops.launches, st["pt_swap_local"],
+                            st["pt_swap_fused"])
                 if srv._skew.launches != srv.launches:
                     raise AssertionError(f"{what}: skew monitor fed {srv._skew.launches} of "
                                          f"{srv.launches} launches")
@@ -2369,7 +2526,8 @@ def mesh_served(dev, smi: str, **kw) -> dict:
                       f"{ {k: v for k, v in ops.launches.items() if v} }; migrations "
                       f"{st['rebalance_migrations']}, affine/spanning {st['affine']}/"
                       f"{st['spanning']}, PT swaps local/cross {st['pt_swap_local']}/"
-                      f"{st['pt_swap_cross']}, straggler events "
+                      f"{st['pt_swap_cross']} (pt_swap launches {st['pt_swap_fused']}), "
+                      f"straggler events "
                       f"{srv.stats()['telemetry']['straggler_events']}; results and retirement "
                       f"order == one device")
             rate_one = one.stats()["busy_slot_sweeps"] / t_one
@@ -2437,9 +2595,9 @@ def mesh_phase(dev, smi: str, cb_report) -> dict:
 def examples_phase() -> dict:
     """Phase 6e: the four examples on the card (``--device cuda``), their
     output kept short.  The quickstart holds kernel #5 bit-equal to its
-    plain version on the card; the others assert their own results.
-    Returns the launches per kernel (counts zeroed just before, read just
-    after)."""
+    plain version on the card; the others assert their own results.  #8
+    swaps each round of their ladders once (`EXAMPLE_PT_ROUNDS`).  Returns
+    the launches per kernel (counts zeroed just before, read just after)."""
     from repro_torch.examples import annealing_service, parallel_tempering, quantum_annealing
     from repro_torch.examples import quickstart
     from repro_torch.kernels import ops
@@ -2449,10 +2607,13 @@ def examples_phase() -> dict:
                       ("annealing_service", annealing_service),
                       ("quantum_annealing", quantum_annealing)):
         t0 = time.perf_counter()
+        swaps = ops.launches["pt_swap"]
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             mod.main(["--device", "cuda"])
         torch.cuda.synchronize()
+        check_swaps(f"example {name}", {"pt_swap": ops.launches["pt_swap"] - swaps},
+                    EXAMPLE_PT_ROUNDS.get(name, 0))
         lines = out.getvalue().strip().splitlines()
         print(f"[example {name}] {time.perf_counter() - t0:.1f} s; {lines[-1].strip()}")
     launches = dict(ops.launches)
@@ -3398,7 +3559,7 @@ def train_smoke_archs(dev) -> None:
 
 
 def train_phase(dev, smi: str, profile: bool = False) -> None:
-    """Phase 11: LM training on the card (plain PyTorch: none of #1-#7)."""
+    """Phase 11: LM training on the card (plain PyTorch: none of #1-#8)."""
     train_float32_gate(dev)
     train_main_path(smi, profile)
     train_grad_accum(dev)
@@ -3713,7 +3874,7 @@ def dryrun_table(out_dir: str) -> int:
 
 
 def lm_mesh_phase(smi: str) -> dict:
-    """Phase 12: the LM over a device mesh (plain PyTorch: none of #1-#7).
+    """Phase 12: the LM over a device mesh (plain PyTorch: none of #1-#8).
     12a's children and 12c's run at once; 12b's after them, one at a time,
     so that their step times have the host to themselves.  Every piece of
     the phase runs in a child, which counts its own kernel launches from 0;
@@ -3803,6 +3964,7 @@ def main(argv: list[str]) -> int:
     err["mt_next_block"] = check_mt(dev)
     err["fastexp_2d"] = check_fastexp(dev)
     check_fastexp_exhaustive(dev)
+    err["pt_swap"] = check_pt_swap(dev)
     end_phase("checks")
     for name, e in check_flavours(dev).items():
         err[name] = max(err[name], e)
@@ -3998,6 +4160,10 @@ def main(argv: list[str]) -> int:
               + " / ".join(f"{f} {flavour_ms[f, B][1]:.4f}" for f in OTHER_FLAVOURS)
               + f" ms; {smi}")
     time_pt(smi)
+    swap_time = time_pt_swap(dev)
+    print(f"[time pt_swap] R={PT_R} rows scattered in {PT_R} slots, n={MAIN_N} L={MAIN_L}: "
+          f"kernel {swap_time[0]:.5f} ms/call (card alone), plain {swap_time[1]:.4f} ms, bound "
+          f"{swap_time[2][0]:.5f} ms ({swap_time[2][1]}); {smi}")
 
     end_phase("timings")
     # -- 8. the exp path and its timings -------------------------------------
@@ -4024,7 +4190,7 @@ def main(argv: list[str]) -> int:
     train_phase(dev, smi, profile)
     if any(ops.launches.values()):
         raise AssertionError(f"LM training launched {dict(ops.launches)}; it has no kernel")
-    print(f"[train] phase 11 launched none of #1-#7: {dict(ops.launches)}")
+    print(f"[train] phase 11 launched none of #1-#8: {dict(ops.launches)}")
     end_phase("LM training")
     # -- 12. the LM over a device mesh ------------------------------------------
     ops.reset_launches()
@@ -4032,7 +4198,7 @@ def main(argv: list[str]) -> int:
     if any(ops.launches.values()) or any(mesh_launches.values()):
         raise AssertionError(f"phase 12 launched {mesh_launches} in its children, "
                              f"{dict(ops.launches)} here; it has no kernel")
-    print(f"[mesh] phase 12 launched none of #1-#7 (its children's own counts, summed): "
+    print(f"[mesh] phase 12 launched none of #1-#8 (its children's own counts, summed): "
           f"{mesh_launches}")
     end_phase("LM over a mesh")
 
@@ -4078,6 +4244,11 @@ def main(argv: list[str]) -> int:
             extra = {"elements": FASTEXP_MAIN, "accurate_ms": t_ka, "accurate_plain_ms": t_pa,
                      "accurate_bound_ms": b_a, "torch_exp_ms": t_exp, "ms_l2_dirty": t_kd,
                      "accurate_ms_l2_dirty": t_kad, "torch_exp_ms_l2_dirty": t_expd}
+        elif name == "pt_swap":
+            # The paper's ladder; `launches` are the standalone cb ladder's.
+            t_k, t_p, (b_ms, b_by, _) = swap_time
+            main_launches[name] = pt_runs["cb", "fast"][2][name]
+            extra = {"replicas": PT_R}
         else:
             t_k, t_p, (b_ms, b_by, _) = times[name][MAIN_SLOTS]
         if name in ("colored_multisweep", "metropolis_multisweep"):

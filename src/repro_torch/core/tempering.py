@@ -16,14 +16,18 @@ exp flavour the flips use, clamped to [-20, 0] before the exp.
 Swap randomness: exactly ``ceil(R/2)`` fresh uniforms a round
 (`draw_swap_uniforms`), one per candidate pair, from one scalar MT19937.
 
-The swap phase is plain PyTorch on the replicas' device (the reference
-has no kernel for it either): `lane_energy` of every replica, then
-`_swap_decide`.  Its counters stay device tensors, so a round makes no
-host round trip of its own.  `lane_energy` sums exact float64 terms in a
-fixed pairwise tree of elementwise adds, rounded once to float32, so its
-result is the same bits on the CPU and on the card; the reference sums in
-float32 in XLA's order, so the two agree within a stated tolerance, not
-bit for bit (tests/test_torch_tempering.py).
+The swap phase is `kernels.ops.pt_swap` over the replicas where they lie:
+on the card one host call of csrc/pt_swap.cu (every replica's energy, then
+the decisions and the new betas, in two kernels; the reference has no
+kernel for it, its swap phase is jnp), on the CPU its plain version
+`kernels.ref.pt_swap_ref`, which is `lane_energy` of every replica, then
+`_swap_decide`.  The generator and counters stay device tensors, so a
+round makes no host round trip of its own.  `lane_energy` sums exact
+float64 terms in a fixed pairwise tree of elementwise adds, rounded once
+to float32, so its result is the same bits on the CPU and on the card
+(the kernel keeps the tree); the reference sums in float32 in XLA's
+order, so the two agree within a stated tolerance, not bit for bit
+(tests/test_torch_tempering.py).
 
 The pieces are separable: `swap_phase` and `energy_tables` are public so
 the serving layer expresses a whole tempering workload as one multi-slot
@@ -188,7 +192,7 @@ def _swap_decide(
 
 def swap_phase(
     state: PTState,
-    base_nbr: torch.Tensor,
+    base_nbr: torch.Tensor,  # (n, SD) int64
     base_J: torch.Tensor,  # (n, SD) NOT doubled
     tau_J: torch.Tensor,  # (n,)
     h: torch.Tensor,
@@ -196,11 +200,15 @@ def swap_phase(
     n: int,
     exp_flavor: str = "fast",
 ) -> PTState:
-    """One even/odd round of adjacent-temperature swap proposals."""
-    energies = lane_energy(state.spins, h, base_nbr, base_J, tau_J, n)
-    betas, swap_rng, acc, prop = _swap_decide(
-        state.betas, energies, state.swap_rng, state.swap_accept, state.swap_propose,
-        swap_parity, _exp_fn(exp_flavor),
+    """One even/odd round of adjacent-temperature swap proposals:
+    `kernels.ops.pt_swap` over the state's R replicas (one launch of
+    csrc/pt_swap.cu on the card, `kernels.ref.pt_swap_ref` on the CPU)."""
+    from repro_torch.kernels import ops
+
+    rows = torch.arange(state.spins.shape[0], dtype=torch.int32, device=state.spins.device)
+    _, betas, swap_rng, acc, prop = ops.pt_swap(
+        state.spins, state.betas, rows, state.swap_rng, state.swap_accept, state.swap_propose,
+        base_nbr, base_J, tau_J, h, n, swap_parity, exp_flavor,
     )
     return state._replace(betas=betas, swap_rng=swap_rng, swap_accept=acc, swap_propose=prop)
 

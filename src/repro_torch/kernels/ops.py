@@ -39,6 +39,7 @@ launches = {
     "metropolis_multisweep_multi": 0,
     "metropolis_sweep": 0,
     "mt_next_block": 0,
+    "pt_swap": 0,
 }
 
 def reset_launches() -> None:
@@ -130,6 +131,7 @@ ENTRY_ARGS = {
     "mt_next_block": [_VP] * 3 + [_INT] * 2 + [_VP],
     "fastexp_2d": [_VP, _VP, ctypes.c_longlong, _INT, _INT] + [_U32] * 5 + [_VP],
     "sweep_exp_check": [_VP, _VP, ctypes.c_longlong] + _EXP_ARGS + [_VP],
+    "pt_swap": [_VP] * 15 + [_INT] * 7 + _EXP_ARGS + [_VP],
 }
 
 
@@ -722,6 +724,93 @@ def mt_uniforms_count(state: torch.Tensor, count: int):
     discarded (the per-sweep draw of `core.mt19937.mt_uniforms_count`)."""
     state, u = mt_uniform_blocks(state, -(-int(count) // mt.N))
     return state, u[:count]
+
+
+# -----------------------------------------------------------------------------
+# The parallel-tempering swap phase (csrc/pt_swap.cu).
+# -----------------------------------------------------------------------------
+
+#: Terms a warp of the swap phase's energy kernel sums at once (csrc/pt_swap.cu: TASK).
+PT_SWAP_TASK = 128
+
+
+def pt_swap_smem_bytes(rows: int, V: int) -> int:
+    """Shared memory of one energy CTA of `pt_swap` (csrc/pt_swap.cu:
+    energy_smem_bytes): a float64 sum per task of `PT_SWAP_TASK` terms,
+    zero-padded to a power of two."""
+    tasks = -(-rows * V // PT_SWAP_TASK)
+    return 8 * (1 << max(tasks - 1, 0).bit_length())
+
+
+def pt_swap(
+    spins,  # (B, rows, V) f32: a block of replica slots
+    betas,  # (B,) f32
+    rows,  # (R,) int32: the ladder's rows of the block, in replica order
+    swap_rng,  # (624,) int32: the ladder's scalar MT19937, uint32 bits
+    swap_accept,  # () int32
+    swap_propose,  # () int32
+    base_nbr,  # (n, SD) int64
+    base_J,  # (n, SD) f32, NOT doubled
+    tau_J,  # (n,) f32, NOT doubled
+    h,  # (n,) f32
+    n: int,
+    swap_parity: int,
+    exp_flavor: str = "fast",
+):
+    """One even/odd round of adjacent-temperature swap proposals of the
+    ladder whose replica r lies at row ``rows[r]`` of the block, read in
+    place (`tempering.swap_phase` on those rows).  Returns ``(energies (R,),
+    betas (B,), swap_rng, swap_accept, swap_propose)``: new tensors, the
+    block's betas with the accepted pairs swapped; the inputs are not
+    modified.  On CUDA tensors this is one host call of
+    csrc/pt_swap.cu (an energy kernel of one CTA a replica, then a decision
+    kernel of one CTA), with no host round trip; on CPU tensors it runs
+    `ref.pt_swap_ref`."""
+    flavour = _flavour_code(exp_flavor)
+    parity = int(swap_parity)
+    if parity not in (0, 1):
+        raise ValueError(f"swap_parity must be 0 or 1, got {swap_parity}")
+    dev = spins.device
+    if dev.type == "cpu":
+        return ref.pt_swap_ref(spins, betas, rows, swap_rng, swap_accept, swap_propose, base_nbr,
+                               base_J, tau_J, h, n, parity, exp_flavor)
+    _need_cuda("pt_swap", dev)
+    if spins.dim() != 3 or rows.dim() != 1 or base_nbr.dim() != 2:
+        raise ValueError(f"want spins (B, rows, V), rows (R,), base_nbr (n, SD); got "
+                         f"{tuple(spins.shape)}, {tuple(rows.shape)}, {tuple(base_nbr.shape)}")
+    B, lane_rows, V = spins.shape
+    R, sd = rows.shape[0], base_nbr.shape[1]
+    _check(spins, "spins", torch.float32, (B, lane_rows, V))
+    _check(betas, "betas", torch.float32, (B,))
+    _check(rows, "rows", torch.int32, (R,))
+    _check(swap_rng, "swap_rng", torch.int32, (mt.N,))
+    _check(swap_accept, "swap_accept", torch.int32, ())
+    _check(swap_propose, "swap_propose", torch.int32, ())
+    _check(base_nbr, "base_nbr", torch.int64, (n, sd))
+    _check(base_J, "base_J", torch.float32, (n, sd))
+    _check(tau_J, "tau_J", torch.float32, (n,))
+    _check(h, "h", torch.float32, (n,))
+    _same_device(dev, betas=betas, rows=rows, swap_rng=swap_rng, swap_accept=swap_accept,
+                 swap_propose=swap_propose, base_nbr=base_nbr, base_J=base_J, tau_J=tau_J, h=h)
+    if not 1 <= R <= B or lane_rows % n or lane_rows < n:
+        raise ValueError(f"a ladder of {R} replicas on {B} slots of {lane_rows} rows, n={n}: "
+                         "want 1 <= R <= B and rows a multiple of n")
+    if pt_swap_smem_bytes(lane_rows, V) > MAX_SMEM:
+        most = (1 << ((MAX_SMEM // 8).bit_length() - 1)) * PT_SWAP_TASK
+        raise ValueError(f"pt_swap sums at most {most} terms a replica; got rows * V = "
+                         f"{lane_rows * V}")
+    out = (torch.empty(R, dtype=torch.float32, device=dev), torch.empty_like(betas),
+           torch.empty_like(swap_rng), torch.empty_like(swap_accept),
+           torch.empty_like(swap_propose))
+    with torch.cuda.device(dev):
+        _launch(
+            "pt_swap", dev,
+            _ptr(spins), _ptr(betas), _ptr(rows), _ptr(swap_rng), _ptr(swap_accept),
+            _ptr(swap_propose), _ptr(h), _ptr(base_nbr), _ptr(base_J), _ptr(tau_J),
+            *(_ptr(o) for o in out), B, R, lane_rows, V, n, sd, parity, flavour, *_EXP_CONSTS,
+        )
+    launches["pt_swap"] += 1
+    return out
 
 
 # -----------------------------------------------------------------------------

@@ -11,6 +11,7 @@ from __future__ import annotations
 from repro_torch.core import fastexp as fx
 from repro_torch.core import metropolis as mp
 from repro_torch.core import mt19937 as mt
+from repro_torch.core import tempering
 
 
 #: The flavours of the bit-trick exp (`fastexp_ref` and its kernel): every
@@ -179,3 +180,34 @@ def colored_multisweep_multi_ref(
         spins = mp.colored_flip_spins(spins, u, beta, bound, exp_fn)
     hs, ht = mp.lane_h_eff(spins, h_b, base_nbr, base_J_b, tau_J_b, n)
     return spins, hs, ht, rng
+
+
+def pt_swap_ref(
+    spins,  # (B, rows, V) f32: a block of replica slots
+    betas,  # (B,) f32
+    rows,  # (R,) int: the ladder's rows of the block, in replica order
+    swap_rng,  # (624,) int32: the ladder's scalar MT19937, uint32 bits
+    swap_accept,  # () int32
+    swap_propose,  # () int32
+    base_nbr,  # (n, SD) int
+    base_J,  # (n, SD) f32, NOT doubled
+    tau_J,  # (n,) f32, NOT doubled
+    h,  # (n,) f32
+    n: int,
+    swap_parity: int,
+    exp_flavor: str = "fast",
+):
+    """`tempering.swap_phase` of the ladder at ``rows`` of the block: the
+    replicas' `tempering.lane_energy`, `tempering._swap_decide` on their
+    betas, the decided betas written back at ``rows`` of a copy of the
+    block's.  Returns ``(energies, betas, swap_rng, swap_accept,
+    swap_propose)``."""
+    idx = rows.long()
+    energies = tempering.lane_energy(spins[idx], h, base_nbr, base_J, tau_J, n)
+    new, swap_rng, swap_accept, swap_propose = tempering._swap_decide(
+        betas[idx], energies, swap_rng, swap_accept, swap_propose, swap_parity,
+        fx.exp_fn(exp_flavor),
+    )
+    out = betas.clone()
+    out[idx] = new
+    return energies, out, swap_rng, swap_accept, swap_propose

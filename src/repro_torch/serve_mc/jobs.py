@@ -16,11 +16,11 @@ always stops exactly at segment boundaries, where the job's
     server a job may carry its own model (``model=``); it then equals the
     solo run of that model.
   * `PTJob` — R slots; every segment is one parallel-tempering round.
-    The hook is `tempering.swap_phase` over the job's own slots (gathered
-    out of the shared carry), so a tempering round is "one scheduled chunk
-    + swap" and shares launches with whatever else is resident.  It equals
-    `tempering.run_parallel_tempering` with the same seed, betas and rounds
-    bit for bit, wherever its slots land (a job's own model, on a
+    The hook is `tempering.swap_phase` over the job's own slots (read in
+    place in the shared carry), so a tempering round is "one scheduled
+    chunk + swap" and shares launches with whatever else is resident.  It
+    equals `tempering.run_parallel_tempering` with the same seed, betas and
+    rounds bit for bit, wherever its slots land (a job's own model, on a
     multi-tenant server, included).
 
 Every job serializes to a JSON-safe ``meta`` dict plus named numpy
@@ -41,6 +41,7 @@ import torch
 from repro_torch.core import convert
 from repro_torch.core import engine as sweep_engine
 from repro_torch.core import ising, mt19937, observables, tempering
+from repro_torch.kernels import ops
 
 
 class JobResult(NamedTuple):
@@ -357,11 +358,12 @@ class PTJob(_ScheduledJob):
     """A whole parallel-tempering workload as ONE multi-slot job.
 
     Occupies R slots (one per replica).  Every segment is one PT round of
-    ``sweeps_per_round`` sweeps; at each boundary the job gathers its slots
-    into a `tempering.PTState` and runs the same `tempering.swap_phase` the
-    standalone run makes, then writes the swapped betas back into the
-    shared carry.  Seeding reproduces `tempering.init_pt` exactly (replica
-    b gets RNG lane seeds ``lane_seeds(R, V, seed)[b*V:(b+1)*V]`` and spins
+    ``sweeps_per_round`` sweeps; at each boundary the job runs the swap
+    phase the standalone run makes (`kernels.ops.pt_swap`, which
+    `tempering.swap_phase` calls) on its slots where they lie in the shared
+    carry, and the carry takes the swapped betas.  Seeding reproduces
+    `tempering.init_pt` exactly (replica b gets RNG lane seeds
+    ``lane_seeds(R, V, seed)[b*V:(b+1)*V]`` and spins
     ``init_spins(m, seed*1000 + b)``), so the result is bit-identical to
     `tempering.run_parallel_tempering` wherever the slots land.  The swap
     generator and counters live on the server's device.
@@ -394,6 +396,7 @@ class PTJob(_ScheduledJob):
         self.swap_accept = torch.zeros((), dtype=torch.int32)
         self.swap_propose = torch.zeros((), dtype=torch.int32)
         self._energy_tables = {}  # device -> a private model's tables, built on first swap
+        self._rows = self._rows_key = None  # `_ladder_rows`' cache: rows, (slots, device)
 
     def snapshot_state(self) -> tuple[dict, dict]:
         """The reference's layout: the swap generator's state as uint32 at
@@ -451,26 +454,21 @@ class PTJob(_ScheduledJob):
             for b in range(self.num_slots)
         ]
 
-    def _gather_state(self, eng, carry, slots) -> tempering.PTState:
-        """The ladder's replicas, in replica order, out of the shared carry
-        (on a mesh, out of the one device block that holds them all), with
-        the swap generator and counters moved to that block's device."""
-        block = eng.slot_row(carry, slots[0])[0]
-        self._to_device(block.spins.device)
-        rows = [eng.slot_row(carry, b)[1] for b in slots]
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=block.spins.device)
-        lanes = eng._slot_lanes()
-        cols = (idx[:, None] * lanes + torch.arange(lanes, device=idx.device)).reshape(-1)
-        return tempering.PTState(
-            block.spins[idx],
-            block.h_space[idx],
-            block.h_tau[idx],
-            block.betas[idx],
-            block.rng[:, cols],
-            swap_rng=self.swap_rng,
-            swap_accept=self.swap_accept,
-            swap_propose=self.swap_propose,
-        )
+    def _ladder_rows(self, eng, carry, slots):
+        """(the carry, or on a mesh the device block, holding the ladder;
+        the ladder's rows there in replica order as an int32 tensor on its
+        device).  The rows are made once per placement: a ladder resumed on
+        other slots makes them anew.  On the card they are copied from
+        pinned memory without a wait."""
+        blk = eng.slot_row(carry, slots[0])[0]
+        dev = blk.spins.device
+        key = (tuple(slots), str(dev))
+        if self._rows_key != key:
+            rows = torch.tensor([eng.slot_row(carry, b)[1] for b in slots], dtype=torch.int32)
+            if dev.type == "cuda":
+                rows = rows.pin_memory().to(dev, non_blocking=True)
+            self._rows, self._rows_key = rows, key
+        return blk, self._rows
 
     def _swap_energy_tables(self, eng, device):
         """Energy tables of the job's model on ``device``: the engine's when
@@ -510,18 +508,19 @@ class PTJob(_ScheduledJob):
                 )
             )
             return eng.set_slot_betas(carry, slots, betas)
-        state = self._gather_state(eng, carry, slots)
-        state = tempering.swap_phase(
-            state,
-            *self._swap_energy_tables(eng, state.spins.device),
-            parity,
-            eng.model.n,
-            eng.exp_flavor,
+        # One device: `ops.pt_swap` reads the ladder's spins where they lie in
+        # the block, one launch of csrc/pt_swap.cu on the card (the plain
+        # version on the CPU); the block's betas are replaced, not written.
+        blk, rows = self._ladder_rows(eng, carry, slots)
+        dev = blk.spins.device
+        self._to_device(dev)
+        if dev.type == "cuda":
+            server._c_swap_fused.add(1)
+        _, betas, self.swap_rng, self.swap_accept, self.swap_propose = ops.pt_swap(
+            blk.spins, blk.betas, rows, self.swap_rng, self.swap_accept, self.swap_propose,
+            *self._swap_energy_tables(eng, dev), eng.model.n, parity, eng.exp_flavor,
         )
-        self.swap_rng = state.swap_rng
-        self.swap_accept = state.swap_accept
-        self.swap_propose = state.swap_propose
-        return eng.set_slot_betas(carry, slots, state.betas)
+        return eng._replace_block(carry, slots[0], blk._replace(betas=betas))
 
     def finalize(self, server, slots) -> JobResult:
         eng, m = server.engine, self.model_on(server)

@@ -1028,13 +1028,16 @@ class SampleServer:
         self._c_straggler = tel.counter("serve.straggler_events")
         self._h_wait = tel.histogram("serve.queue_wait_s")
         # Placement decisions and PT swap routing: affine = all of a job's
-        # slots on one device; swap_local = a ladder's swap phase gathered
-        # its replicas on one device.
+        # slots on one device; swap_local = a ladder's swap phase found its
+        # replicas on one device of the mesh.
         self._c_place_affine = tel.counter("sched.placements_affine")
         self._c_place_span = tel.counter("sched.placements_spanning")
         self._c_migrations = tel.counter("sched.rebalance_migrations")
         self._c_swap_local = tel.counter("pt.swap_local")
         self._c_swap_cross = tel.counter("pt.swap_cross")
+        # Rounds whose swap phase ran as the kernel (csrc/pt_swap.cu).  Not in
+        # a snapshot (its layout is the reference's): a restore counts from 0.
+        self._c_swap_fused = tel.counter("pt.swap_fused")
         self._c_spliced = tel.counter("serve.slots_spliced")
         # Timed launches: their device seconds (CUDA events on the card, the
         # host wall of the launch elsewhere) and how many were timed.
@@ -1729,6 +1732,7 @@ class SampleServer:
                 "rebalance_migrations": self._c_migrations.value,
                 "pt_swap_local": self._c_swap_local.value,
                 "pt_swap_cross": self._c_swap_cross.value,
+                "pt_swap_fused": self._c_swap_fused.value,
             },
             "telemetry": {
                 "enabled": self.telemetry.enabled,

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import engine, ising, metropolis
+from repro_torch.core import engine, ising, metropolis, tempering
 from repro_torch.core import mt19937 as mt
 from repro_torch.kernels import ops, ref
 from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer
@@ -896,3 +896,126 @@ def test_lm_train_cli_on_the_card_resumes(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path)).valid_steps() == [2, 4]
     assert train.main(["--smoke", "--steps", "6", "--ckpt-dir", str(tmp_path)]) != []
     assert "resumed from checkpoint step 4" in capsys.readouterr().out
+
+
+# -- the PT swap phase (csrc/pt_swap.cu) ------------------------------------------
+
+
+def _pt_swap_block(R, B, n, L, V, seed, dev):
+    """Random +-1 spins of a block of B slots, random betas, and R rows
+    scattered over it (not in order, not contiguous), on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(B, generator=g)[:R].to(torch.int32)
+    spins = torch.where(torch.rand(B, n * L // V, V, generator=g) < 0.5, -1.0, 1.0)
+    betas = 0.1 + 2.9 * torch.rand(B, generator=g)
+    return spins.to(dev), betas.to(dev), rows.to(dev)
+
+
+def _pt_swap_chain(spins, betas, rows, tables, n, flavor, rounds=6, parity=0):
+    """``rounds`` chained swap phases, kernel and plain version side by side
+    on the card, a tenth of the spins flipped between rounds; asserts each
+    round's energies, betas, generator and counters bit-equal.  Returns the
+    accepted and proposed pairs."""
+    dev = spins.device
+    start = (mt.mt_init(1234, dev), torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    got = want = (betas, *start)
+    before = ops.launches["pt_swap"]
+    g = torch.Generator().manual_seed(99)
+    for r in range(rounds):
+        p = (parity + r) % 2
+        flip = (torch.rand(spins.shape, generator=g) < 0.1).to(dev)
+        spins = torch.where(flip, -spins, spins)
+        e_got, *got = ops.pt_swap(spins, got[0], rows, *got[1:], *tables, n, p, flavor)
+        e_want, *want = ref.pt_swap_ref(spins, want[0], rows, *want[1:], *tables, n, p, flavor)
+        torch.cuda.synchronize()
+        assert torch.equal(e_got.view(torch.int32), e_want.view(torch.int32)), r
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), r
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a, b), r
+    assert ops.launches["pt_swap"] == before + rounds
+    return int(got[2]), int(got[3])
+
+
+@pytest.mark.parametrize("flavor", ["fast", "accurate", "exact"])
+@pytest.mark.parametrize(
+    "R,B,n,L,V,parity",
+    [(115, 128, 96, 256, 128, 0), (115, 115, 96, 256, 128, 1), (7, 12, 8, 256, 128, 0),
+     (7, 9, 8, 256, 128, 1), (2, 3, 6, 384, 128, 1), (5, 9, 8, 16, 4, 0),
+     (5, 9, 8, 16, 2, 1), (1250, 1260, 4, 16, 4, 1)],
+    ids=["paper", "paper-all-slots", "odd", "odd-parity1", "lpv3", "V4", "V2", "two-blocks"],
+)
+def test_pt_swap_kernel_bit_equals_plain(R, B, n, L, V, parity, flavor):
+    """The kernel against `ref.pt_swap_ref` on the card over chained rounds:
+    R = 115 at 96 x 256, odd R, both parities, 3 layer blocks, the plain
+    backend's V = 4 and V = 2 (each term taken alone), 1,250 replicas of
+    64 spins (two generator blocks a round, the task's tree cut short)."""
+    _need_card()
+    dev = torch.device("cuda")
+    m = ising.random_layered_model(n=n, L=L, seed=n + R, beta=1.0)
+    spins, betas, rows = _pt_swap_block(R, B, n, L, V, seed=R + B, dev=dev)
+    tables = tempering.model_energy_tables(m, dev)
+    accepted, proposed = _pt_swap_chain(spins, betas, rows, tables, n, flavor, parity=parity)
+    if R > 3:
+        assert 0 < accepted < proposed
+
+
+def test_pt_swap_kernel_on_a_tenant_and_a_state_off_a_16_byte_boundary():
+    """A job's own model (its own tables), and a block of spins that starts
+    4 bytes into its storage: the same bits as the plain version."""
+    _need_card()
+    dev = torch.device("cuda")
+    m = ising.reseed_couplings(ising.random_layered_model(n=96, L=256, seed=3, beta=1.0), seed=8)
+    spins, betas, rows = _pt_swap_block(115, 120, 96, 256, 128, seed=5, dev=dev)
+    flat = torch.empty(spins.numel() + 1, device=dev)
+    shifted = flat[1:].view(spins.shape)
+    shifted.copy_(spins)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    tables = tempering.model_energy_tables(m, dev)
+    accepted, proposed = _pt_swap_chain(shifted, betas, rows, tables, 96, "fast")
+    assert 0 < accepted < proposed
+
+
+@pytest.mark.parametrize("rung", ["cb", "a4"])
+def test_pt_job_on_the_card_swaps_in_the_kernel(rung):
+    """A served ladder: one swap kernel launch a round, counted as
+    `pt_swap_fused`, and the standalone run's result."""
+    _need_card()
+    m = ising.random_layered_model(n=8, L=256, seed=4, beta=1.0)
+    betas = np.geomspace(0.1, 3.0, 9).astype(np.float32)
+    state, _ = tempering.run_parallel_tempering(m, betas, 6, seed=3, sweeps_per_round=3,
+                                                rung=rung, backend="cuda")
+    server = SampleServer(m, slots=12, chunk_sweeps=2, rung=rung, backend="cuda")
+    server.submit(AnnealJob.constant(seed=1, sweeps=7, beta=0.9))
+    job = PTJob(seed=3, betas=betas, num_rounds=6, sweeps_per_round=3)
+    server.submit(job)
+    before = ops.launches["pt_swap"]
+    r = {r.jid: r for r in server.drain()}[job.jid]
+    assert server.stats()["placement"]["pt_swap_fused"] == 6
+    assert ops.launches["pt_swap"] == before + 6
+    np.testing.assert_array_equal(r.extras["betas"], state.betas.cpu().numpy())
+    assert r.extras["swap_accept"] == int(state.swap_accept)
+    assert r.extras["swap_propose"] == int(state.swap_propose)
+
+
+def test_pt_swap_round_makes_no_host_round_trip():
+    """A round's `on_segment` on the card, its rows made anew too, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call waits for the card."""
+    _need_card()
+    m = ising.random_layered_model(n=8, L=256, seed=5, beta=1.0)
+    server = SampleServer(m, slots=8, chunk_sweeps=2, backend="cuda")
+    job = PTJob(seed=2, betas=np.linspace(0.3, 1.5, 6).astype(np.float32), num_rounds=4,
+                sweeps_per_round=2)
+    server.submit(job)
+    server.step()  # admission, the first round and its swap
+    taken = server._active[job.jid][1]
+    job._rows_key = None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            server.carry = job.on_segment(server, server.carry, taken)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert server.stats()["placement"]["pt_swap_fused"] == 3

@@ -244,7 +244,9 @@ def test_mesh_server_equals_the_references(ref, name):
     _assert_results_equal(got["results"], want["results"], name)
     assert got["retired"] == want["retired"]
     assert got["slots"] == want["slots"]  # every placement and migration
-    assert got["placement"] == want["placement"]
+    placement = dict(got["placement"])
+    assert placement.pop("pt_swap_fused") == 0  # the port's own count; the CPU runs no kernel
+    assert placement == want["placement"]
     for a, b in zip(got["pool"], want["pool"]):
         np.testing.assert_array_equal(a, b)
     st = got["placement"]
