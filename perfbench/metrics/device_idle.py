@@ -1,5 +1,6 @@
 """Percent of the profiler window in which no kernel, copy or memset ran
-on the device."""
+on a card, the mean over the cell's cards (a card with no activity is
+idle throughout)."""
 
 from pbench.readers import device_idle
 

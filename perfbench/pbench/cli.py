@@ -17,10 +17,11 @@ import argparse
 import gc
 import json
 import math
+import statistics
 import sys
 import time
 
-from pbench import check, spec as specmod, system, window
+from pbench import check, readers, spec as specmod, system, window
 from pbench.traffic import Traffic
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -33,21 +34,38 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def _spans(tel, names=("sched.step", "sched.admit")) -> dict:
-    """The telemetry ring's sync spans by name, in host seconds."""
+def _spans(tel) -> dict:
+    """Every sync span of the telemetry ring, by name, in host seconds."""
     base = time.perf_counter() - tel.now_us() * 1e-6
-    out = {n: [] for n in names}
+    out: dict = {}
     open_: dict = {}
     for ev in tel.events():
-        if ev.get("name") not in out:
-            continue
         key = (ev["tid"], ev["name"])
         if ev["ph"] == "B":
             open_.setdefault(key, []).append(ev["ts"])
         elif ev["ph"] == "E" and open_.get(key):
             a = open_[key].pop()
-            out[ev["name"]].append((base + a * 1e-6, base + ev["ts"] * 1e-6))
+            out.setdefault(ev["name"], []).append((base + a * 1e-6, base + ev["ts"] * 1e-6))
     return out
+
+
+def _device(devs: list) -> dict:
+    """The result's ``device``: the cards the engine spans, their count and
+    the peak device memory of the fullest (the host: count 1, no memory)."""
+    import torch
+
+    if devs[0].type != "cuda":
+        return {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": 0}
+    return {"platform": "gpu", "kind": torch.cuda.get_device_name(devs[0]), "count": len(devs),
+            "memory_peak_bytes": max(int(torch.cuda.max_memory_allocated(d)) for d in devs)}
+
+
+def _synchronize(devs: list) -> None:
+    import torch
+
+    for d in devs:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def _breakdown(record: dict) -> dict | None:
@@ -106,7 +124,8 @@ def run_cell(spec: specmod.Spec, workload: str, seed: int, seconds: float, trace
         over["telemetry"] = Telemetry(enabled=True, max_events=TRACE_EVENTS)
     server = system.build_server(cfg, model, **over)
     shapes = system.shapes(server)
-    cuda = server.engine.device.type == "cuda"
+    devs = system.devices(server)
+    cuda = devs[0].type == "cuda"
     traffic = Traffic(mix, seed, seconds, cfg)
     out_dir = spec.dir / "out" if out_dir is None else out_dir
     tracer = None
@@ -114,7 +133,7 @@ def run_cell(spec: specmod.Spec, workload: str, seed: int, seconds: float, trace
         from pbench.trace import Window
 
         tracer = window.Tracer(min(PROFILE_S, seconds / 2),
-                               lambda: Window(out_dir / f"{workload}.trace.json", cuda))
+                               lambda: Window(out_dir / f"{workload}.trace.json", devs))
         tracer.instrument(server)
     for s in system.warmup_specs(traffic):
         server.submit(system.make_job(s))
@@ -126,8 +145,7 @@ def run_cell(spec: specmod.Spec, workload: str, seed: int, seconds: float, trace
         w.stop()
     if fault is not None:
         fault(server)
-    if cuda:
-        torch.cuda.synchronize()
+    _synchronize(devs)
     # The set-up's objects (the traffic's schedule among them) stay out of
     # the collector's scans inside the window.
     gc.collect()
@@ -136,24 +154,21 @@ def run_cell(spec: specmod.Spec, workload: str, seed: int, seconds: float, trace
     print(f"set-up {setup_s:.3f} s; {workload}: {shapes}", file=log)
     rec = window.run(server, traffic, seconds, grace_s=grace_s, tracer=tracer, step_hook=step_hook)
     gc.unfreeze()
-    rec.update(setup_s=setup_s, wall_s=rec["t1"] - rec["t0"], shapes=shapes)
+    rec.update(setup_s=setup_s, wall_s=rec["t1"] - rec["t0"], shapes=shapes,
+               cards=[d.index if d.type == "cuda" else d.type for d in devs])
     print(f"window {rec['wall_s']:.3f} s; the generator ran at most "
           f"{rec['generator_late_s']:.6f} s late", file=log)
     if tracer is not None:
         rec.update(spans=_spans(server.telemetry), segments=tracer.segments,
                    device=tracer.device, launches=tracer.launches,
                    events_dropped=server.telemetry.dropped_events)
-    device = {"platform": "gpu" if cuda else "cpu",
-              "kind": torch.cuda.get_device_name(server.engine.device) if cuda else "cpu",
-              "count": 1,
-              "memory_peak_bytes": int(torch.cuda.max_memory_allocated(server.engine.device))
-              if cuda else 0}
+    device = _device(devs)
     if tracer is not None and rec.get("device"):
         dev = rec["device"]
         print(f"trace: {dev['engine_ranges']} engine launches, their kernels "
               f"{dev['engine_kernel_s']:.6f} s, {len(dev['kernels_by_name'])} kernel names, "
               f"events dropped {rec['events_dropped']}", file=log)
-        device["busy_s"] = sum(b - a for a, b in dev["busy"])
+        device["busy_s"] = statistics.fmean(readers.busy_by_card(rec))
         device["window_s"] = dev["t1"] - dev["t0"]
     metrics = {}
     for m in spec.metrics(cell, trace):

@@ -4,13 +4,17 @@ holds nothing to read it from."""
 
 from __future__ import annotations
 
+from statistics import fmean
+
 from pbench import yardstick
 from pbench.trace import clip, union
 
 
 def delta(rec: dict, name: str) -> float:
+    """A counter's growth over the window (``name`` as `system.counters`
+    keys it; a series not yet counted at either end reads 0 there)."""
     c0, c1 = rec["counters"]
-    return c1[name] - c0[name]
+    return c1.get(name, 0) - c0.get(name, 0)
 
 
 def span_share(rec: dict, spans) -> float | None:
@@ -21,12 +25,26 @@ def span_share(rec: dict, spans) -> float | None:
     return 100.0 * covered / rec["wall_s"]
 
 
+def busy_by_card(rec: dict) -> list[float]:
+    """Seconds of the profiler window in which each of the record's
+    ``cards`` was busy (0 for a card with no activity).  A trace that names
+    a device the engine does not span fails: its time would read as idle."""
+    by = rec["device"]["busy_by_device"]
+    stray = set(by) - set(rec["cards"])
+    if stray:
+        raise ValueError(f"the trace names devices {sorted(stray, key=str)} outside the "
+                         f"engine's cards {rec['cards']}")
+    return [sum(b - a for a, b in by.get(c, ())) for c in rec["cards"]]
+
+
 def device_idle(rec: dict) -> float | None:
+    """The mean over the cell's cards of each card's idle share of the
+    profiler window; None where no card was busy."""
     dev = rec.get("device")
     if not dev or not dev.get("busy"):
         return None
-    busy = sum(b - a for a, b in dev["busy"])
-    return 100.0 * (1.0 - busy / (dev["t1"] - dev["t0"]))
+    span = dev["t1"] - dev["t0"]
+    return 100.0 * fmean([1.0 - busy / span for busy in busy_by_card(rec)])
 
 
 def launch_chunks(rec: dict) -> dict:

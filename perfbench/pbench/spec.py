@@ -22,8 +22,17 @@ class Spec:
         self.data = json.loads((self.root / "BENCHMARK.json").read_text())
 
     def cell(self, name: str) -> dict:
+        """The workload ``name``; refused where its ``chips`` is not the
+        number of cards its configuration's ``devices`` names."""
+        from pbench.system import cuda_cards
+
         for w in self.data["workloads"]:
             if w["name"] == name:
+                cards = cuda_cards(self.config(w["config"]).get("devices"))
+                if cards != w["chips"]:
+                    raise ValueError(
+                        f"workload {name!r} asks for {w['chips']} chip(s), but its configuration "
+                        f"{w['config']!r} names {cards} card(s) in 'devices'")
                 return w
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
 

@@ -12,7 +12,10 @@ import numpy as np
 def build_server(cfg: dict, model_arrays, **overrides):
     """A `SampleServer` over the model ``model_arrays`` (the reference's
     `Model`), with the configuration's ``server`` settings (`ServeConfig`
-    fields) and ``overrides`` (the CPU rehearsal's backend, device, V)."""
+    fields) and ``overrides`` (the CPU rehearsal's backend, device, V).
+    The configuration's optional ``devices`` lays the slots out over a
+    slot mesh (`slot_mesh`); ``server.capacities`` splits them over the
+    mesh's devices, as any other `ServeConfig` field."""
     from repro_torch.core import ising
     from repro_torch.serve_mc import SampleServer
 
@@ -23,7 +26,50 @@ def build_server(cfg: dict, model_arrays, **overrides):
     kwargs.setdefault("V", cfg["lanes"])
     kwargs.setdefault("exp_flavor", cfg["exp_flavor"])
     kwargs.update(overrides)
+    if "devices" in cfg:
+        kwargs["mesh"] = slot_mesh(cfg["devices"], kwargs.get("device", "cuda"))
     return SampleServer(model, **kwargs)
+
+
+def slot_mesh(devices, device: str):
+    """The slot mesh a configuration's ``devices`` names on ``device``'s
+    type: an int D is the first D visible devices (`make_slot_mesh`, as
+    ``anneal_serve --devices D``), a list names each device, so that
+    ``["cuda:0"] * 4`` is four logical devices on one card.  Off the card
+    (the CPU rehearsal) either gives as many logical host devices."""
+    import torch
+    from repro_torch.launch.mesh import SlotMesh, make_slot_mesh
+
+    kind = torch.device(device).type
+    if isinstance(devices, int):
+        return make_slot_mesh(devices, device=kind)
+    return SlotMesh(devices if kind == "cuda" else [kind] * len(devices))
+
+
+def cuda_cards(devices) -> int:
+    """How many distinct cards a configuration's ``devices`` names (1 when
+    it names none: the server's one device)."""
+    if devices is None:
+        return 1
+    if isinstance(devices, int):
+        return devices
+    import torch
+
+    return len({torch.device(d).index or 0 for d in devices if torch.device(d).type == "cuda"})
+
+
+def devices(server) -> list:
+    """The distinct devices the server's engine spans, in mesh order, a
+    card with its index (``cuda`` is the current card)."""
+    import torch
+
+    out = []
+    for d in server.engine.mesh or [server.engine.device]:
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        if d not in out:
+            out.append(d)
+    return out
 
 
 def make_job(spec: dict):
@@ -53,11 +99,14 @@ def warmup_specs(traffic) -> list[dict]:
 
 
 def counters(server) -> dict:
-    """The server's counters that the metrics read, and its launches by chunk."""
+    """Every counter series of the server's telemetry, read without
+    waiting for the card: a scalar counter under its name, a labelled one
+    under ``name{label=value,...}`` (`repro_torch.obs.metrics.snapshot`'s
+    keys), and the launches by chunk as ``launches_by_chunk``."""
+    from repro_torch.obs import metrics
+
     tel = server.telemetry
-    out = {name: tel.value(name) for name in (
-        "serve.launches", "serve.sweeps_elapsed", "serve.busy_slot_sweeps",
-        "serve.jobs_completed")}
+    out = dict(metrics.snapshot(tel)["counters"])
     out["launches_by_chunk"] = {int(lab["chunk"]): int(v)
                                 for lab, v in tel.series("serve.launches_by_chunk")}
     return out

@@ -6,7 +6,8 @@ Kernels launched inside the benchmark's ``pb.engine_run`` ranges (the
 are the sweep kernels, whatever their names; they are found through the
 correlation ids of their launch calls.  The host clock and the trace's
 clock are tied by a ``pb.mark`` range recorded right after the window
-opens.
+opens.  Device activity is kept as one union over every card and per
+card (an event's ``args.device``, else its ``pid``).
 """
 
 from __future__ import annotations
@@ -24,12 +25,13 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 class Window:
     """Start and stop one profiler window; `read` parses what it caught."""
 
-    def __init__(self, out: Path, cuda: bool):
+    def __init__(self, out: Path, devices: list):
         import torch
 
         self._torch = torch
+        self.cards = [d for d in devices if d.type == "cuda"]
         acts = [torch.profiler.ProfilerActivity.CPU]
-        if cuda:
+        if self.cards:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self.prof = torch.profiler.profile(activities=acts)
         self.out = Path(out)
@@ -42,8 +44,8 @@ class Window:
             pass
 
     def stop(self) -> None:
-        if self._torch.cuda.is_available():
-            self._torch.cuda.synchronize()
+        for d in self.cards:  # every card the engine spans
+            self._torch.cuda.synchronize(d)
         self.t_stop = time.perf_counter()
         self.prof.stop()
         self.out.parent.mkdir(parents=True, exist_ok=True)
@@ -82,8 +84,9 @@ def intersection(u: list, v: list) -> float:
 
 
 def parse(trace: dict, t_mark: float, t_stop: float) -> dict:
-    """Device intervals in host seconds (``perf_counter``), the sweep
-    kernels' time and launches, kernel time by name, from a Chrome trace."""
+    """Device intervals in host seconds (``perf_counter``), over every card
+    (``busy``) and by card (``busy_by_device``), the sweep kernels' time
+    and launches, kernel time by name, from a Chrome trace."""
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     marks = [e for e in events if e.get("name") == MARK and e.get("ph") == "X"]
     if not marks:
@@ -93,7 +96,7 @@ def parse(trace: dict, t_mark: float, t_stop: float) -> dict:
     def host(ts_us: float) -> float:
         return (float(ts_us) - offset) * 1e-6
 
-    device, by_corr, by_name = [], {}, {}
+    device, by_dev, by_corr, by_name = [], {}, {}, {}
     ranges, launches = [], []
     for e in events:
         if e.get("ph") != "X" or "ts" not in e:
@@ -103,6 +106,7 @@ def parse(trace: dict, t_mark: float, t_stop: float) -> dict:
         b = a + float(e.get("dur", 0.0)) * 1e-6
         if cat in DEVICE_CATS:
             device.append((a, b))
+            by_dev.setdefault((e.get("args") or {}).get("device", e.get("pid")), []).append((a, b))
             if cat == "kernel":
                 by_name[name] = by_name.get(name, 0.0) + (b - a)
                 corr = (e.get("args") or {}).get("correlation")
@@ -126,6 +130,7 @@ def parse(trace: dict, t_mark: float, t_stop: float) -> dict:
     return {
         "t0": t_mark, "t1": t_stop,
         "busy": clip(union(device), t_mark, t_stop),
+        "busy_by_device": {k: clip(union(v), t_mark, t_stop) for k, v in by_dev.items()},
         "engine_kernel_s": sum(by_corr.get(c, 0.0) for c in engine_corr),
         "engine_ranges": len(ranges),
         "kernels_by_name": by_name,

@@ -108,40 +108,79 @@ def test_a_ladder_without_its_swaps_fails(tmp_path, monkeypatch):
     assert res["checks"]["beta_mismatches"]["value"] > 0
 
 
-def test_a_new_cell_needs_only_new_files(tmp_path):
-    """A configuration, a mix and a metric added as files plus entries
-    make a cell that runs, without an edit to any file already there."""
+def _checkout_with_new_cell(tmp_path, config_over: dict, chips: int, metrics: dict):
+    """A copy of the benchmark with a configuration, a mix and the
+    ``metrics`` ({name: reader source}) added as files plus entries, and
+    the bytes of every file it had before; the new cell is "cb-acc-few"."""
     root = tmp_path / "checkout"
     shutil.copytree(HERE, root / HERE.name, ignore=shutil.ignore_patterns("out", "__pycache__"))
     shutil.copy(HERE.parent / "BENCHMARK.json", root / "BENCHMARK.json")
     before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file() and p.name != "BENCHMARK.json"}
     bench = root / HERE.name
-    cfg = json.loads((bench / "configs" / "ising-qmc-cb.json").read_text())
-    cfg.update(name="ising-qmc-cb16")
-    cfg["server"]["chunk_sweeps"] = 16
+    cfg = specmod.merged(json.loads((bench / "configs" / "ising-qmc-cb.json").read_text()),
+                         dict(config_over, name="ising-qmc-cb16"))
     (bench / "configs" / "ising-qmc-cb16.json").write_text(json.dumps(cfg))
     mix = json.loads((bench / "traffic" / "anneal-short.json").read_text())
     mix.update(loop="closed", outstanding=3, population=64, check_jobs=8)
     (bench / "traffic" / "anneal-few.json").write_text(json.dumps(mix))
-    (bench / "metrics" / "jobs_per_s.py").write_text(
-        "def read(rec):\n"
-        "    c0, c1 = rec['counters']\n"
-        "    return (c1['serve.jobs_completed'] - c0['serve.jobs_completed']) / rec['wall_s']\n")
     data = json.loads((root / "BENCHMARK.json").read_text())
     data["configs"].append({"name": "ising-qmc-cb16", "source": "x", "reduced": [], "why": "x",
                             "file": f"{HERE.name}/configs/ising-qmc-cb16.json"})
     data["workloads"].append({"name": "cb-acc-few", "config": "ising-qmc-cb16",
-                              "traffic": "anneal-few", "chips": 1, "why": "x"})
+                              "traffic": "anneal-few", "chips": chips, "why": "x"})
     data["end_to_end"][1]["workloads"].append("cb-acc-few")
-    data["per_layer"].append({"name": "jobs_per_s", "unit": "jobs/s", "better": "higher",
-                              "source": "program_counter", "layer": "serve_mc.scheduler admission",
-                              "moves": "slot_sweeps_per_s", "workloads": ["cb-acc-few"]})
+    for name, source in metrics.items():
+        (bench / "metrics" / f"{name}.py").write_text(source)
+        data["per_layer"].append({"name": name, "unit": "x", "better": "higher",
+                                  "source": "program_counter",
+                                  "layer": "serve_mc.scheduler admission",
+                                  "moves": "slot_sweeps_per_s", "workloads": ["cb-acc-few"]})
     (root / "BENCHMARK.json").write_text(json.dumps(data))
+    return root, before
+
+
+def test_a_new_cell_needs_only_new_files(tmp_path):
+    """A configuration, a mix and a metric added as files plus entries
+    make a cell that runs, without an edit to any file already there."""
+    root, before = _checkout_with_new_cell(
+        tmp_path, {"server": {"chunk_sweeps": 16}}, 1,
+        {"jobs_per_s": "def read(rec):\n"
+                       "    c0, c1 = rec['counters']\n"
+                       "    return (c1['serve.jobs_completed'] - c0['serve.jobs_completed'])"
+                       " / rec['wall_s']\n"})
     spec = specmod.Spec(root)
     for trace_on, names in ((False, {"setup_s", "slot_sweeps_per_s"}), (True, {"jobs_per_s"})):
         res = cli.run_cell(spec, "cb-acc-few", 3, 3.0, trace_on, cpu=True, out_dir=tmp_path)
         assert res["correct"] is True, res["checks"]
         assert names <= set(res["metrics"])
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+def test_a_new_cell_on_four_devices_needs_only_new_files(tmp_path):
+    """A configuration on a four-device slot mesh (``devices: 4``, four
+    logical host devices here) and metrics reading a span and a counter
+    that no metric of the benchmark reads make a cell that runs, served
+    bit for bit, without an edit to any file already there."""
+    root, before = _checkout_with_new_cell(
+        tmp_path, {"devices": 4, "cpu_rehearsal": {"server": {"slots": 8}}}, 4,
+        {"launch_share": "from pbench.readers import span_share\n\n\n"
+                         "def read(rec):\n"
+                         "    return span_share(rec, rec.get('spans', {}).get('sched.launch'))\n",
+         "straggler_events": "from pbench.readers import delta\n\n\n"
+                             "def read(rec):\n"
+                             "    return delta(rec, 'serve.straggler_events')\n"})
+    spec = specmod.Spec(root)
+    meshes = []
+    for trace_on, names in ((False, {"setup_s", "slot_sweeps_per_s"}),
+                            (True, {"launch_share", "straggler_events"})):
+        res = cli.run_cell(spec, "cb-acc-few", 3, 3.0, trace_on, cpu=True, out_dir=tmp_path,
+                           step_hook=lambda server: meshes.append(len(server.engine.mesh)))
+        assert res["correct"] is True, res["checks"]
+        assert all(v["value"] == 0 for v in res["checks"].values()), res["checks"]
+        assert names <= set(res["metrics"])
+    assert set(meshes) == {4}
+    assert 0 < res["metrics"]["launch_share"]["value"] < 100
+    assert res["metrics"]["straggler_events"]["value"] >= 0
     assert all(p.read_bytes() == b for p, b in before.items())
 
 
@@ -159,17 +198,17 @@ def test_trace_parsing_attributes_kernels_by_their_launch():
         ev("pb.mark", "user_annotation", 0, 1),
         ev("pb.engine_run", "user_annotation", 100, 50),
         ev("cudaLaunchKernel", "cuda_runtime", 120, 5, correlation=7),
-        ev("sweep_kernel", "kernel", 130, 400, tid=7, correlation=7),
+        ev("sweep_kernel", "kernel", 130, 400, tid=7, correlation=7, device=0),
         ev("cudaLaunchKernel", "cuda_runtime", 300, 5, correlation=8),  # outside the range
-        ev("elementwise", "kernel", 600, 100, tid=7, correlation=8),
-        ev("Memcpy HtoD", "gpu_memcpy", 800, 50, tid=7),
+        ev("elementwise", "kernel", 600, 100, tid=7, correlation=8, device=0),
+        ev("Memcpy HtoD", "gpu_memcpy", 800, 50, tid=7, device=0),
     ]
     got = trace.parse({"traceEvents": events}, t_mark, t_mark + 0.002)
     assert got["engine_kernel_s"] == pytest.approx(400e-6)
     assert sum(b - a for a, b in got["busy"]) == pytest.approx(550e-6)
     assert got["kernels_by_name"] == {"sweep_kernel": pytest.approx(400e-6),
                                       "elementwise": pytest.approx(100e-6)}
-    rec = {"device": got, "launches": [(t_mark + 110e-6, 64)],
+    rec = {"device": got, "launches": [(t_mark + 110e-6, 64)], "cards": [0],
            "shapes": {"rung": "cb", "slots": 115, "rows": 192, "sd": 6, "lanes": 128}}
     roof = specmod.load_module(HERE / "metrics" / "sweep_roofline.py", "t_roof").read(rec)
     assert roof == pytest.approx(100 * readers.bound_s(rec, {64: 1}) / 400e-6)
