@@ -343,6 +343,26 @@ def backends() -> tuple[str, ...]:
     return tuple(sorted(_BACKENDS))
 
 
+def _timed(body: Callable, args: tuple, stream) -> tuple:
+    """``body(*args)`` between a pair of CUDA timing events on ``stream``,
+    which the kernel entries record right around their C calls
+    (`ops.launch_timing`), so the pair spans the kernels and not the Python
+    before them; a body that calls no kernel entry (the plain version) gets
+    both after its ops.  Returns ``(result, (start, end))``."""
+    from repro_torch.kernels import ops
+
+    timing = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True), False]
+    ops.launch_timing = timing
+    try:
+        out = body(*args)
+    finally:
+        ops.launch_timing = None
+    if not timing[2]:
+        timing[0].record(stream)
+        timing[1].record(stream)
+    return out, (timing[0], timing[1])
+
+
 class SweepEngine:
     """One sweep lifecycle: model tables + backend dispatch."""
 
@@ -429,8 +449,11 @@ class SweepEngine:
                 if str(dev) not in self._bodies:
                     self._bodies[str(dev)] = builder(self._local_view(dev))
             self._streams = [None] * D
-            self._ready = [None] * D
             self.device_launches = [0] * D  # body launches per mesh device
+        # The last launch's (start, end) CUDA timing events of each device
+        # block (`block_events`); on a host block the moment it returned.
+        self._started = [None] * D
+        self._ready = [None] * D
         self._energy_tabs: dict = {}  # base-model energy tables per device
 
     # -- construction ---------------------------------------------------------
@@ -619,12 +642,16 @@ class SweepEngine:
         """Advance every replica by ``num_sweeps`` Metropolis sweeps (one
         kernel launch on the "cuda" backend; on a mesh one a device, each on
         its device's own stream).  Returns a new carry.  A multi-tenant
-        engine's launch reads the current slot tables."""
+        engine's launch reads the current slot tables.  On the card every
+        launch is timed by CUDA events (`block_events`)."""
         if self.mesh is not None:
             return self._mesh_run(carry, int(num_sweeps))
-        if self.multi:
-            return self._run(carry, self.slot_tables, int(num_sweeps))
-        return self._run(carry, int(num_sweeps))
+        args = (carry, self.slot_tables, int(num_sweeps)) if self.multi else (carry, int(num_sweeps))
+        if self.device.type != "cuda":
+            return self._run(*args)
+        out, (self._started[0], self._ready[0]) = _timed(
+            self._run, args, torch.cuda.current_stream(self.device))
+        return out
 
     def run_fn(self, num_sweeps: int) -> Callable:
         """Steady-state callable for benchmarking: ``fn(carry) -> carry``."""
@@ -643,12 +670,14 @@ class SweepEngine:
         card each block launches on its device's own stream, which first
         waits for the device's current stream (the splices and beta writes
         before it) and is then waited for by it (so every later read, write
-        or free on the current stream follows the launch); an event recorded
-        after each launch is what `device_ready_times` waits on."""
+        or free on the current stream follows the launch).  Each block's
+        launch is timed by its own pair of CUDA timing events on that
+        stream (`_timed`): `block_events` hands the pairs out, and the end
+        event is what `device_ready_times` waits on."""
         blocks = list(carry.blocks)
         for d, blk in enumerate(blocks):
             if blk is None:
-                self._ready[d] = None
+                self._ready[d] = self._started[d] = None
                 continue
             dev = self.mesh[d]
             body = self._bodies[str(dev)]
@@ -661,21 +690,28 @@ class SweepEngine:
             cur, stream = torch.cuda.current_stream(dev), self._stream(d)
             stream.wait_stream(cur)
             with torch.cuda.stream(stream):
-                blocks[d] = body(*args)
-                event = torch.cuda.Event()
-                event.record(stream)
+                blocks[d], (self._started[d], self._ready[d]) = _timed(body, args, stream)
             cur.wait_stream(stream)
-            self._ready[d] = event
         return MeshCarry(tuple(blocks))
+
+    def block_events(self) -> list:
+        """The last launch's ``(start, end)`` CUDA timing events of each
+        device block, in mesh device order (one pair without a mesh); None
+        for a device that launched nothing (capacity 0) or runs on the
+        host.  Recorded, never waited for."""
+        return [(a, b) if isinstance(b, torch.cuda.Event) else None
+                for a, b in zip(self._started, self._ready)]
 
     def device_ready_times(self, carry: MeshCarry, t0: float) -> np.ndarray:
         """(D,) wall seconds from ``t0`` until each device's block of the
-        last launch was ready, in mesh device order (mesh engines only).
-        On the card: the launch's event on each device's stream,
-        synchronized in device order, ``perf_counter() - t0`` taken then; on
-        the host the moment each block's body returned.  A device of
-        capacity 0 (no launch) reads as ready when its turn comes.  Pure
-        reads; ``carry`` (the launch's result) is untouched."""
+        last launch was ready, in mesh device order (mesh engines only):
+        the host-timed path, which waits.  On the card: the end event of
+        each block's launch, synchronized in device order, ``perf_counter()
+        - t0`` taken then (so a device behind a slower one reads its
+        lateness: per-device device time is `block_events`'); on the host
+        the moment each block's body returned.  A device of capacity 0 (no
+        launch) reads as ready when its turn comes.  Pure reads; ``carry``
+        (the launch's result) is untouched."""
         if self.mesh is None:
             raise ValueError("device_ready_times needs a mesh-sharded engine")
         if not isinstance(carry, MeshCarry) or len(carry.blocks) != len(self.mesh):
@@ -815,12 +851,15 @@ class SweepEngine:
         beta: float | None = None,
         rng_seeds: np.ndarray | None = None,
         model: ising.LayeredModel | None = None,
+        rng_state: torch.Tensor | None = None,
     ) -> SweepCarry:
         """A single-slot (batch=1 shaped) carry for `splice_slot`.
 
         Bit-identical to ``init_carry(seed=seed)`` on a ``batch=1`` engine.
         ``rng_seeds`` overrides the per-lane seeds ((V,) uint32; (1,) on
-        the flat rungs).
+        the flat rungs).  ``rng_state`` is the slot's generator state
+        seeded already (`seed_slot_rngs`, (624, V) on the host) in place of
+        seeding it here from ``rng_seeds``.
         ``model`` (multi-tenant engines only) computes the slot's fields and
         default beta from that model; splice its tables into the same slot
         (`set_slot_model`), or the carry will not match what the slot sweeps.
@@ -841,22 +880,41 @@ class SweepEngine:
             if spins.ndim != 1:
                 raise ValueError(f"slot spins must be flat (N,), got {spins.shape}")
         lanes = self._slot_lanes()
-        if rng_seeds is None:
-            rng_seeds = lane_seeds(1, lanes, seed)
+        if rng_state is not None:
+            if tuple(rng_state.shape) != (mt.N, lanes):
+                raise ValueError(
+                    f"rng_state must have shape ({mt.N}, {lanes}), got {tuple(rng_state.shape)}"
+                )
+            rng = rng_state.to(self.device)
+        elif rng_seeds is None:
+            rng = mt.mt_init(lane_seeds(1, lanes, seed), self.device)
         else:
             rng_seeds = np.asarray(rng_seeds, np.uint32)
             if rng_seeds.shape != (lanes,):
                 raise ValueError(
                     f"rng_seeds must have shape ({lanes},), got {rng_seeds.shape}"
                 )
+            rng = mt.mt_init(rng_seeds, self.device)
         st = self._slot_state(m, spins)
         beta_arr = torch.full(
             (1,), m.beta if beta is None else beta, dtype=torch.float32, device=self.device
         )
-        return SweepCarry(
-            st.spins[None], st.h_space[None], st.h_tau[None], beta_arr,
-            mt.mt_init(rng_seeds, self.device),
-        )
+        return SweepCarry(st.spins[None], st.h_space[None], st.h_tau[None], beta_arr, rng)
+
+    def seed_slot_rngs(self, seed_rows) -> list[torch.Tensor]:
+        """The generator states of many slots, seeded in one vectorised pass
+        on the host: `mt.mt_init` over all their lanes at once, whose
+        recurrence runs lane by lane, so each state is the one
+        `init_slot_carry` would seed from that slot's seeds alone.
+        ``seed_rows`` holds each slot's lane seeds ((V,) uint32; (1,) on the
+        flat rungs); returns a (624, V) int32 host tensor a slot, in order,
+        for ``init_slot_carry(rng_state=...)``."""
+        rows = [np.asarray(r, np.uint32) for r in seed_rows]
+        if not rows:
+            return []
+        state = mt.mt_init(np.concatenate(rows), "cpu")
+        ends = np.cumsum([len(r) for r in rows])
+        return [state[:, e - len(r) : e].contiguous() for r, e in zip(rows, ends)]
 
     def splice_slot(self, carry, b: int, slot: SweepCarry):
         """Write a single-slot carry into logical slot ``b``; returns a new

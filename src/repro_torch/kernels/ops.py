@@ -62,10 +62,11 @@ def _kernel(name: str):
 
 
 #: The timing events of the engine launch in progress, ``[start, end,
-#: recorded]``, or None: set by the server around `SweepEngine.run` (one
-#: CUDA device).  Each kernel entry records ``start`` right before the
-#: first C call under it and ``end`` right after each, on the launching
-#: stream, so the pair spans the kernels and not the Python before them.
+#: recorded]``, or None: set by `SweepEngine.run` around each device
+#: block's launch on the card.  Each kernel entry records ``start`` right
+#: before the first C call under it and ``end`` right after each, on the
+#: launching stream, so the pair spans the kernels and not the Python
+#: before them.
 launch_timing: list | None = None
 
 

@@ -9,11 +9,13 @@ flagged when its launch time is anomalous against its OWN history (the
 monitor's sigma test) or out of line with the OTHER devices of this
 launch (relative skew against the device median).
 
-The per-device times are `SweepEngine.device_ready_times`: on the card an
-event recorded on each device's stream after its launch, synchronized in
-device order (the scheduler feeds them when telemetry is on and the
-engine has a mesh).  Detection is the monitor's whole job; mitigation is
-an orchestration action.
+The scheduler feeds the per-device times when telemetry is on and the
+engine has a mesh: with the kernels on the card and a static chunk, each
+device block's device seconds between the CUDA timing events around its
+kernel (`SweepEngine.block_events`), once all of the launch's have
+resolved; otherwise `SweepEngine.device_ready_times`, each device's ready
+time on the host clock, synchronized in device order.  Detection is the
+monitor's whole job; mitigation is an orchestration action.
 """
 
 from __future__ import annotations

@@ -35,12 +35,13 @@ Four event shapes:
                  recording none is entered.
   * complete     (`complete` -> ph "X" with ``dur``): one box of a
                  measured duration (an engine launch timed on the host).
-  * device track (`device_interval` -> ph "X" on tid `DEVICE_TID`): an
-                 interval between two CUDA timing events (an engine
-                 launch on the card), queued without waiting and resolved
-                 by `poll_device` once its end event has completed; its
+  * device track (`device_interval` -> ph "X" on tid `DEVICE_TID`, or a
+                 track of its own per device of a slot mesh): an interval
+                 between two CUDA timing events (an engine launch on the
+                 card), queued without waiting and resolved by
+                 `poll_device` once its end event has completed; its
                  ``ts`` is the device start, put on the registry's clock
-                 through an anchor event (`anchor_device`).
+                 through its card's anchor event (`anchor_device`).
   * async spans  (`async_begin`/`async_instant`/`async_end` -> ph
                  "b"/"n"/"e" with an ``id``): job lifecycles, which
                  overlap arbitrarily and so cannot live on a sync stack.
@@ -75,11 +76,19 @@ from torch.autograd import profiler as _autograd_profiler
 #: traffic, bounded so a resident server never grows it.
 HIST_WINDOW = 1024
 
-#: The track of intervals timed on the card (`Telemetry.device_interval`).
+#: The track of intervals timed on the card (`Telemetry.device_interval`);
+#: a slot mesh's device d has track ``DEVICE_TID + d``.
 DEVICE_TID = 1
 
 #: The kind-specific field of each phase's trace event.
 _EXTRA_KEY = {"X": "dur", "i": "s", "b": "id", "n": "id", "e": "id"}
+
+
+def card_index(device) -> int:
+    """The CUDA index of ``device`` (the current card for a bare ``cuda``):
+    the key of its anchor."""
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
 def _label_key(labels: dict) -> tuple:
@@ -187,9 +196,9 @@ class Telemetry:
         self._ranges: list = []
         self._thread_names: dict[int, str] = {}
         # Device intervals queued by `device_interval`, oldest first, and
-        # the anchor (event, trace us) that places them on this clock.
+        # each card's anchor (event, trace us) that places them on this clock.
         self._pending: deque = deque()
-        self._anchor = None
+        self._anchors: dict[int, tuple] = {}
         self._lock = threading.Lock()  # registry creation only; updates
         # are single-writer (the scheduler loop) by design.
 
@@ -312,35 +321,36 @@ class Telemetry:
     # (``enable_timing=True``).  It is queued without waiting; `poll_device`
     # resolves the queued pairs, oldest first, once their end events have
     # completed (``query()``), or waits for them (``block=True``) where the
-    # host waits anyway.  The card's clock is tied to the registry's by an
-    # anchor: an event recorded on the stream, waited for and read against
-    # `now_us` the moment the wait returns.
+    # host waits anyway.  Each card's clock is tied to the registry's by an
+    # anchor: an event recorded on the card's stream, waited for and read
+    # against `now_us` the moment the wait returns.
 
     def anchor_device(self, device) -> None:
         """Record an anchor event on ``device``'s current stream, wait for
-        it and read the registry's clock: the device track's time origin.
-        Every interval resolved later is placed from the newest anchor, so
-        renewing it where the host waits anyway keeps the two clocks from
-        drifting apart."""
+        it and read the registry's clock: the time origin of the card's
+        intervals.  Every interval resolved later is placed from its card's
+        newest anchor, so renewing it where the host waits anyway keeps the
+        two clocks from drifting apart."""
         ev = torch.cuda.Event(enable_timing=True)
         ev.record(torch.cuda.current_stream(device))
         ev.synchronize()
-        self._anchor = (ev, self.now_us())
+        self._anchors[card_index(device)] = (ev, self.now_us())
 
-    def device_interval(self, name: str, start, end, on_done=None,
-                        cat: str = "engine", **args) -> None:
-        """Queue the interval between two recorded timing events.  When it
-        is resolved, ``on_done(seconds)`` receives its device time (metrics
-        count whether or not events are enabled) and, with events enabled
-        and an anchor set, a complete event lands on `DEVICE_TID`."""
-        self._pending.append((name, start, end, on_done, cat, args))
+    def device_interval(self, name: str, start, end, on_done=None, cat: str = "engine", *,
+                        tid: int = DEVICE_TID, card: int = 0, **args) -> None:
+        """Queue the interval between two timing events recorded on card
+        ``card`` (its CUDA index).  When it is resolved, ``on_done(seconds)``
+        receives its device time (metrics count whether or not events are
+        enabled) and, with events enabled and the card anchored, a complete
+        event lands on track ``tid``."""
+        self._pending.append((name, start, end, on_done, cat, tid, card, args))
 
     def poll_device(self, block: bool = False) -> None:
         """Resolve the queued device intervals whose end event has
         completed, oldest first; with ``block`` wait for every one."""
         pending = self._pending
         while pending:
-            name, start, end, on_done, cat, args = pending[0]
+            name, start, end, on_done, cat, tid, card, args = pending[0]
             if not end.query():
                 if not block:
                     return
@@ -349,10 +359,10 @@ class Telemetry:
             dur_ms = start.elapsed_time(end)
             if on_done is not None:
                 on_done(dur_ms * 1e-3)
-            if self.enabled and self._anchor is not None:
-                anchor, t_us = self._anchor
+            if self.enabled and card in self._anchors:
+                anchor, t_us = self._anchors[card]
                 ts = t_us + anchor.elapsed_time(start) * 1e3
-                self._emit("X", name, ts, DEVICE_TID, cat, args, dur_ms * 1e3)
+                self._emit("X", name, ts, tid, cat, args, dur_ms * 1e3)
 
     # -- export ---------------------------------------------------------------
 

@@ -128,6 +128,13 @@ class _ScheduledJob:
     def total_remaining(self) -> int:
         return sum(self._segments[self._seg :]) - self._in_seg
 
+    def segment_betas(self, server) -> list[float] | None:
+        """The betas the job's slots take at the segment boundary just
+        reached, in slot order, where rewriting them is all its hook does:
+        the server then writes every such job's at once.  None (here) where
+        the job runs its own `on_segment`."""
+        return None
+
     def advance(self, k: int) -> bool:
         """Record ``k`` sweeps of progress; True iff a segment boundary was
         reached (the scheduler then runs `on_segment`)."""
@@ -321,20 +328,30 @@ class AnnealJob(_ScheduledJob):
 
     # -- scheduler interface --------------------------------------------------
 
-    def init_carries(self, server) -> list[sweep_engine.SweepCarry]:
+    def slot_seeds(self, server) -> list[np.ndarray]:
+        """The lane seeds of each of the job's slots (`init_carries`' rngs
+        are the generators seeded from them)."""
+        return [sweep_engine.lane_seeds(1, server.engine._slot_lanes(), self.seed)]
+
+    def init_carries(self, server, rngs) -> list[sweep_engine.SweepCarry]:
+        """The job's slot carries; ``rngs`` holds their generator states,
+        seeded by the server from `slot_seeds`."""
         return [
             server.engine.init_slot_carry(
                 seed=self.seed,
                 spins=self._init_spins,
                 beta=self._beta(server, 0),
                 model=self.model,
+                rng_state=rngs[0],
             )
         ]
 
+    def segment_betas(self, server) -> list[float]:
+        return [] if self.done else [self.current_beta(server)]
+
     def on_segment(self, server, carry, slots):
-        if self.done:
-            return carry
-        return server.engine.set_slot_betas(carry, slots, [self.current_beta(server)])
+        betas = self.segment_betas(server)
+        return server.engine.set_slot_betas(carry, slots, betas) if betas else carry
 
     def finalize(self, server, slots) -> JobResult:
         eng, m = server.engine, self.model_on(server)
@@ -438,18 +455,25 @@ class PTJob(_ScheduledJob):
         self.swap_rng, self.swap_accept, self.swap_propose = (
             t.to(dev) for t in (self.swap_rng, self.swap_accept, self.swap_propose))
 
-    def init_carries(self, server) -> list[sweep_engine.SweepCarry]:
-        eng, m = server.engine, self.model_on(server)
-        lanes = eng._slot_lanes()
+    def slot_seeds(self, server) -> list[np.ndarray]:
+        """Each replica's lane seeds: ``lane_seeds(R, V, seed)`` cut a
+        replica at a time."""
+        lanes = server.engine._slot_lanes()
         seeds = sweep_engine.lane_seeds(self.num_slots, lanes, self.seed)
+        return [seeds[b * lanes : (b + 1) * lanes] for b in range(self.num_slots)]
+
+    def init_carries(self, server, rngs) -> list[sweep_engine.SweepCarry]:
+        """The replicas' slot carries; ``rngs`` holds their generator
+        states, seeded by the server from `slot_seeds`."""
+        eng, m = server.engine, self.model_on(server)
         self._to_device(eng.device)
         return [
             eng.init_slot_carry(
                 seed=self.seed,
                 spins=ising.init_spins(m, seed=self.seed * 1000 + b),
                 beta=float(self.betas[b]),
-                rng_seeds=seeds[b * lanes : (b + 1) * lanes],
                 model=self.model,
+                rng_state=rngs[b],
             )
             for b in range(self.num_slots)
         ]

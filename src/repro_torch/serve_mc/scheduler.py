@@ -9,14 +9,17 @@ the scheduler does the bookkeeping the card never sees:
   admit    ask the server's `AdmissionPolicy` which queued jobs enter the
            free slots (plus which active jobs to checkpoint-preempt for
            them); splice each admitted job's per-slot carry (spins,
-           fields, beta, RNG lane columns) into its slots.
+           fields, beta, RNG lane columns) into its slots.  The round's
+           fresh slots have their generators seeded in one vectorised
+           pass (`SweepEngine.seed_slot_rngs`).
   chunk    ``min(chunk_sweeps, min remaining-in-segment over active
            jobs)`` — chunks never cross a segment boundary, so per-job
            beta schedules land exactly where a solo run would put them.
            ``chunk_sweeps="adaptive"`` replaces the static knob with
            `AdaptiveChunker`.
-  hooks    jobs whose segment ended run `on_segment` (anneal jobs rewrite
-           their slot's beta).
+  hooks    jobs whose segment ended run `on_segment`; the anneal jobs'
+           hook is a beta rewrite (`segment_betas`), and the step writes
+           all of them in one `SweepEngine.set_slot_betas`.
   retire   finished jobs are finalized (`core/observables.py` summary of
            the extracted slot), their slots returned to the free list.
 
@@ -40,26 +43,31 @@ TELEMETRY: the server owns a `repro_torch.obs.Telemetry` registry that
 spans, one complete event per launch, async job lifecycles).  The spans
 of one step, all on tid 0 and nested under ``sched.step``:
 ``sched.admit`` (``sched.admit.plan``: the policy's plan and a mesh's
-rebalance; ``sched.admit.park``; ``sched.admit.init``: admitted jobs'
-slot carries built on the host; ``sched.admit.splice``: splice, resume
+rebalance; ``sched.admit.park``; ``sched.admit.init``: the round's
+generators seeded and admitted jobs' slot carries built on the host;
+``sched.admit.splice``: splice, resume
 and tenant tables), ``sched.launch`` (the launch's enqueue),
 ``sched.wait`` (the host waiting, on purpose, for the launch's end
 before retiring), ``sched.segment`` (the jobs' segment hooks; a ladder's
 swap phase is ``pt.swap`` inside) and ``sched.retire`` (finalize and the
 release of the slots).  Counters ``serve.slots_spliced`` (slots spliced
 or resumed by admission), ``serve.launch_device_s`` and
-``serve.launches_timed`` (the timed launches' device seconds and count).
-On one CUDA device with the kernels (``backend="cuda"``) and a static
-chunk, a launch is timed on the card by a pair of CUDA events that the
-kernel entries record right around their C calls (`ops.launch_timing`),
-resolved without blocking (at a later step, or where the host waits
-anyway: ``sched.wait``, the profiler's start and stop, `stats`, the end
-of `drain`, the exporters); its ``engine.launch`` box lands on the
-"device" track (tid 1) at its device start, and the step never calls
-`torch.cuda.synchronize`.  The mesh (the skew monitor's per-device ready
-times), the adaptive chunker (which needs each launch's time before the
-next), the plain version and CPU engines time a launch on the host, to
-its end, and keep ``engine.launch`` on tid 0.
+``serve.launches_timed`` (the timed launches' device seconds and count;
+on a mesh a launch counts its slowest device's seconds there, and each
+device's own under the label ``device=d``).  On CUDA devices with the
+kernels (``backend="cuda"``) and a static chunk, a launch is timed on the
+card by the pair of CUDA events that `SweepEngine.run` records right
+around the kernels' C calls (on a mesh a pair a device block, on its
+stream: `SweepEngine.block_events`), resolved without blocking (at a
+later step, or where the host waits anyway: ``sched.wait``, the
+profiler's start and stop, `stats`, the end of `drain`, the
+exporters); its ``engine.launch``
+box lands at its device start on the "device" track (tid 1), on a mesh
+on device d's track "device <d>" (tid 1 + d), and the step never calls
+`torch.cuda.synchronize` or waits for an event.  The adaptive chunker
+(which needs each launch's time before the next), the plain version and
+CPU engines time a launch on the host, to its end, and keep
+``engine.launch`` on tid 0.
 
 MULTI-TENANCY: ``multi_tenant=True`` builds a multi-tenant engine
 (``SweepEngine.create([model] * slots)``): every slot starts on the
@@ -82,12 +90,15 @@ onto one device when any has room and falls back to a spanning placement,
 a chunk-boundary rebalancer migrates single slots (park + resume) to
 clear a device for a queued ladder, and a PT ladder that spans devices
 swaps from gathered energies (`SweepEngine.slot_energies`).  With
-telemetry on, each launch's per-device ready times feed a
+telemetry on, each launch's per-device seconds feed a
 `obs.LaunchSkewMonitor` (``serve.straggler_events``, ``engine.straggler``
-events).  Placement changes which device a slot sits on, never what a
-job computes: D devices, any capacities, affine or flat, give the
-results of one device bit for bit, and every placement decision is the
-reference's.
+events): with the kernels and a static chunk each block's own device time
+from its CUDA events, once all of the launch's have resolved; else the
+host-timed ready times (`SweepEngine.device_ready_times`), which wait for
+every device after every launch.  Placement changes which device a slot
+sits on, never what a job computes: D devices, any capacities, affine or
+flat, give the results of one device bit for bit, and every placement
+decision is the reference's.
 
 OBSERVATION: ``stream=`` attaches an `obs.ObservableStream`, an opt-in
 per-chunk energy/magnetization/best-so-far tap over the active jobs (one
@@ -124,9 +135,8 @@ import torch
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import ising
 from repro_torch.core.engine import SweepEngine, normalize_capacities
-from repro_torch.kernels import ops
 from repro_torch.obs import LaunchSkewMonitor, Telemetry
-from repro_torch.obs.telemetry import DEVICE_TID
+from repro_torch.obs.telemetry import DEVICE_TID, card_index
 
 from repro_torch.serve_mc.jobs import JobResult
 
@@ -1053,18 +1063,30 @@ class SampleServer:
             capacities=self.engine.capacities,
         )
         self._skew = LaunchSkewMonitor(self.devices) if self.devices > 1 else None
-        # The kernels on one CUDA device with a static chunk: launches are
-        # timed by CUDA events on the card (module docstring), placed on the
-        # telemetry clock through an anchor taken now and renewed at
-        # `sched.wait`.
+        # Each mesh device's timed launches: its device seconds and count.
+        self._c_device_s = [tel.counter("serve.launch_device_s", device=d)
+                            for d in range(self.devices)] if self.devices > 1 else []
+        self._c_device_timed = [tel.counter("serve.launches_timed", device=d)
+                                for d in range(self.devices)] if self.devices > 1 else []
+        # The kernels on CUDA devices with a static chunk: launches are
+        # timed by CUDA events on the card (module docstring), each device's
+        # on its own track, placed on the telemetry clock through one anchor
+        # a card, taken now and renewed at `sched.wait`.
         self._event_timing = (
             self.engine.device.type == "cuda" and self.engine.backend == "cuda"
-            and self.engine.mesh is None and self._chunker is None
+            and self._chunker is None
         )
-        self._last_end = None  # the end event of the newest timed launch
+        self._last_end: list = []  # the end events of the newest timed launch
         if self._event_timing:
-            tel.name_thread(DEVICE_TID, "device")
-            tel.anchor_device(self.engine.device)
+            mesh = self.engine.mesh
+            devs = list(mesh or [self.engine.device])
+            self._cards = list(dict.fromkeys(devs))
+            # (track, card) of each device: "device" on one, "device <d>" on a mesh.
+            self._tracks = [(DEVICE_TID + d, card_index(dev)) for d, dev in enumerate(devs)]
+            for d, (tid, _) in enumerate(self._tracks):
+                tel.name_thread(tid, "device" if mesh is None else f"device {d}")
+            for dev in self._cards:
+                tel.anchor_device(dev)
         # Queue-wait samples (user, priority, wait_s, wait_sweeps), taken
         # at FIRST admission; bounded so a resident server never grows it
         # without limit.
@@ -1200,8 +1222,15 @@ class SampleServer:
             with tel.span("sched.admit.park"):
                 for job in preempts:
                     self._park(job)
+        fresh = [job for job, _ in admits if job.parked is None]
+        rngs = {}  # a fresh job's slot generators, seeded in one pass
+        if fresh:
+            with tel.span("sched.admit.init"):
+                seeds = [job.slot_seeds(self) for job in fresh]
+                states = iter(self.engine.seed_slot_rngs([r for rows in seeds for r in rows]))
+                rngs = {id(job): [next(states) for _ in rows] for job, rows in zip(fresh, seeds)}
         for job, slots in admits:
-            self._place(job, slots)
+            self._place(job, slots, rngs.get(id(job)))
 
     def _park(self, job) -> None:
         """Checkpoint-preempt an active job: extract each slot's carry into
@@ -1215,9 +1244,10 @@ class SampleServer:
             "job", job.jid, phase="park", reason="preempt", sweeps_done=job.sweeps_done
         )
 
-    def _place(self, job, placement=None) -> None:
-        """Splice a job into free slots: fresh init on first admission,
-        parked-state resume after a preemption."""
+    def _place(self, job, placement, rngs) -> None:
+        """Splice a job into free slots: fresh init on first admission
+        (``rngs``: its slots' generators, seeded by `_admit`), parked-state
+        resume after a preemption."""
         if placement is None:
             if job.num_slots > self._pool.total_free:
                 raise RuntimeError(
@@ -1245,7 +1275,7 @@ class SampleServer:
             job.parked = None
         else:
             with tel.span("sched.admit.init"):
-                carries = job.init_carries(self)
+                carries = job.init_carries(self, rngs)
             with tel.span("sched.admit.splice"):
                 for b, slot_carry in zip(taken, carries):
                     if self.multi_tenant:
@@ -1409,35 +1439,21 @@ class SampleServer:
         tel.instant("profiler.stop", path=path)
 
     def _launch(self, chunk: int):
-        """Enqueue one engine launch and count it.  On one CUDA device with
-        telemetry on and a static chunk, a pair of CUDA events around the
-        launch goes onto the telemetry's device track (resolved later,
-        without blocking) and None is returned.  Otherwise ``(t0, warm)``
-        when the launch is to be timed on the host (telemetry on, or an
-        adaptive chunker), which `_settle_launch` waits for and records,
-        else None."""
+        """Enqueue one engine launch and count it.  On CUDA devices with
+        the kernels, telemetry on and a static chunk, the engine's CUDA
+        event pair around the launch (on a mesh, around each device
+        block's) goes onto the telemetry's device track (resolved later,
+        without blocking) and None is returned.  Otherwise ``(t0, warm)`` when the launch is to be
+        timed on the host (telemetry on, or an adaptive chunker), which
+        `_settle_launch` waits for and records, else None."""
         tel = self.telemetry
         if self._profiler is not None and self._profiler["prof"] is None:
             self._start_profiler()
         warm = chunk in self._warm_chunks
         pending = None
         if self._event_timing and tel.enabled:
-            # The kernel entries record the pair right around their C calls
-            # (`ops.launch_timing`): the box is the kernel's, not the host's
-            # Python before it.
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            ops.launch_timing = [start, end, False]
-            try:
-                self.carry = self.engine.run(self.carry, chunk)
-            finally:
-                ops.launch_timing = None
-            self._last_end = end
-            tel.device_interval(
-                "engine.launch", start, end,
-                lambda dt: self._observe_launch(chunk, warm, dt),
-                chunk=chunk, jobs=len(self._active), devices=self.devices, compile=not warm,
-            )
+            self.carry = self.engine.run(self.carry, chunk)
+            self._queue_blocks(chunk, warm)
         else:
             if self._chunker is not None or tel.enabled:
                 pending = (time.perf_counter(), warm)
@@ -1448,11 +1464,62 @@ class SampleServer:
         self._c_sweeps.add(chunk)
         return pending
 
+    def _queue_blocks(self, chunk: int, warm: bool) -> None:
+        """Queue each device block's launch interval (`SweepEngine.
+        block_events`) on its device's track.  Once all of the launch's
+        have resolved, the slowest block's seconds count as the launch's.
+        On a mesh each resolved interval also counts on its device's
+        labelled counters, and the launch's per-device seconds feed the
+        skew monitor (a device that launched nothing reads 0)."""
+        tel = self.telemetry
+        mesh = self.devices > 1
+        events = self.engine.block_events()
+        times = np.zeros(self.devices)
+        left = sum(ev is not None for ev in events)
+
+        def resolved(d):
+            def on_done(dt):
+                nonlocal left
+                times[d], left = dt, left - 1
+                if mesh:
+                    self._observe_device(d, dt)
+                if not left:
+                    self._observe_launch(chunk, warm, float(times.max()))
+                    if mesh:
+                        self._check_skew(times)
+            return on_done
+
+        for d, ev in enumerate(events):
+            if ev is not None:
+                tid, card = self._tracks[d]
+                args = dict(chunk=chunk, jobs=len(self._active), devices=self.devices)
+                if mesh:
+                    args["device"] = d
+                tel.device_interval("engine.launch", *ev, resolved(d), tid=tid, card=card,
+                                    **args, compile=not warm)
+        self._last_end = [ev[1] for ev in events if ev is not None]
+
     def _observe_launch(self, chunk: int, warm: bool, dt: float) -> None:
         """Count one timed launch of ``dt`` seconds."""
         self._c_launch_s.add(dt)
         self._c_timed.add(1)
         self.telemetry.histogram("serve.launch_s", phase="steady" if warm else "compile").observe(dt)
+
+    def _observe_device(self, d: int, dt: float) -> None:
+        """Count mesh device ``d``'s share of a timed launch: ``dt`` seconds."""
+        self._c_device_s[d].add(dt)
+        self._c_device_timed[d].add(1)
+
+    def _check_skew(self, times) -> None:
+        """Feed one launch's per-device seconds to the skew monitor; count
+        and trace the devices it flags."""
+        flagged = self._skew.record(times)
+        if flagged:
+            self._c_straggler.add(len(flagged))
+            self.telemetry.instant(
+                "engine.straggler", cat="engine", devices=flagged,
+                times_s=[float(t) for t in times],
+            )
 
     def _settle_launch(self, chunk: int, pending) -> None:
         """Record a launch timed on the host; close an armed profiler window
@@ -1467,20 +1534,18 @@ class SampleServer:
     def _record_launch(self, chunk: int, pending) -> None:
         """Wait for a launch timed on the host and record its wall time.  On
         a mesh with telemetry on, the launch's per-device ready times
-        (`SweepEngine.device_ready_times`) feed the skew monitor, so one
-        straggling device is flagged, not averaged into the wall time."""
+        (`SweepEngine.device_ready_times`) count on each launching device's
+        labelled counters and feed the skew monitor, so one straggling
+        device is flagged, not averaged into the wall time."""
         t0, warm = pending
         tel = self.telemetry
         if self._skew is not None and tel.enabled:
             times = self.engine.device_ready_times(self.carry, t0)
             dt = float(times.max())
-            flagged = self._skew.record(times)
-            if flagged:
-                self._c_straggler.add(len(flagged))
-                tel.instant(
-                    "engine.straggler", cat="engine", devices=flagged,
-                    times_s=[float(t) for t in times],
-                )
+            for d, t in enumerate(times):
+                if self.engine.capacities[d]:
+                    self._observe_device(d, float(t))
+            self._check_skew(times)
         else:
             if self.engine.device.type == "cuda":
                 for dev in sorted({str(d) for d in (self.engine.mesh or [self.engine.device])}):
@@ -1500,18 +1565,20 @@ class SampleServer:
         )
 
     def _wait_launch(self) -> None:
-        """The host waits, on purpose, for the newest launch's end event
-        (`sched.wait`) before retirement's first device-to-host copy, so
-        that `sched.retire` holds host work only; every queued launch is
-        resolved and the device track's clock anchor renewed meanwhile.
+        """The host waits, on purpose, for the newest launch's end event of
+        every device (`sched.wait`) before retirement's first device-to-host
+        copy, so that `sched.retire` holds host work only; every queued
+        launch is resolved and each card's clock anchor renewed meanwhile.
         A launch timed on the host has been waited for already."""
         tel = self.telemetry
         with tel.span("sched.wait"):
-            end, self._last_end = self._last_end, None
-            if end is not None:
-                end.synchronize()
+            ends, self._last_end = self._last_end, []
+            if ends:
+                for end in ends:
+                    end.synchronize()
                 tel.poll_device(block=True)
-                tel.anchor_device(self.engine.device)
+                for dev in self._cards:
+                    tel.anchor_device(dev)
 
     def step(self) -> List[JobResult]:
         """One scheduling round: admit, one chunked launch, hooks, retire.
@@ -1554,14 +1621,22 @@ class SampleServer:
             if boundary:
                 # Every hook runs before any retirement: a job's hook and
                 # finalize touch its own slots only, so the order between
-                # jobs changes nothing.
+                # jobs changes nothing, and the beta rewrites go as one.
                 retiring = [jid for jid in boundary if self._active[jid][0].done]
                 if retiring:
                     self._wait_launch()
                 with tel.span("sched.segment"):
+                    rows, betas = [], []
                     for jid in boundary:
                         job, taken = self._active[jid]
-                        self.carry = job.on_segment(self, self.carry, taken)
+                        new = job.segment_betas(self)
+                        if new is None:
+                            self.carry = job.on_segment(self, self.carry, taken)
+                        else:
+                            rows += taken[: len(new)]
+                            betas += new
+                    if rows:
+                        self.carry = self.engine.set_slot_betas(self.carry, rows, betas)
                 if retiring:
                     with tel.span("sched.retire"):
                         for jid in retiring:

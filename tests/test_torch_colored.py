@@ -180,6 +180,9 @@ def test_slot_round_trips_match_jax(V, n, L, rung):
     # Fresh slot carries agree, splice into slot 1, set slot 2's beta.
     js, ts = je.init_slot_carry(seed=9, beta=0.8), te.init_slot_carry(seed=9, beta=0.8)
     _carry_equal(js, ts, "slot carry")
+    # Seeded beside other slots in one pass, the slot's generators are the same.
+    rngs = te.seed_slot_rngs([engine.lane_seeds(1, V, s) for s in (3, 9, 4)])
+    _carry_equal(js, te.init_slot_carry(seed=9, beta=0.8, rng_state=rngs[1]), "batch-seeded")
     jc, tc = je.splice_slot(jc, 1, js), te.slot(1).splice(tc, ts)
     jc, tc = je.set_slot_betas(jc, [2], [1.7]), te.set_slot_betas(tc, [2], [1.7])
     _carry_equal(jc, tc, "spliced")
@@ -275,6 +278,8 @@ def test_engine_rejects_model_lists_slots_and_slot_models():
         eng.init_slot_carry(seed=1, model=m)
     with pytest.raises(ValueError, match="rng_seeds"):
         eng.init_slot_carry(seed=1, rng_seeds=np.zeros(3, np.uint32))
+    with pytest.raises(ValueError, match="rng_state"):
+        eng.init_slot_carry(seed=1, rng_state=torch.zeros((624, 3), dtype=torch.int32))
     other = _pair(5, 16)[1]
     with pytest.raises(ValueError, match="lane shape"):
         eng.check_model(other)

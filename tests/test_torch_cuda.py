@@ -662,6 +662,65 @@ def test_mesh_server_on_the_card_equals_one_device():
             np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")
 
 
+@pytest.mark.parametrize("cards", [1, 4], ids=["logical", "cards"])
+def test_mesh_launches_timed_per_device_by_events_without_a_wait(monkeypatch, cards):
+    """A served mesh of four devices (four logical devices of the card, or
+    four cards) with the kernels and a static chunk takes the event-timed
+    path: a step that retires nothing neither synchronizes a card nor waits
+    for an event; each device counts its own launches; each device's
+    launch boxes sit on its own track "device <d>" of the exported trace;
+    the jobs, ramped schedules among them, equal one device's bit for bit."""
+    _need_card()
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    from repro_torch.launch.mesh import SlotMesh, make_slot_mesh
+    from repro_torch.obs import validate_events
+
+    mesh = SlotMesh(["cuda:0"] * 4) if cards == 1 else make_slot_mesh(4)
+    m = ising.random_layered_model(n=8, L=256, seed=5, beta=1.0)
+    srv = SampleServer(m, slots=8, chunk_sweeps=4, mesh=mesh)
+    one = SampleServer(m, slots=8, chunk_sweeps=4, telemetry=False)
+    assert srv._event_timing and srv.engine.backend == "cuda"
+    for s in (srv, one):
+        for i in range(12):
+            s.submit(AnnealJob(20 + i, [(4 * (1 + i % 3), 0.1 + 0.4 * k) for k in range(1 + i % 4)]))
+    calls = []
+    real_sync, real_wait = torch.cuda.synchronize, torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append("synchronize"), real_sync(*a, **k))[1])
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda ev: (calls.append("event"), real_wait(ev))[1])
+    got, quiet = [], 0
+    while srv.num_active or srv.num_queued:
+        before = len(calls)
+        done = srv.step()
+        got.extend(done)
+        if not done:
+            quiet += 1
+            assert calls[before:] == []
+    monkeypatch.undo()
+    assert quiet > 0 and len(got) == 12
+    want = {r.jid: r for r in one.drain()}
+    for r in got:
+        np.testing.assert_array_equal(r.spins, want[r.jid].spins)
+        np.testing.assert_array_equal(r.energy, want[r.jid].energy)
+        assert r.extras["final_beta"] == want[r.jid].extras["final_beta"]
+    tel = srv.telemetry
+    srv.stats()  # resolves what is still queued
+    assert len(tel._pending) == 0 and tel.value("serve.launches_timed") == srv.launches
+    for d in range(4):
+        assert tel.value("serve.launches_timed", device=d) == srv.engine.device_launches[d] \
+            == srv.launches
+        assert tel.value("serve.launch_device_s", device=d) > 0
+    events = tel.chrome_trace()["traceEvents"]
+    validate_events(events)
+    tracks = {e["tid"]: e["args"]["name"] for e in events if e["name"] == "thread_name"}
+    boxes = [e for e in events if e["name"] == "engine.launch"]
+    for d in range(4):
+        assert tracks[1 + d] == f"device {d}"
+        assert sum(e["tid"] == 1 + d and e["args"]["device"] == d for e in boxes) == srv.launches
+
+
 # -- the LM server (chip_smoke.py phase 10's twins, at the smoke sizes) -------------
 
 LM_DENSE = ["qwen2.5-14b", "deepseek-coder-33b", "gemma-2b", "command-r-35b", "internvl2-26b"]

@@ -232,6 +232,8 @@ def test_flat_slot_round_trips_match_jax(rung):
     js, ts = je.init_slot_carry(seed=9, beta=0.8), te.init_slot_carry(seed=9, beta=0.8)
     _carry_equal(js, ts, "slot carry")
     assert tuple(ts.rng.shape) == (624, 1)
+    rngs = te.seed_slot_rngs([engine.lane_seeds(1, 1, s) for s in (9, 2)])
+    _carry_equal(js, te.init_slot_carry(seed=9, beta=0.8, rng_state=rngs[0]), "batch-seeded")
     jc, tc = je.splice_slot(jc, 1, js), te.slot(1).splice(tc, ts)
     jc, tc = je.set_slot_betas(jc, [2], [1.7]), te.set_slot_betas(tc, [2], [1.7])
     _carry_equal(jc, tc, "spliced")

@@ -110,6 +110,43 @@ def test_served_equals_solo_engine_run():
     assert res[2].energy == observables.energies(tm, spins)
 
 
+def test_a_step_seeds_and_rewrites_betas_once_for_all_its_jobs():
+    """An admission round seeds every fresh slot's generators in one
+    `seed_slot_rngs` call and a step writes every anneal job's segment
+    betas in one `set_slot_betas` call, and the ramps served so equal the
+    reference's bit for bit."""
+    jm, tm = _models()
+    ramps = [dict(seed=40 + i, beta_start=0.2 + 0.1 * i, beta_end=1.5, steps=4,
+                  sweeps_per_step=CHUNK * (1 + i % 2)) for i in range(5)]
+    js = JServer(jm, slots=SLOTS, chunk_sweeps=CHUNK, backend="jnp", V=V)
+    ts = SampleServer(tm, slots=SLOTS, chunk_sweeps=CHUNK, backend="torch", V=V, device="cpu")
+    eng, calls = ts.engine, []
+    for name in ("seed_slot_rngs", "set_slot_betas"):
+        def counted(*a, _f=getattr(eng, name), _name=name):
+            calls.append((_name, len(a[0] if _name == "seed_slot_rngs" else a[1])))
+            return _f(*a)
+        setattr(eng, name, counted)
+    for kw in ramps:
+        js.submit(JAnneal.ramp(**kw))
+        ts.submit(AnnealJob.ramp(**kw))
+    want, got, per_step = {}, {}, []
+    while ts.num_active or ts.num_queued:
+        del calls[:]
+        got.update({r.jid: r for r in ts.step()})
+        per_step.append(list(calls))
+    want = {r.jid: r for r in js.drain()}
+    for step in per_step:
+        assert [n for n, _ in step].count("seed_slot_rngs") <= 1
+        assert [n for n, _ in step].count("set_slot_betas") <= 1
+    assert per_step[0][0] == ("seed_slot_rngs", SLOTS)
+    assert max(k for step in per_step for n, k in step if n == "set_slot_betas") == SLOTS
+    assert sorted(want) == sorted(got) == list(range(len(ramps)))
+    for jid, a in want.items():
+        np.testing.assert_array_equal(a.spins, got[jid].spins, err_msg=f"job {jid}")
+        assert a.energy == got[jid].energy, jid
+        assert a.extras["final_beta"] == got[jid].extras["final_beta"], jid
+
+
 def test_telemetry_never_changes_results():
     _, tm = _models()
     out = []

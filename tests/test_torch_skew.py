@@ -119,3 +119,100 @@ def test_a_straggling_device_is_counted_and_traced():
     events = [e for e in srv.telemetry.chrome_trace()["traceEvents"]
               if e.get("name") == "engine.straggler"]
     assert events and all(e["args"]["devices"] == [2] for e in events)
+
+
+@pytest.mark.parametrize("caps", [None, (3, 3, 2, 0)], ids=["d4", "zero"])
+def test_host_mesh_counts_each_devices_timed_launches(caps):
+    """On the host path every launching device counts its launches and its
+    ready times under the label ``device=d``; the unlabelled counters keep
+    one entry a launch, the slowest device's time."""
+    srv, _ = _drain(caps)
+    tel = srv.telemetry
+    launched = [d for d, c in enumerate(srv.engine.capacities) if c]
+    assert tel.value("serve.launches_timed") == srv.launches > 0
+    for d in range(4):
+        want = srv.launches if d in launched else 0
+        assert tel.value("serve.launches_timed", device=d) == want, d
+        assert (tel.value("serve.launch_device_s", device=d) > 0) == (d in launched), d
+    total = tel.value("serve.launch_device_s")
+    assert max(tel.value("serve.launch_device_s", device=d) for d in launched) <= total + 1e-12
+
+
+class _Event:
+    """A recorded CUDA timing event's stand-in: a device time in ms."""
+
+    def __init__(self, t_ms):
+        self.t_ms = t_ms
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return other.t_ms - self.t_ms
+
+
+def test_mesh_event_intervals_count_per_device_and_feed_the_skew_monitor():
+    """The event-timed mesh path (`SampleServer._queue_blocks`), its card
+    events replaced: each block's interval counts on its device's labelled
+    counters, each launch adds its slowest block once to the unlabelled
+    ones, and the skew monitor gets every launch's per-device seconds
+    (device 3 of capacity 0 reads 0; device 2 lags from the ninth launch)."""
+    srv = SampleServer(MODEL, slots=8, chunk_sweeps=1, rung="cb", backend="torch", V=4,
+                       device="cpu", mesh=make_slot_mesh(4, "cpu"), capacities=(3, 3, 2, 0))
+    srv._event_timing, srv._cards = True, []
+    srv._tracks = [(1 + d, 0) for d in range(4)]
+    launches = []
+
+    def block_events():
+        k = len(launches)
+        launches.append(k)
+        ms = [1.0, 1.5, 2.0 + (100.0 if k >= 8 else 0.0)]
+        return [(_Event(10.0 * k), _Event(10.0 * k + t)) for t in ms] + [None]
+
+    srv.engine.block_events = block_events
+    srv.submit(AnnealJob.constant(seed=1, sweeps=12, beta=1.0))
+    srv.drain()
+    tel = srv.telemetry
+    assert len(launches) == srv.launches == 12 and srv._skew.launches == 12
+    for d, ms in enumerate([1.0, 1.5]):
+        assert tel.value("serve.launches_timed", device=d) == 12
+        assert tel.value("serve.launch_device_s", device=d) == pytest.approx(12 * ms * 1e-3)
+    assert tel.value("serve.launches_timed", device=3) == 0
+    assert tel.value("serve.launches_timed") == 12
+    assert tel.value("serve.launch_device_s") == pytest.approx((8 * 2.0 + 4 * 102.0) * 1e-3)
+    st = srv.stats()["telemetry"]
+    assert st["straggler_events"] == 4
+    events = [e for e in tel.chrome_trace()["traceEvents"] if e.get("name") == "engine.straggler"]
+    assert len(events) == 4 and all(e["args"]["devices"] == [2] for e in events)
+
+
+def test_one_device_event_intervals_count_as_before():
+    """The same event-timed path on one device, its card events replaced:
+    each launch's interval counts once on the unlabelled counters, no
+    ``device=d`` series or skew record appears, and the launch box lands
+    on the "device" track (tid 1) without a ``device`` argument."""
+    srv = SampleServer(MODEL, slots=2, chunk_sweeps=1, rung="cb", backend="torch", V=4,
+                       device="cpu")
+    srv._event_timing, srv._cards, srv._tracks = True, [], [(1, 0)]
+    srv.telemetry._anchors[0] = (_Event(0.0), 0.0)
+    launches = []
+
+    def block_events():
+        k = len(launches)
+        launches.append(k)
+        return [(_Event(10.0 * k), _Event(10.0 * k + 1.0 + 0.5 * (k % 2)))]
+
+    srv.engine.block_events = block_events
+    srv.submit(AnnealJob.constant(seed=1, sweeps=6, beta=1.0))
+    srv.drain()
+    tel = srv.telemetry
+    assert srv._skew is None and len(launches) == srv.launches == 6
+    assert tel.value("serve.launches_timed") == 6
+    assert tel.value("serve.launch_device_s") == pytest.approx(7.5e-3)
+    assert tel.value("serve.launches_timed", device=0) == 0
+    boxes = [e for e in tel.chrome_trace()["traceEvents"] if e.get("name") == "engine.launch"]
+    assert len(boxes) == 6 and all(e["tid"] == 1 and "device" not in e["args"] for e in boxes)
+    assert [e["ts"] for e in boxes] == [1e4 * k for k in range(6)]

@@ -253,7 +253,7 @@ class _Event:
 
 def test_device_intervals_resolve_in_order_without_blocking():
     tel = Telemetry()
-    tel._anchor = (_Event(10.0), 1000.0)  # device 10 ms is trace 1000 us
+    tel._anchors[0] = (_Event(10.0), 1000.0)  # device 10 ms is trace 1000 us
     tel.name_thread(telemetry_mod.DEVICE_TID, "device")
     got = []
     first = (_Event(12.0), _Event(12.5))
@@ -276,9 +276,31 @@ def test_device_intervals_resolve_in_order_without_blocking():
     assert got[2] == pytest.approx(0.25e-3) and len(tel.events()) == 2
 
 
+def test_device_intervals_of_each_card_land_on_its_track():
+    """A slot mesh's intervals: each placed from its own card's anchor, on
+    the track it names; a card with no anchor counts and emits no box."""
+    tel = Telemetry()
+    tel._anchors[0] = (_Event(10.0), 1000.0)
+    tel._anchors[1] = (_Event(50.0), 2000.0)
+    got = []
+    tel.device_interval("engine.launch", _Event(12.0), _Event(13.0), got.append,
+                        tid=telemetry_mod.DEVICE_TID, card=0, device=0)
+    tel.device_interval("engine.launch", _Event(51.0), _Event(53.0), got.append,
+                        tid=telemetry_mod.DEVICE_TID + 1, card=1, device=1)
+    tel.device_interval("engine.launch", _Event(7.0), _Event(7.5), got.append,
+                        tid=telemetry_mod.DEVICE_TID + 2, card=2, device=2)
+    tel.poll_device()
+    assert got == [pytest.approx(1e-3), pytest.approx(2e-3), pytest.approx(0.5e-3)]
+    boxes = [e for e in tel.events() if e["name"] == "engine.launch"]
+    assert [(e["tid"], e["ts"], e["dur"], e["args"]["device"]) for e in boxes] == [
+        (1, pytest.approx(3000.0), pytest.approx(1000.0), 0),
+        (2, pytest.approx(3000.0), pytest.approx(2000.0), 1),
+    ]
+
+
 def test_exporters_resolve_queued_intervals():
     tel = Telemetry()
-    tel._anchor = (_Event(0.0), 0.0)
+    tel._anchors[0] = (_Event(0.0), 0.0)
     got = []
     for name in ("events", "metrics_snapshot", "prometheus_text", "chrome_trace"):
         tel.device_interval("engine.launch", _Event(1.0), _Event(2.0, done=False), got.append)
