@@ -455,6 +455,10 @@ class SweepEngine:
         self._started = [None] * D
         self._ready = [None] * D
         self._energy_tabs: dict = {}  # base-model energy tables per device
+        # `retire_rows`: the lane-to-flat index per device, a pinned host
+        # buffer per device block (on the card).
+        self._flat_index: dict = {}
+        self._retire_bufs: dict = {}
 
     # -- construction ---------------------------------------------------------
 
@@ -802,6 +806,63 @@ class SweepEngine:
             blk.betas[l : l + 1].to(self.device)
             for blk, l in (self.slot_row(carry, b) for b in slots)
         ])
+
+    def retire_rows(self, carry, slots) -> tuple[np.ndarray, np.ndarray]:
+        """The spins (K, N) float32, flat layer-major, and the betas (K,)
+        float32 of the given logical slots, in order, as host numpy: what
+        ``spins_flat(extract_slot(carry, b))[0]`` and `gather_betas` give,
+        bit for bit, read in one pass.  Each device block holding some of
+        the slots makes one indexed gather of their rows, the lane-to-flat
+        permutation applied there, and one copy to the host (on the card
+        non-blocking, into pinned memory); the host then waits once for
+        every device.  Pure reads; a mesh's padding rows are never read."""
+        slots = [int(b) for b in slots]
+        groups: dict = {}  # device block -> (positions in ``slots``, rows there)
+        for i, b in enumerate(slots):
+            d, l = self._locate(b)
+            pos, rows = groups.setdefault(d, ([], []))
+            pos.append(i)
+            rows.append(l)
+        n = self.model.num_spins
+        out, cards = [], set()
+        for d, (pos, rows) in groups.items():
+            blk = carry if self.mesh is None else carry.blocks[d]
+            out.append((pos, self._retire_block(d, blk, rows)))
+            if blk.spins.device.type == "cuda":
+                cards.add(blk.spins.device)
+        for dev in cards:
+            torch.cuda.current_stream(dev).synchronize()
+        spins = np.empty((len(slots), n), np.float32)
+        betas = np.empty(len(slots), np.float32)
+        for pos, part in out:
+            host = part.numpy()
+            spins[pos], betas[pos] = host[:, :n], host[:, n]
+        return spins, betas
+
+    def _retire_block(self, d: int, blk: SweepCarry, rows: list) -> torch.Tensor:
+        """`retire_rows`' part on device block ``d``: the rows' flat spins
+        with their betas as a last column, (k, N + 1) float32 on the host
+        (on the card in block ``d``'s pinned buffer, the copy in flight)."""
+        dev = blk.spins.device
+        idx = torch.tensor(rows, dtype=torch.int64)
+        if dev.type == "cuda":
+            idx = idx.pin_memory().to(dev, non_blocking=True)
+        x = blk.spins.index_select(0, idx).reshape(len(rows), -1)
+        if self.rung in LANE_RUNGS:
+            key = str(dev)
+            if key not in self._flat_index:
+                perm = reorder.flat_to_lane_perm(self.model.n, self.model.L, self.V)
+                self._flat_index[key] = torch.from_numpy(np.argsort(perm)).to(dev)
+            x = x.index_select(1, self._flat_index[key])
+        x = torch.cat([x, blk.betas.index_select(0, idx)[:, None]], dim=1)
+        if dev.type != "cuda":
+            return x
+        buf = self._retire_bufs.get(d)
+        if buf is None or buf.numel() < x.numel():
+            buf = self._retire_bufs[d] = torch.empty(x.numel(), dtype=x.dtype, pin_memory=True)
+        host = buf[: x.numel()].view(x.shape)
+        host.copy_(x, non_blocking=True)
+        return host
 
     # -- per-slot splice/extract (the serve scheduler's admit/retire API) ------
 

@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.core import convert
 from repro_torch.core import engine as sweep_engine
-from repro_torch.core import ising, mt19937, observables, tempering
+from repro_torch.core import ising, mt19937, tempering
 from repro_torch.kernels import ops
 
 
@@ -54,6 +54,19 @@ class JobResult(NamedTuple):
     sweeps_done: int
     chunks: int  # fused launches this job rode in
     extras: dict
+
+
+class RetiredRows(NamedTuple):
+    """A retiring job's share of the step's retirement pass, host numpy in
+    the job's slot order (`SampleServer._retire`): its slots' flat spins
+    (k, N) float32 and betas (k,) float32 (`SweepEngine.retire_rows`), and
+    the float64 energies and magnetizations of those spins
+    (`core.observables`, evaluated over the pass's stack)."""
+
+    spins: np.ndarray
+    betas: np.ndarray
+    energy: np.ndarray
+    magnetization: np.ndarray
 
 
 class _ScheduledJob:
@@ -353,19 +366,16 @@ class AnnealJob(_ScheduledJob):
         betas = self.segment_betas(server)
         return server.engine.set_slot_betas(carry, slots, betas) if betas else carry
 
-    def finalize(self, server, slots) -> JobResult:
-        eng, m = server.engine, self.model_on(server)
-        sub = eng.extract_slot(server.carry, slots[0])
-        spins = eng.spins_flat(sub)[0]
+    def finalize(self, rows: RetiredRows) -> JobResult:
         return JobResult(
             jid=self.jid,
-            spins=spins,
-            energy=observables.energies(m, spins),
-            magnetization=observables.magnetization(spins),
+            spins=rows.spins[0],
+            energy=float(rows.energy[0]),
+            magnetization=float(rows.magnetization[0]),
             sweeps_done=self.sweeps_done,
             chunks=self.chunks,
             extras={
-                "final_beta": float(sub.betas[0].item()),
+                "final_beta": float(rows.betas[0]),
                 "preemptions": self.preemptions,
             },
         )
@@ -546,21 +556,18 @@ class PTJob(_ScheduledJob):
         )
         return eng._replace_block(carry, slots[0], blk._replace(betas=betas))
 
-    def finalize(self, server, slots) -> JobResult:
-        eng, m = server.engine, self.model_on(server)
-        spins = np.stack(
-            [eng.spins_flat(eng.extract_slot(server.carry, b))[0] for b in slots]
-        )
-        betas = eng.gather_betas(server.carry, slots).cpu().numpy()
+    def finalize(self, rows: RetiredRows) -> JobResult:
+        """The ladder's result; the swap counts are read from the device
+        here, once a ladder."""
         return JobResult(
             jid=self.jid,
-            spins=spins,
-            energy=observables.energies(m, spins),
-            magnetization=observables.magnetization(spins),
+            spins=rows.spins,
+            energy=rows.energy,
+            magnetization=rows.magnetization,
             sweeps_done=self.sweeps_done,
             chunks=self.chunks,
             extras={
-                "betas": betas,
+                "betas": rows.betas,
                 "swap_accept": int(self.swap_accept),
                 "swap_propose": int(self.swap_propose),
                 "preemptions": self.preemptions,

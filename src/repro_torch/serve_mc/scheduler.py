@@ -20,8 +20,11 @@ the scheduler does the bookkeeping the card never sees:
   hooks    jobs whose segment ended run `on_segment`; the anneal jobs'
            hook is a beta rewrite (`segment_betas`), and the step writes
            all of them in one `SweepEngine.set_slot_betas`.
-  retire   finished jobs are finalized (`core/observables.py` summary of
-           the extracted slot), their slots returned to the free list.
+  retire   one pass a step: every retiring slot's spins and beta read in
+           one gather and copy a device (`SweepEngine.retire_rows`), the
+           `core/observables.py` summaries evaluated over that stack a
+           model at a time, each job finalized from its rows and its slots
+           returned to the free list.
 
 Determinism contract: a job's final spins/energy/RNG are bit-identical
 whether it ran solo or packed with arbitrary neighbours across
@@ -49,9 +52,11 @@ generators seeded and admitted jobs' slot carries built on the host;
 and tenant tables), ``sched.launch`` (the launch's enqueue),
 ``sched.wait`` (the host waiting, on purpose, for the launch's end
 before retiring), ``sched.segment`` (the jobs' segment hooks; a ladder's
-swap phase is ``pt.swap`` inside) and ``sched.retire`` (finalize and the
-release of the slots).  Counters ``serve.slots_spliced`` (slots spliced
-or resumed by admission), ``serve.launch_device_s`` and
+swap phase is ``pt.swap`` inside) and ``sched.retire`` (the retirement
+pass: the read, the observables, finalize and the release of the slots).
+Counters ``serve.slots_spliced`` (slots spliced or resumed by admission),
+``serve.retire_passes`` and ``serve.retired_slots`` (retirement passes
+and the slots they retired), ``serve.launch_device_s`` and
 ``serve.launches_timed`` (the timed launches' device seconds and count;
 on a mesh a launch counts its slowest device's seconds there, and each
 device's own under the label ``device=d``).  On CUDA devices with the
@@ -133,12 +138,12 @@ import numpy as np
 import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
-from repro_torch.core import ising
+from repro_torch.core import ising, observables
 from repro_torch.core.engine import SweepEngine, normalize_capacities
 from repro_torch.obs import LaunchSkewMonitor, Telemetry
 from repro_torch.obs.telemetry import DEVICE_TID, card_index
 
-from repro_torch.serve_mc.jobs import JobResult
+from repro_torch.serve_mc.jobs import JobResult, RetiredRows
 
 
 # -----------------------------------------------------------------------------
@@ -1049,6 +1054,10 @@ class SampleServer:
         # a snapshot (its layout is the reference's): a restore counts from 0.
         self._c_swap_fused = tel.counter("pt.swap_fused")
         self._c_spliced = tel.counter("serve.slots_spliced")
+        # Retirement passes that retired a slot, and the slots they retired:
+        # their ratio is the pass's stack height.
+        self._c_retire_passes = tel.counter("serve.retire_passes")
+        self._c_retired_slots = tel.counter("serve.retired_slots")
         # Timed launches: their device seconds (CUDA events on the card, the
         # host wall of the launch elsewhere) and how many were timed.
         self._c_launch_s = tel.counter("serve.launch_device_s")
@@ -1580,6 +1589,45 @@ class SampleServer:
                 for dev in self._cards:
                     tel.anchor_device(dev)
 
+    def _retire(self, retiring: list) -> List[JobResult]:
+        """The step's retirement pass, in ``retiring`` order: every retiring
+        slot's spins and beta read in one `SweepEngine.retire_rows` (one
+        gather and copy a device), the observables evaluated over that stack
+        a model at a time, each job finalized from its rows, its slots
+        released."""
+        tel = self.telemetry
+        jobs = [self._active[jid] for jid in retiring]
+        slots = [b for _, taken in jobs for b in taken]
+        spins, betas = self.engine.retire_rows(self.carry, slots)
+        parts, groups = [], {}  # each job's rows; id(model) -> (model, rows)
+        for job, taken in jobs:
+            lo = parts[-1].stop if parts else 0
+            parts.append(slice(lo, lo + len(taken)))
+            m = job.model_on(self)
+            groups.setdefault(id(m), (m, []))[1].extend(range(lo, lo + len(taken)))
+        energy, mag = np.empty(len(slots)), np.empty(len(slots))
+        for m, rows in groups.values():
+            stack = spins if len(rows) == len(slots) else spins[rows]
+            energy[rows] = observables.energies(m, stack)
+            mag[rows] = observables.magnetization(stack)
+        self._c_retire_passes.add(1)
+        self._c_retired_slots.add(len(slots))
+        completed = []
+        for jid, (job, taken), part in zip(retiring, jobs, parts):
+            rows = [x[part] for x in (spins, betas, energy, mag)]
+            if len(jobs) > 1:  # a job's own copies where others share the stack
+                rows = [x.copy() for x in rows]
+            completed.append(job.finalize(RetiredRows(*rows)))
+            self._pool.release_all(taken)  # raises on double-free
+            del self._active[jid]
+            self._retired.append(jid)
+            self._c_completed.add(1)
+            tel.async_end(
+                "job", jid, sweeps_done=job.sweeps_done,
+                chunks=job.chunks, preemptions=job.preemptions,
+            )
+        return completed
+
     def step(self) -> List[JobResult]:
         """One scheduling round: admit, one chunked launch, hooks, retire.
 
@@ -1639,17 +1687,7 @@ class SampleServer:
                         self.carry = self.engine.set_slot_betas(self.carry, rows, betas)
                 if retiring:
                     with tel.span("sched.retire"):
-                        for jid in retiring:
-                            job, taken = self._active[jid]
-                            completed.append(job.finalize(self, taken))
-                            self._pool.release_all(taken)  # raises on double-free
-                            del self._active[jid]
-                            self._retired.append(jid)
-                            self._c_completed.add(1)
-                            tel.async_end(
-                                "job", jid, sweeps_done=job.sweeps_done,
-                                chunks=job.chunks, preemptions=job.preemptions,
-                            )
+                        completed = self._retire(retiring)
             if (
                 self.snapshot_every_sweeps
                 and self.sweeps_elapsed - self._last_snapshot_sweep >= self.snapshot_every_sweeps

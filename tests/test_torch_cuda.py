@@ -662,6 +662,39 @@ def test_mesh_server_on_the_card_equals_one_device():
             np.testing.assert_array_equal(r.spins, want[jid].spins, err_msg=f"job {jid}")
 
 
+@pytest.mark.parametrize("layout", ["one", "logical"])
+def test_retire_rows_on_the_card_equals_spins_flat(layout):
+    """`retire_rows` on the card (a gather a device block, a non-blocking
+    copy into pinned memory, one wait) crosses as float32 and equals each
+    slot's ``spins_flat(extract_slot)`` and `gather_betas` bit for bit: the
+    paper's 115 slots on one device, four logical devices of the card; a
+    later, smaller call reuses the pinned buffers and leaves the first
+    call's arrays as they were."""
+    _need_card()
+    from repro_torch.launch.mesh import SlotMesh
+
+    m = ising.random_layered_model(n=96, L=256, seed=0, beta=1.0)
+    if layout == "one":
+        eng = engine.SweepEngine.create(m, rung="cb", batch=115, V=128, device="cuda")
+    else:
+        eng = engine.SweepEngine.create(m, rung="cb", batch=8, V=128, device="cuda",
+                                        mesh=SlotMesh(["cuda:0"] * 4), capacities=(4, 2, 1, 1))
+    B = eng.batch
+    carry = eng.set_slot_betas(eng.init_carry(seed=3), range(B), np.linspace(0.1, 3.0, B))
+    carry = eng.run(carry, 8)
+    slots = list(np.random.default_rng(1).permutation(B))
+    spins, betas = eng.retire_rows(carry, slots)
+    kept = spins.copy()
+    few = eng.retire_rows(carry, slots[:2])
+    assert spins.dtype == betas.dtype == np.float32
+    np.testing.assert_array_equal(spins, kept)
+    for i, b in enumerate(slots):
+        np.testing.assert_array_equal(spins[i], eng.spins_flat(eng.extract_slot(carry, b))[0])
+    np.testing.assert_array_equal(betas, eng.gather_betas(carry, slots).cpu().numpy())
+    np.testing.assert_array_equal(few[0], spins[:2])
+    np.testing.assert_array_equal(few[1], betas[:2])
+
+
 @pytest.mark.parametrize("cards", [1, 4], ids=["logical", "cards"])
 def test_mesh_launches_timed_per_device_by_events_without_a_wait(monkeypatch, cards):
     """A served mesh of four devices (four logical devices of the card, or

@@ -14,6 +14,9 @@ Held here, on rungs a4 and cb, single-model and multi-tenant:
   moved between meshes;
 * `slot_energies` equals D=1 bit for bit and the reference's within
   rtol 1e-5 (its float32 sums in XLA's order, ROADMAP §3d/§3o);
+* `retire_rows` (a retirement pass's read) equals each slot's
+  ``spins_flat(extract_slot)`` and `gather_betas`, one gather and copy a
+  device block, on one device and every mesh layout;
 * `normalize_capacities` and the mesh checks raise the reference's
   messages.
 """
@@ -119,6 +122,38 @@ def test_pool_moves_between_meshes(rung, multi):
         _, other, _ = _engines(rung, caps, multi)
         got = other.run(other.splice_pool(pool), 5)
         _pool_equal(other.extract_pool(got), one.extract_pool(want), f"onto {caps}")
+
+
+RETIRE = [("a2", "one")] + [(r, c) for r in ("a4", "cb") for c in ["one"] + list(CAPS)]
+
+
+@pytest.mark.parametrize("rung,layout", RETIRE, ids=[f"{r}-{c}" for r, c in RETIRE])
+def test_retire_rows_reads_what_extract_slot_reads(rung, layout):
+    """`retire_rows` makes one gather and copy a device block holding asked
+    slots and equals each slot's ``spins_flat(extract_slot)`` and
+    `gather_betas` bit for bit, float32, in the order asked (slots on
+    several devices, shuffled; a2 has no lane permutation); the carry is
+    left as it was."""
+    kw = dict(rung=rung, backend="torch", batch=8, V=4, device="cpu")
+    if layout != "one":
+        kw.update(mesh=make_slot_mesh(4, "cpu"), capacities=CAPS[layout])
+    eng = engine.SweepEngine.create(MODEL, **kw)
+    carry = eng.set_slot_betas(eng.init_carry(seed=4), range(8), np.linspace(0.3, 1.7, 8))
+    carry = eng.run(carry, 3)
+    before = eng.extract_pool(carry)
+    blocks = []
+    eng._retire_block = lambda d, blk, rows, _f=eng._retire_block: (
+        blocks.append(d), _f(d, blk, rows))[1]
+    slots = [6, 0, 3, 7, 1]
+    spins, betas = eng.retire_rows(carry, slots)
+    assert sorted(blocks) == sorted({eng._locate(b)[0] for b in slots})
+    assert spins.dtype == betas.dtype == np.float32
+    assert spins.shape == (len(slots), MODEL.num_spins) and betas.shape == (len(slots),)
+    for i, b in enumerate(slots):
+        np.testing.assert_array_equal(spins[i], eng.spins_flat(eng.extract_slot(carry, b))[0])
+    np.testing.assert_array_equal(betas, eng.gather_betas(carry, slots).numpy())
+    _pool_equal(eng.extract_pool(carry), before, "the carry after retire_rows")
+    assert eng.retire_rows(carry, [])[0].shape == (0, MODEL.num_spins)
 
 
 def test_normalize_capacities_equals_the_reference():

@@ -20,7 +20,9 @@ test_sharded.py, test_placement.py and test_hetero.py cases:
   reference's uninterrupted run, and a port snapshot finishes in the
   reference (at D=4, D=1 and [4, 2, 1, 1]) equal to the port's;
 * the CLI's ``--devices 4 --device cpu`` serves the reference CLI's
-  ``--devices 4`` job for job.
+  ``--devices 4`` job for job;
+* a step's retirement pass gathers and copies once on each device holding
+  a retiring slot.
 """
 
 import os
@@ -258,6 +260,48 @@ def test_mesh_server_equals_the_references(ref, name):
         assert st["pt_swap_cross"] == 7 and st["spanning"] >= 2
     if name.startswith("ragged"):
         assert st["spanning"] > 0 and st["pt_swap_cross"] > 0
+
+
+@pytest.mark.parametrize("name", ["sharded-a4", "sharded-cb", "ragged-cb", "multi"])
+def test_a_retirement_pass_gathers_once_a_device(ref, monkeypatch, name):
+    """On four logical host devices each step's retirement pass makes one
+    gather and copy on each device holding a retiring slot, and no other;
+    ``serve.retire_passes`` and ``serve.retired_slots`` count the passes
+    and the slots they retired; the results are the reference's."""
+    from repro_torch.core.engine import SweepEngine
+    from repro_torch.serve_mc import SampleServer
+
+    passes, servers = [], []
+    rows, block, retire = SweepEngine.retire_rows, SweepEngine._retire_block, \
+        SampleServer._retire
+
+    def counted_rows(eng, carry, slots):
+        passes.append(({eng.slot_device(b) for b in slots}, []))
+        return rows(eng, carry, slots)
+
+    def counted_block(eng, d, blk, at):
+        passes[-1][1].append(d)
+        return block(eng, d, blk, at)
+
+    def counted_retire(srv, retiring):
+        servers.append(srv)
+        return retire(srv, retiring)
+
+    monkeypatch.setattr(SweepEngine, "retire_rows", counted_rows)
+    monkeypatch.setattr(SweepEngine, "_retire_block", counted_block)
+    monkeypatch.setattr(SampleServer, "_retire", counted_retire)
+    got = _scenarios(_pkg("port"), name)
+    _assert_results_equal(got["results"], ref[name]["results"], name)
+    assert got["retired"] == ref[name]["retired"]
+    assert len(passes) == len(servers) > 0
+    for devices, gathered in passes:
+        assert sorted(gathered) == sorted(devices)
+    # A pass spanning devices (the multi scenario's jobs retire apart).
+    assert max(len(g) for _, g in passes) > 1 or name == "multi"
+    tel, n = servers[0].telemetry, 5 * 8
+    assert tel.value("serve.retire_passes") == len(passes)
+    assert tel.value("serve.retired_slots") == sum(
+        np.asarray(r[0]).size // n for r in got["results"].values())
 
 
 @pytest.mark.parametrize("name", SCENARIOS[:2] + SCENARIOS[4:6])

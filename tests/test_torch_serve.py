@@ -7,7 +7,8 @@ policies checkpoint-preempt — is served by the reference
 spins, energies, ``sweeps_done``, ``chunks``, ``final_beta``, the
 retirement order and the slot-sweep counters of ``stats()`` must be
 identical, on the rungs "cb" and "a4" (whose final pool also carries the
-incrementally updated fields).
+incrementally updated fields).  Anneals and a PT ladder retiring in one
+step share one retirement pass (one `SweepEngine.retire_rows`).
 """
 
 import dataclasses
@@ -21,13 +22,14 @@ import torch
 from repro.core import ising as jis
 from repro.launch import anneal_serve as jas
 from repro.serve_mc import AnnealJob as JAnneal
+from repro.serve_mc import PTJob as JPT
 from repro.serve_mc import SampleServer as JServer
 from repro.serve_mc.scheduler import SlotPool as JSlotPool
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.core import convert, engine, observables
 from repro_torch.launch import anneal_serve
 from repro_torch.obs.trace import validate_events
-from repro_torch.serve_mc import AnnealJob, SampleServer, SlotPool
+from repro_torch.serve_mc import AnnealJob, PTJob, SampleServer, SlotPool
 
 N, L, V, SLOTS, CHUNK = 5, 16, 4, 3, 4
 COUNTERS = ("launches", "busy_slot_sweeps", "total_slot_sweeps", "sweeps_elapsed",
@@ -145,6 +147,58 @@ def test_a_step_seeds_and_rewrites_betas_once_for_all_its_jobs():
         np.testing.assert_array_equal(a.spins, got[jid].spins, err_msg=f"job {jid}")
         assert a.energy == got[jid].energy, jid
         assert a.extras["final_beta"] == got[jid].extras["final_beta"], jid
+
+
+@pytest.mark.parametrize("case", ["cb", "a4", "cb-multi"])
+def test_one_retirement_pass_retires_anneals_and_a_ladder_together(case):
+    """Three anneals and a PT ladder of three replicas retire in one step:
+    one `retire_rows` call, one gather and copy on the one device, the
+    counters at the stack's height (6 slots, 1 pass), and every
+    `JobResult` equal field for field to the reference server's, in the
+    reference's retirement order.  On a multi-tenant server the jobs
+    sample three models, so the observables run a group a model."""
+    rung, multi = case[:2], case.endswith("multi")
+    jm, tm = _models()
+    jt = [None, jis.reseed_couplings(jm, 31), jis.reseed_couplings(jm, 32)]
+    tt = [None] + [convert.model_from_arrays(dataclasses.asdict(m)) for m in jt[1:]]
+    kw = dict(slots=6, chunk_sweeps=CHUNK, rung=rung, V=V, policy="fifo", multi_tenant=multi)
+    js = JServer(jm, backend="jnp", **kw)
+    ts = SampleServer(tm, backend="torch", device="cpu", **kw)
+    eng, calls = ts.engine, []
+    eng.retire_rows = lambda c, slots, _f=eng.retire_rows: (calls.append(["rows", slots]),
+                                                            _f(c, slots))[1]
+    eng._retire_block = lambda d, blk, rows, _f=eng._retire_block: (
+        calls[-1].append(d), _f(d, blk, rows))[1]
+    for srv, Anneal, PT, models in ((js, JAnneal, JPT, jt), (ts, AnnealJob, PTJob, tt)):
+        for i in range(3):
+            model = models[i] if multi else None
+            srv.submit(Anneal.constant(seed=60 + i, sweeps=2 * CHUNK, beta=0.6 + 0.3 * i,
+                                       model=model))
+        srv.submit(PT(seed=70, betas=np.linspace(0.5, 1.5, 3).astype(np.float32),
+                      num_rounds=2, sweeps_per_round=CHUNK, model=models[1] if multi else None))
+    assert ts.step() == []
+    got = {r.jid: r for r in ts.step()}
+    assert calls == [["rows", [0, 1, 2, 3, 4, 5], 0]]
+    tel = ts.telemetry
+    assert (tel.value("serve.retire_passes"), tel.value("serve.retired_slots")) == (1, 6)
+    want = {r.jid: r for r in js.drain()}
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    assert list(ts._retired) == list(js._retired)
+    for jid, a in want.items():
+        b = got[jid]
+        for f in ("spins", "energy", "magnetization", "sweeps_done", "chunks"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert type(np.asarray(x).item(0)) is type(np.asarray(y).item(0)), (jid, f)
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f"{jid} {f}")
+        assert np.asarray(b.spins).dtype == np.float32, jid
+        assert sorted(a.extras) == sorted(b.extras), jid
+        for k in a.extras:
+            np.testing.assert_array_equal(np.asarray(a.extras[k]), np.asarray(b.extras[k]),
+                                          err_msg=f"{jid} {k}")
+    assert isinstance(got[0].energy, float) and got[3].energy.shape == (3,)
+    # Each job holds its own arrays, not views of the pass's stack.
+    assert not any(np.shares_memory(got[i].spins, got[j].spins)
+                   for i in got for j in got if i < j)
 
 
 def test_telemetry_never_changes_results():

@@ -1,6 +1,7 @@
 """The port's telemetry inside the server: the spans of admission's parts,
 the launch, the wait, the segment hooks, the swap phase and retirement;
-the counters of spliced slots and timed launches; the tuple ring; the
+the counters of spliced slots, retirement passes and retired slots and
+timed launches; the tuple ring; the
 spans mirrored into a recording `torch.profiler`; launches timed on the
 card by CUDA events with no `torch.cuda.synchronize` in `step` (the one
 test marked ``cuda``, which skips without a card).
@@ -90,6 +91,11 @@ def test_counters_count_spliced_slots_and_timed_launches():
     # Two anneal jobs, the ladder's two slots, the urgent job, the ladder
     # resumed on two slots after the urgent job preempted it.
     assert tel.value("serve.slots_spliced") == sum(len(e["args"]["slots"]) for e in placed) == 7
+    # One retirement pass a step that retires: four such steps, five slots
+    # (the three anneal jobs and the ladder's two).
+    passes = [e for e in tel.events() if e["name"] == "sched.retire" and e["ph"] == "B"]
+    assert tel.value("serve.retire_passes") == len(passes) == 4
+    assert tel.value("serve.retired_slots") == 5
     assert tel.value("serve.launches_timed") == tel.value("serve.launches") == srv.launches > 0
     hist = tel.histogram("serve.launch_s", phase="steady").sum + \
         tel.histogram("serve.launch_s", phase="compile").sum
@@ -103,6 +109,7 @@ def test_counters_count_with_events_off():
     tel = srv.telemetry
     assert tel.num_events == 0
     assert tel.value("serve.slots_spliced") == 7
+    assert (tel.value("serve.retire_passes"), tel.value("serve.retired_slots")) == (4, 5)
     assert tel.value("serve.launches_timed") == 0 and tel.value("serve.launch_device_s") == 0
 
 
